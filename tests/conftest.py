@@ -67,6 +67,10 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "quick: fast subset (pure-python + small-jit modules), "
                    "run with `pytest -m quick`")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (compares a hand-written "
+                   "CUDA kernel with its plain PyTorch version); skips "
+                   "without one")
 
 
 def pytest_collection_modifyitems(config, items):
