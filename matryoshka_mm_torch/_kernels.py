@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``)
-into ONE shared library with a plain C interface, loaded with ``ctypes``.
-No PyTorch header is included, so the build takes seconds.  The library
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process for
+Hopper (``sm_90a``), all started together, and the objects are linked into
+ONE shared library with a plain C interface, loaded with ``ctypes``.  No
+PyTorch header is included, so the build takes seconds.  The library
 goes to ``build/kernels/`` at the repository root (git-ignored); its file
 name carries a hash of the sources and flags, so an edited source builds a
 new library and a stale one is never loaded.
@@ -34,7 +35,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+              "-Xcompiler", "-fPIC", "-lineinfo")
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -55,6 +56,18 @@ SIGNATURES = {
     "m3_decode_attention": [I, P, P, P, P, P, P, P, I, I, I, I, I,
                             LL, LL, LL, LL, LL, LL, LL, LL, LL, LL,
                             I, F, P],
+    # dtype, q, k, v, k_scale, v_scale, kv_valid, kv_pos, q_pos, out,
+    # B, H, Hkv, S, Dh, q strides (b, h), k strides (b, s, h),
+    # v strides (b, s, h), scale strides (b, s, h), kv_valid batch stride,
+    # kv_pos batch stride, window, scale, stream
+    "m3_decode_attention_int8": [I, P, P, P, P, P, P, P, P, P, I, I, I, I, I,
+                                 LL, LL, LL, LL, LL, LL, LL, LL, LL, LL, LL,
+                                 LL, LL, I, F, P],
+    # bits, x, w, scale, out, M, N, K, x row stride, out row stride, stream
+    "m3_quant_matmul": [I, P, P, P, P, I, I, I, LL, LL, P],
+    # bits, x, gateup, gateup scale, down, down scale, h, out, M, D, I,
+    # n_out, x row stride, out row stride, stream
+    "m3_quant_mlp": [I, P, P, P, P, P, P, P, I, I, I, I, LL, LL, P],
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -85,27 +98,49 @@ def library_path() -> Path:
 
 
 def build(verbose: bool = False) -> Path:
-    """Compile ``csrc/*.cu`` into the hashed library unless it exists.
-    Returns its path.  ``verbose`` adds ``-Xptxas -v`` (registers, shared
-    memory and spills of every kernel) and prints nvcc's output."""
+    """Compile ``csrc/*.cu`` into the hashed library unless it exists: one
+    ``nvcc -c`` per source, all running at once, then one link.  Returns
+    its path.  ``verbose`` adds ``-Xptxas -v`` (registers, shared memory
+    and spills of every kernel) and prints nvcc's output."""
     out = library_path()
     if out.exists() and not verbose:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, out)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = os.path.join(tmp, src.stem + ".o")
+            cmd = [_nvcc(), *NVCC_FLAGS,
+                   *(["-Xptxas", "-v"] if verbose else []),
+                   "-c", "-o", obj, str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        logs = []
+        try:
+            for cmd, _, proc in jobs:
+                _, err = proc.communicate()
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                       f"{' '.join(cmd)}\n{err}")
+                logs.append(err)
+        finally:
+            for _, _, proc in jobs:   # none outlives a failed build
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        lib = os.path.join(tmp, "lib.so")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-shared", "-o", lib,
+               *[obj for _, obj, _ in jobs]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stderr}")
+        os.replace(lib, out)
     if verbose:
         print(f"nvcc build {time.perf_counter() - t0:.1f}s -> {out}")
-        print(proc.stderr)
+        print("".join(logs))
     return out
 
 

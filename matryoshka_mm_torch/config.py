@@ -50,13 +50,18 @@ class LlamaConfig:
     arch: str = "llama"
     sliding_window: int = 0          # 0 = disabled
     tie_word_embeddings: bool = False
-    kv_cache_dtype: str = ""         # "" follows `dtype`
+    # "" follows `dtype`; "int8" stores KV slots int8 with a per-(slot,
+    # kv head) absmax scale (load_pretrained_model(kv_cache_dtype="int8"))
+    kv_cache_dtype: str = ""
     head_dim_override: int = 0
 
     def __post_init__(self):
         if self.attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl={self.attn_impl!r}; expected one of "
                              f"{ATTN_IMPLS}")
+        if self.kv_cache_dtype not in ("", self.dtype, "int8"):
+            raise ValueError(f"kv_cache_dtype={self.kv_cache_dtype!r}; "
+                             f"expected '', {self.dtype!r} or 'int8'")
 
     @property
     def head_dim(self) -> int:
@@ -170,6 +175,12 @@ class LlavaConfig:
         """The same configuration with ``llama.attn_impl`` replaced."""
         return dataclasses.replace(
             self, llama=dataclasses.replace(self.llama, attn_impl=impl))
+
+    def with_kv_cache_dtype(self, kv_cache_dtype: str) -> "LlavaConfig":
+        """The same configuration with ``llama.kv_cache_dtype`` replaced."""
+        return dataclasses.replace(
+            self, llama=dataclasses.replace(self.llama,
+                                            kv_cache_dtype=kv_cache_dtype))
 
     @classmethod
     def tiny_debug(cls, scales: Tuple[int, ...] = (1, 4, 16)

@@ -1,7 +1,7 @@
-// Helpers shared by the attention kernels: 16-byte vector loads and stores
-// between global memory (bf16 or f32) and f32 registers, and the rounding
-// of softmax probabilities to the value dtype before the PV product (the
-// JAX reference casts probabilities to v.dtype the same way).
+// Helpers shared by the kernels: 16-byte vector loads and stores between
+// global memory (bf16 or f32) and f32 registers, 8-byte int8 loads, and the
+// rounding of softmax probabilities to the value dtype before the PV
+// product (the JAX reference casts probabilities to v.dtype the same way).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -32,6 +32,24 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p, float* dst) {
     dst[2 * i] = f.x;
     dst[2 * i + 1] = f.y;
   }
+}
+
+// 8 int8 values (8 bytes) as floats
+__device__ __forceinline__ void load8(const int8_t* p, float* dst) {
+  const uint2 x = *reinterpret_cast<const uint2*>(p);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const uint32_t word = i < 4 ? x.x : x.y;
+    dst[i] = static_cast<float>(
+        static_cast<int8_t>((word >> (8 * (i & 3))) & 0xFF));
+  }
+}
+
+// N consecutive values of T (N a multiple of kVec<T>) as floats
+template <int N, typename T>
+__device__ __forceinline__ void load_n(const T* p, float* dst) {
+#pragma unroll
+  for (int i = 0; i < N; i += kVec<T>) load16(p + i, dst + i);
 }
 
 __device__ __forceinline__ void store16(float* p, const float* src) {

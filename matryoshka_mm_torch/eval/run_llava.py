@@ -61,7 +61,10 @@ def eval_model(args) -> str:
         get_model_name_from_path(args.model_path)
     tokenizer, model, image_processor, _ = load_pretrained_model(
         args.model_path, args.model_base, model_name,
-        device=getattr(args, "device", "cuda"))
+        load_8bit=getattr(args, "load_8bit", False),
+        load_4bit=getattr(args, "load_4bit", False),
+        device=getattr(args, "device", "cuda"),
+        kv_cache_dtype=getattr(args, "kv_cache_dtype", ""))
 
     qs = args.query
     image_token_se = DEFAULT_IM_START_TOKEN + DEFAULT_IMAGE_TOKEN + \
@@ -125,6 +128,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--model-base", type=str, default=None)
     parser.add_argument("--model-name", type=str, default=None)
     parser.add_argument("--device", type=str, default="cuda")
+    parser.add_argument("--load-8bit", action="store_true")
+    parser.add_argument("--load-4bit", action="store_true")
+    parser.add_argument("--kv-cache-dtype", type=str, default="",
+                        help='"" (the model dtype) or "int8"')
     parser.add_argument("--image-file", type=str, required=True)
     parser.add_argument("--query", type=str, required=True)
     parser.add_argument("--conv-mode", type=str, default=None)

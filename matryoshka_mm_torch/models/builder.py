@@ -3,9 +3,13 @@
 ``(tokenizer, model, image_processor, context_len)``.
 
 Sources: ``debug://tiny`` and ``debug://7b`` (random weights made on the
-device from a seed; no checkpoint is downloaded).  HF and orbax checkpoints,
-``load_8bit`` / ``load_4bit``, ``kv_cache_dtype="int8"`` and ``tp_size > 1``
-raise ``NotImplementedError`` naming their ROADMAP.md item.
+device from a seed; no checkpoint is downloaded).  ``load_4bit`` /
+``load_8bit`` quantize ``params["llama"]`` on the device leaf by leaf
+(``ops/quant.py`` ``quantize_llama_params``, the JAX ``maybe_quantize``;
+``quant_fuse=False`` keeps the unfused q/k/v and gate/up leaves), and
+``kv_cache_dtype="int8"`` gives the int8 KV cache.  HF and orbax
+checkpoints and ``tp_size > 1`` raise ``NotImplementedError`` naming their
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ from typing import Optional, Tuple
 from matryoshka_mm_tpu.image_processing import ClipImageProcessor
 
 from ..config import LlavaConfig
+from ..ops.quant import quantize_llama_params
 from .convert import init_params
 
 
@@ -132,18 +137,11 @@ def load_pretrained_model(
     kv_cache_dtype: str = "",
     tp_size: int = 0,
     seed: int = 0,
+    quant_fuse: bool = True,
     **kwargs,
 ) -> Tuple[object, LlavaModel, ClipImageProcessor, int]:
     """Returns ``(tokenizer, model, image_processor, context_len)`` with the
     weights on ``device``."""
-    if load_8bit or load_4bit:
-        raise NotImplementedError(
-            "load_8bit / load_4bit need the int8/int4 kernels, not ported "
-            "yet (ROADMAP.md Queue 1, item 5 and Queue 2, items 3-4)")
-    if kv_cache_dtype:
-        raise NotImplementedError(
-            f"kv_cache_dtype={kv_cache_dtype!r} is not ported yet "
-            f"(ROADMAP.md Queue 2, decode int8-KV branch)")
     if tp_size > 1:
         raise NotImplementedError(
             "tensor parallelism is not ported yet (ROADMAP.md Queue 1, "
@@ -161,9 +159,14 @@ def load_pretrained_model(
         raise NotImplementedError(
             f"debug model {which!r}: the port has debug://tiny and "
             f"debug://7b (router configs: ROADMAP.md Queue 1, item 4)")
+    if kv_cache_dtype:
+        cfg = cfg.with_kv_cache_dtype(kv_cache_dtype)
     s = cfg.vision.image_size
     image_processor = ClipImageProcessor(
         size={"shortest_edge": s}, crop_size={"height": s, "width": s})
     params = init_params(cfg, device=device, seed=seed)
+    if load_4bit or load_8bit:   # load_4bit wins, as in the JAX package
+        quantize_llama_params(params, bits=4 if load_4bit else 8,
+                              fuse=quant_fuse)
     return DebugTokenizer(cfg.llama.vocab_size), LlavaModel(params, cfg), \
         image_processor, cfg.tokenizer_model_max_length

@@ -9,7 +9,11 @@ Port layout (plain dicts of tensors):
 * ``vision_tower`` / ``mm_projector``: JAX dense leaves are
   ``{"kernel": (in, out), "bias"}`` and become ``{"weight": (out, in),
   "bias"}`` for ``F.linear``; ``patch_embedding`` stays the ``(3*P*P, D)``
-  matrix (one matmul, not a conv).
+  matrix (one matmul, not a conv);
+* quantized leaves (from the JAX ``maybe_quantize``, any ``fuse``) become
+  per-layer ``{"qint4" | "qint8", "scale"}`` dicts with their dtypes kept;
+  the TPU tile padding recorded in ``orig_shape`` is cut off (for int4 the
+  pad bytes sit after each half's ``K/2`` columns, so ``[:n, :k // 2]``).
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import numpy as np
 import torch
 
 from ..config import LlavaConfig, torch_dtype
+from ..ops.quant import Q4KEY, QKEY, is_quantized
 from .projector import projector_depth
 
 
@@ -35,13 +40,31 @@ def _tensor(a, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
 def _unstack(tree: dict, n: int) -> list:
     """Stacked ``{name: (n, ...)}`` tree -> list of n per-layer trees."""
     def pick(node, i):
+        if is_quantized(node):
+            return {k: v if k == "orig_shape" else v[i]
+                    for k, v in node.items()}
         if isinstance(node, dict):
             return {k: pick(v, i) for k, v in node.items()}
         return node[i]
     return [pick(tree, i) for i in range(n)]
 
 
+def strip_padding(leaf: dict) -> dict:
+    """A JAX quantized leaf (numpy) -> ``{key, "scale"}`` without the tile
+    padding.  ``orig_shape`` is read by attribute (``.n``, ``.k``)."""
+    key = Q4KEY if Q4KEY in leaf else QKEY
+    q, scale = np.asarray(leaf[key]), np.asarray(leaf["scale"])
+    shape = leaf.get("orig_shape")
+    if shape is not None:
+        k = shape.k // 2 if key == Q4KEY else shape.k
+        q, scale = q[..., :shape.n, :k], scale[..., :shape.n, :]
+    return {key: q, "scale": scale}
+
+
 def _map(tree, fn):
+    if is_quantized(tree):
+        return {k: fn(v, keep_dtype=True)
+                for k, v in strip_padding(tree).items()}
     if isinstance(tree, dict):
         if set(tree) == {"kernel", "bias"}:
             return {"weight": fn(np.asarray(tree["kernel"]).T),
@@ -55,9 +78,10 @@ def _map(tree, fn):
 def params_from_jax(np_tree: dict, cfg: LlavaConfig, device="cpu",
                     dtype: Optional[torch.dtype] = None) -> dict:
     """JAX LLaVA parameters (every leaf as a numpy array) -> port params.
-    ``dtype`` casts every leaf; None keeps each leaf's dtype."""
-    def fn(a):
-        return _tensor(a, device, dtype)
+    ``dtype`` casts every float leaf; None keeps each leaf's dtype.
+    Quantized leaves keep theirs."""
+    def fn(a, keep_dtype=False):
+        return _tensor(a, device, None if keep_dtype else dtype)
 
     llama = dict(np_tree["llama"])
     vis = dict(np_tree["vision_tower"])

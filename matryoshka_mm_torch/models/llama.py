@@ -16,7 +16,19 @@ The KV cache keeps the JAX layout ``(L, B, S_max, n_kv, Dh)`` with absolute
 positions per slot, so left-padded prefill and decode share one path.
 **Cache writes update the cache tensors in place**: ``llama_forward``
 returns the same :class:`KVCache` object, advanced, and a caller that wants
-the old state must copy it first.
+the old state must copy it first.  With ``kv_cache_dtype="int8"`` the slots
+are stored int8 with f32 per-(slot, kv head) scales ``(L, B, S_max, n_kv)``
+(the bytes of the JAX flat ``(L, B, S_max * n_kv)``, whose flat form exists
+only for the TPU compiler).
+
+Quantized weights (``ops/quant.py``): every dense weight, ``lm_head``
+included, goes through :func:`proj`, the port of the JAX ``proj`` +
+``fused_int4_proj``.  A quantized leaf with bf16 rows <= 1024 on a CUDA
+tensor, outside ``disable_fused_proj()``, launches ``int4_matmul`` /
+``int8_matmul``; everything else (other dtypes, more rows, the CPU)
+dequantizes to bf16 and multiplies, as the JAX package does off the TPU.
+The MLP of the fused layout takes ``quant_mlp`` under the JAX rule (rows
+<= 32, bf16, CUDA, fused kernels enabled).
 """
 
 from __future__ import annotations
@@ -30,6 +42,10 @@ import torch.nn.functional as F
 from ..config import LlamaConfig, torch_dtype
 from ..ops.attention import attention
 from ..ops.decode_attention import flash_decode_attention
+from ..ops.fused_mlp import MAX_ROWS as MLP_MAX_ROWS, quant_mlp
+from ..ops.int4_matmul import MAX_FUSED_ROWS, leaf_matmul
+from ..ops.quant import (Q4KEY, _quantize_kv_slots, dequantize_array,
+                         fused_proj_enabled, is_quantized)
 
 
 @dataclasses.dataclass
@@ -41,24 +57,28 @@ class KVCache:
     valid: torch.Tensor      # (B, S_max) bool: filled and attendable slots
     positions: torch.Tensor  # (B, S_max) int32: absolute position per slot
     write_idx: int = 0       # next slot to fill
+    k_scale: Optional[torch.Tensor] = None   # (n_layers, B, S_max, n_kv) f32
+    v_scale: Optional[torch.Tensor] = None   # int8 caches only
 
 
 def init_kv_cache(cfg: LlamaConfig, batch: int, capacity: int, *,
                   device, dtype: Optional[torch.dtype] = None) -> KVCache:
-    if cfg.kv_cache_dtype not in ("", cfg.dtype):
-        raise NotImplementedError(
-            f"kv_cache_dtype={cfg.kv_cache_dtype!r}: the int8 KV cache is "
-            f"not ported yet (ROADMAP.md Queue 2, decode int8-KV branch)")
-    dtype = dtype or torch_dtype(cfg.dtype)
+    dtype = dtype or (torch.int8 if cfg.kv_cache_dtype == "int8"
+                      else torch_dtype(cfg.dtype))
     shape = (cfg.num_hidden_layers, batch, capacity,
              cfg.num_key_value_heads, cfg.head_dim)
+
+    def scales():
+        return torch.zeros(shape[:4], dtype=torch.float32, device=device) \
+            if dtype == torch.int8 else None
+
     return KVCache(
         k=torch.zeros(shape, dtype=dtype, device=device),
         v=torch.zeros(shape, dtype=dtype, device=device),
         valid=torch.zeros((batch, capacity), dtype=torch.bool, device=device),
         positions=torch.zeros((batch, capacity), dtype=torch.int32,
                               device=device),
-        write_idx=0)
+        write_idx=0, k_scale=scales(), v_scale=scales())
 
 
 # ---------------------------------------------------------------------------
@@ -101,10 +121,49 @@ def embed_tokens(params: dict, input_ids: torch.Tensor) -> torch.Tensor:
     return table[input_ids.long().clamp(0, table.shape[0] - 1)]
 
 
+def _fused_ok(x: torch.Tensor, rows: int, limit: int) -> bool:
+    """The JAX eligibility rule of the quantized kernels, off the TPU
+    block rules: bf16 activations on a CUDA tensor, at most ``limit`` rows,
+    outside ``disable_fused_proj()``."""
+    return (x.device.type == "cuda" and x.dtype == torch.bfloat16
+            and rows <= limit and fused_proj_enabled())
+
+
+def proj(x: torch.Tensor, leaf) -> torch.Tensor:
+    """``x (..., in)`` times a weight leaf stored ``(out, in)`` (a tensor
+    or a quantized dict) -> ``(..., out)``."""
+    if is_quantized(leaf):
+        rows = x.numel() // x.shape[-1]
+        if _fused_ok(x, rows, MAX_FUSED_ROWS):
+            y = leaf_matmul(x.reshape(rows, x.shape[-1]), leaf)
+            return y.reshape(*x.shape[:-1], y.shape[-1])
+        leaf = dequantize_array(leaf)
+    dt = torch.promote_types(x.dtype, leaf.dtype)
+    return F.linear(x.to(dt), leaf.to(dt))
+
+
+def _mlp(m: dict, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU MLP: the fused quantized kernel for decode rows of the fused
+    layout, else gate/up -> silu * up -> down through :func:`proj`."""
+    gu = m.get("gateup_proj")
+    rows = x.numel() // x.shape[-1]
+    if is_quantized(gu) and is_quantized(m["down_proj"]) \
+            and (Q4KEY in gu) == (Q4KEY in m["down_proj"]) \
+            and _fused_ok(x, rows, MLP_MAX_ROWS):
+        y = quant_mlp(x.reshape(rows, x.shape[-1]), gu, m["down_proj"],
+                      bits=4 if Q4KEY in gu else 8,
+                      i_orig=gu["scale"].shape[0] // 2)
+        return y.reshape(*x.shape[:-1], y.shape[-1])
+    if gu is not None:
+        gate, up = proj(x, gu).chunk(2, dim=-1)
+    else:
+        gate, up = proj(x, m["gate_proj"]), proj(x, m["up_proj"])
+    return proj(F.silu(gate) * up, m["down_proj"])
+
+
 def lm_head(params: dict, hidden: torch.Tensor) -> torch.Tensor:
     """Vocabulary logits in float32."""
-    w = params.get("lm_head", params["embed_tokens"])
-    return F.linear(hidden, w).float()
+    return proj(hidden, params.get("lm_head", params["embed_tokens"])).float()
 
 
 # ---------------------------------------------------------------------------
@@ -124,9 +183,14 @@ def _layer_forward(lp: dict, hidden: torch.Tensor, *, cfg: LlamaConfig,
     window = cfg.sliding_window or None
 
     x = rms_norm(hidden, lp["input_layernorm"], cfg.rms_norm_eps)
-    q = F.linear(x, a["q_proj"]).view(B, S, H, Dh).transpose(1, 2)
-    k = F.linear(x, a["k_proj"]).view(B, S, Hkv, Dh).transpose(1, 2)
-    v = F.linear(x, a["v_proj"]).view(B, S, Hkv, Dh).transpose(1, 2)
+    if "qkv_proj" in a:
+        q, k, v = proj(x, a["qkv_proj"]).split([H * Dh, Hkv * Dh, Hkv * Dh],
+                                               dim=-1)
+    else:
+        q, k, v = (proj(x, a[n]) for n in ("q_proj", "k_proj", "v_proj"))
+    q = q.reshape(B, S, H, Dh).transpose(1, 2)
+    k = k.reshape(B, S, Hkv, Dh).transpose(1, 2)
+    v = v.reshape(B, S, Hkv, Dh).transpose(1, 2)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 
@@ -137,12 +201,29 @@ def _layer_forward(lp: dict, hidden: torch.Tensor, *, cfg: LlamaConfig,
     else:
         w = cache.write_idx
         ck, cv = cache.k[layer_idx], cache.v[layer_idx]   # (B, S_max, Hkv, Dh)
-        ck[:, w:w + S] = k.transpose(1, 2)
-        cv[:, w:w + S] = v.transpose(1, 2)
+        cks = cvs = None
+        if cache.k_scale is not None:
+            # int8 slots with per-(slot, head) scales
+            cks, cvs = cache.k_scale[layer_idx], cache.v_scale[layer_idx]
+            ck[:, w:w + S], cks[:, w:w + S] = _quantize_kv_slots(
+                k.transpose(1, 2))
+            cv[:, w:w + S], cvs[:, w:w + S] = _quantize_kv_slots(
+                v.transpose(1, 2))
+            if not (S == 1 and cfg.attn_impl == "auto"
+                    and q.device.type == "cuda"):
+                # prefill, and the CPU: this layer's cache dequantized to
+                # the activation dtype first, as the JAX package does
+                ck = (ck.float() * cks[..., None]).to(hidden.dtype)
+                cv = (cv.float() * cvs[..., None]).to(hidden.dtype)
+                cks = cvs = None
+        else:
+            ck[:, w:w + S] = k.transpose(1, 2)
+            cv[:, w:w + S] = v.transpose(1, 2)
         if S == 1 and cfg.attn_impl == "auto":
             out = flash_decode_attention(
                 q[:, :, 0], ck, cv, cache.valid, cache.positions,
-                q_positions[:, 0], sliding_window=window)[:, :, None]
+                q_positions[:, 0], sliding_window=window, k_scale=cks,
+                v_scale=cvs)[:, :, None]
         else:
             out = attention(q, ck.transpose(1, 2), cv.transpose(1, 2),
                             causal=True, q_positions=q_positions,
@@ -152,11 +233,9 @@ def _layer_forward(lp: dict, hidden: torch.Tensor, *, cfg: LlamaConfig,
                             impl=cfg.attn_impl)
 
     out = out.transpose(1, 2).reshape(B, S, H * Dh)
-    hidden = hidden + F.linear(out, a["o_proj"])
+    hidden = hidden + proj(out, a["o_proj"])
     x = rms_norm(hidden, lp["post_attention_layernorm"], cfg.rms_norm_eps)
-    mlp = F.linear(F.silu(F.linear(x, m["gate_proj"]))
-                   * F.linear(x, m["up_proj"]), m["down_proj"])
-    return hidden + mlp
+    return hidden + _mlp(m, x)
 
 
 def llama_forward(

@@ -9,7 +9,12 @@ PyTorch ``cache.k[l]`` is a free view, so one kernel takes the
 ``(B, S, n_kv, Dh)`` layer view through its strides.  Same function: f32
 logits and online softmax, position causality (``kv_pos <= q_pos``),
 ``kv_valid``, sliding window, GQA.  A row with no valid slot returns 0.
-The int8-KV branch of the TPU kernel is not ported yet (ROADMAP Queue 2).
+
+The int8-KV branch (``kv_cache_dtype="int8"``): K and V are int8 with f32
+per-(slot, kv head) scales ``k_scale`` / ``v_scale`` of shape
+``(B, S, n_kv)``.  The K scale multiplies the logits and the V scale the
+probabilities; the math stays in f32 on the card.  Its plain version is
+attention over the cache dequantized to f32.
 
 What bounds it on the H100: bytes.  Each decode step reads the layer's
 whole cache, ``2 * B * S * n_kv * Dh`` elements, for two FLOPs per element;
@@ -38,9 +43,15 @@ from .. import _kernels
 
 
 def decode_attention_plain(q, k, v, kv_valid, kv_positions, q_positions, *,
-                           sliding_window: Optional[int] = None
+                           sliding_window: Optional[int] = None,
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None
                            ) -> torch.Tensor:
-    """Plain PyTorch version of the kernel (same masks and numerics)."""
+    """Plain PyTorch version of the kernel (same masks and numerics); an
+    int8 cache is dequantized to f32 with its scales first."""
+    if k.dtype == torch.int8:
+        k = k.float() * k_scale[..., None]
+        v = v.float() * v_scale[..., None]
     B, H, Dh = q.shape
     Hkv = k.shape[2]
     G = H // Hkv
@@ -61,9 +72,12 @@ def decode_attention_plain(q, k, v, kv_valid, kv_positions, q_positions, *,
     return out.reshape(B, H, Dh).to(q.dtype)
 
 
-def _launch(q, k, v, kv_valid, kv_positions, q_positions, window):
+def _launch(q, k, v, kv_valid, kv_positions, q_positions, window,
+            k_scale=None, v_scale=None):
     B, H, Dh = q.shape
     S, Hkv = k.shape[1], k.shape[2]
+    int8 = k.dtype == torch.int8
+    kv_dtype = torch.int8 if int8 else q.dtype
     if q.dtype not in _kernels.DTYPE_CODES or Dh not in (64, 128) \
             or H % Hkv or H // Hkv not in (1, 2, 4, 8):
         raise ValueError(f"decode_attention kernel takes float32/bfloat16, "
@@ -72,11 +86,12 @@ def _launch(q, k, v, kv_valid, kv_positions, q_positions, window):
     if k.shape != v.shape or k.shape[0] != B or k.shape[3] != Dh:
         raise ValueError(f"decode_attention: shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != q.device or t.dtype != q.dtype:
+    for name, t, dtype in (("q", q, q.dtype), ("k", k, kv_dtype),
+                           ("v", v, kv_dtype)):
+        if t.device != q.device or t.dtype != dtype:
             raise ValueError(f"decode_attention: {name} is {t.dtype} on "
-                             f"{t.device}, expected {q.dtype} on {q.device}")
-        vec = 16 // t.element_size()
+                             f"{t.device}, expected {dtype} on {q.device}")
+        vec = 8 if int8 and name != "q" else 16 // t.element_size()
         if t.stride(-1) != 1 or any(s % vec for s in t.stride()[:-1]) \
                 or t.data_ptr() % 16:
             raise ValueError(f"decode_attention: {name} needs a contiguous "
@@ -90,6 +105,25 @@ def _launch(q, k, v, kv_valid, kv_positions, q_positions, window):
         raise ValueError("decode_attention: kv_valid/kv_positions must be "
                          "(B, S) and q_positions (B,)")
     out = torch.empty((B, H, Dh), dtype=q.dtype, device=q.device)
+    if int8:
+        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if t is None or t.dtype != torch.float32 \
+                    or t.shape != (B, S, Hkv) or t.device != q.device \
+                    or t.stride() != k_scale.stride():
+                raise ValueError(f"decode_attention: an int8 cache needs "
+                                 f"float32 {name} of shape {(B, S, Hkv)} "
+                                 f"(k_scale and v_scale with one layout)")
+        err = _kernels.library().m3_decode_attention_int8(
+            _kernels.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
+            valid.data_ptr(), kv_pos.data_ptr(), q_pos.data_ptr(),
+            out.data_ptr(), B, H, Hkv, S, Dh, q.stride(0), q.stride(1),
+            *k.stride()[:3], *v.stride()[:3], *k_scale.stride(),
+            valid.stride(0), kv_pos.stride(0), int(window), Dh ** -0.5,
+            _kernels.stream_ptr(q.device))
+        _kernels.check("m3_decode_attention_int8", err)
+        flash_decode_attention.launches += 1
+        return out
     err = _kernels.library().m3_decode_attention(
         _kernels.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
         v.data_ptr(), valid.data_ptr(), kv_pos.data_ptr(), q_pos.data_ptr(),
@@ -110,17 +144,20 @@ def flash_decode_attention(
     q_positions: torch.Tensor,   # (B,) int absolute position of the query
     *,
     sliding_window: Optional[int] = None,
+    k_scale: Optional[torch.Tensor] = None,  # (B, S, n_kv) f32, int8 cache
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """-> (B, H, Dh) attention output in ``q.dtype``.
     ``flash_decode_attention.launches`` counts kernel launches."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, kv_valid, kv_positions,
                                       q_positions,
-                                      sliding_window=sliding_window)
+                                      sliding_window=sliding_window,
+                                      k_scale=k_scale, v_scale=v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: no kernel for {q.device}")
     return _launch(q, k, v, kv_valid, kv_positions, q_positions,
-                   sliding_window or 0)
+                   sliding_window or 0, k_scale, v_scale)
 
 
 flash_decode_attention.launches = 0

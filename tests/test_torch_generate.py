@@ -138,6 +138,8 @@ def test_load_pretrained_and_eval_model_end_to_end(tmp_path, capsys):
     assert ctx == 128
     assert model.params["llama"]["embed_tokens"].device.type == "cpu"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_pretrained_model("debug://7b", device="cpu", load_4bit=True)
+        load_pretrained_model(str(tmp_path), device="cpu", load_4bit=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        load_pretrained_model("debug://tiny", device="cpu", tp_size=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         model.generate(np.array([[1, 5]]), num_beams=2)

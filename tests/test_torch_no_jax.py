@@ -81,6 +81,7 @@ def test_sources_import_no_jax():
 def test_wrappers_have_no_fallback_try():
     """No try/except in a kernel module: a CUDA tensor launches the kernel
     or raises, and never drops to the plain version."""
-    for name in ("flash_attention.py", "decode_attention.py"):
+    for name in ("flash_attention.py", "decode_attention.py",
+                 "int4_matmul.py", "fused_mlp.py"):
         tree = ast.parse((PORT / "ops" / name).read_text())
         assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)], name
