@@ -68,6 +68,16 @@ SIGNATURES = {
     # bits, x, gateup, gateup scale, down, down scale, h, out, M, D, I,
     # n_out, x row stride, out row stride, stream
     "m3_quant_mlp": [I, P, P, P, P, P, P, P, I, I, I, I, LL, LL, P],
+    # dtype, kv_int8, q, k, v, k_scale, v_scale, tables, row_len, out,
+    # B, H, Hkv, P, page_size, n_pages, Dh, q strides (b, h),
+    # pool strides (slot, head), scale strides (slot, head),
+    # tables row stride, scale, stream
+    "m3_paged_attention": [I, I, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
+                           LL, LL, LL, LL, LL, LL, LL, F, P],
+    # x, out, 16-byte vectors, blocks, reps, stream
+    "m3_hbm_read": [P, P, LL, I, I, P],
+    # x, y, 16-byte vectors, blocks, reps, stream
+    "m3_hbm_copy": [P, P, LL, I, I, P],
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

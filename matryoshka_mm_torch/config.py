@@ -23,7 +23,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
-from matryoshka_mm_tpu.kvconfig import parse_kv_from_string, parse_list
+from .kvconfig import parse_kv_from_string, parse_list
 
 ATTN_IMPLS = ("auto", "reference")
 

@@ -9,7 +9,7 @@
 // causality (kv_pos <= q_pos), kv_valid, sliding window, GQA.  A row with no
 // valid slot returns 0.
 //
-// Design:
+// Design (the body is decode_body.cuh, shared with paged_attention.cu):
 // * one block of 128 threads per (kv head, batch row); the block serves the
 //   G = H / Hkv query heads of its group, so each cache byte is read once
 //   (the TPU kernel multiplied every query head against every kv head,
@@ -31,25 +31,33 @@
 // its matrix unit; there is no matrix unit here).  A lane reads 8 int8
 // values (8 bytes) of a slot row, so the lane geometry of the bf16 cache
 // holds and the cache stream is half as many bytes.
-#include <type_traits>
-
-#include "common.cuh"
+#include "decode_body.cuh"
 
 namespace {
 
-constexpr int THREADS = 128;
-constexpr int WARPS = THREADS / 32;
+constexpr int THREADS = m3::DECODE_THREADS;
 
+// Slots of one (batch row, kv head) of a dense cache layer (decode_body.cuh).
 template <typename KV>
-constexpr int kKvVec = std::is_same<KV, int8_t>::value ? 8 : m3::kVec<KV>;
-
-__device__ __forceinline__ void load_kv(const int8_t* p, float* dst) {
-  m3::load8(p, dst);
-}
-template <typename KV>
-__device__ __forceinline__ void load_kv(const KV* p, float* dst) {
-  m3::load16(p, dst);
-}
+struct DenseSlots {
+  const KV* kb;
+  const KV* vb;
+  const float* ksb;
+  const float* vsb;
+  const uint8_t* valid;
+  const int* kvp;
+  int64_t k_ss, v_ss, sc_ss;
+  int qp, window;
+  __device__ __forceinline__ int64_t locate(int s) const { return s; }
+  __device__ __forceinline__ const KV* k_row(int64_t s) const { return kb + s * k_ss; }
+  __device__ __forceinline__ const KV* v_row(int64_t s) const { return vb + s * v_ss; }
+  __device__ __forceinline__ float k_scale(int64_t s) const { return ksb[s * sc_ss]; }
+  __device__ __forceinline__ float v_scale(int64_t s) const { return vsb[s * sc_ss]; }
+  __device__ __forceinline__ bool ok(int s) const {
+    const int p = kvp[s];
+    return valid[s] && p <= qp && (window <= 0 || qp - p < window);
+  }
+};
 
 template <typename T, typename KV, int DH, int G>
 __global__ void __launch_bounds__(THREADS)
@@ -65,133 +73,23 @@ decode_kernel(const T* __restrict__ q, const KV* __restrict__ k,
               int64_t sc_sb, int64_t sc_ss, int64_t sc_sh,
               int64_t valid_sb, int64_t pos_sb, int window, float scale) {
   constexpr bool INT8 = std::is_same<KV, int8_t>::value;
-  constexpr int VEC = kKvVec<KV>;
-  constexpr int LPS = DH / VEC;        // lanes reading one slot row
-  constexpr int SPW = 32 / LPS;        // lane groups (partials) per warp
-  constexpr int NP = WARPS * SPW;      // partial softmax states per block
-  constexpr int CH = G >= 8 ? 2 : 4;   // slots per lane group per step
-  __shared__ float sm_m[NP][G];
-  __shared__ float sm_l[NP][G];
-  __shared__ __align__(16) float sm_acc[NP][G][DH];
-
   const int hk = blockIdx.x, b = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int sub = lane / LPS, li = lane % LPS;
-  const int part = warp * SPW + sub;
-  const int d0 = li * VEC;
-  const float c = scale * m3::LOG2E;
-
-  float qr[G][VEC];
-#pragma unroll
-  for (int g = 0; g < G; ++g)
-    m3::load_n<VEC>(q + b * q_sb + (hk * G + g) * q_sh + d0, qr[g]);
-  float acc[G][VEC], m[G], l[G];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    m[g] = -INFINITY;
-    l[g] = 0.f;
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) acc[g][e] = 0.f;
-  }
-
-  const int qp = q_pos[b];
-  const KV* kb = k + b * k_sb + hk * k_sh;
-  const KV* vb = v + b * v_sb + hk * v_sh;
-  const float* ksb = INT8 ? k_scale + b * sc_sb + hk * sc_sh : nullptr;
-  const float* vsb = INT8 ? v_scale + b * sc_sb + hk * sc_sh : nullptr;
-  const uint8_t* valid = kv_valid + b * valid_sb;
-  const int* kvp = kv_pos + b * pos_sb;
-
-  // the loop bound is uniform across a warp, so every lane takes part in
-  // every shuffle; slots past S are masked
-  for (int wb = warp * SPW * CH; wb < S; wb += NP * CH) {
-    const int s0 = wb + sub * CH;
-    float kr[CH][VEC], vr[CH][VEC];
-    float ksc[CH], vsc[CH];  // int8 scales of the slots (1 otherwise)
-    bool ok[CH];
-#pragma unroll
-    for (int i = 0; i < CH; ++i) {
-      const int s = s0 + i;
-      ok[i] = s < S;
-      ksc[i] = vsc[i] = 1.f;
-      if (ok[i]) {
-        load_kv(kb + s * k_ss + d0, kr[i]);
-        load_kv(vb + s * v_ss + d0, vr[i]);
-        if (INT8) {
-          ksc[i] = ksb[s * sc_ss];
-          vsc[i] = vsb[s * sc_ss];
-        }
-        const int p = kvp[s];
-        ok[i] = valid[s] && p <= qp && (window <= 0 || qp - p < window);
-      } else {
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) kr[i][e] = vr[i][e] = 0.f;
-      }
-    }
-    float sc[CH][G];
-#pragma unroll
-    for (int i = 0; i < CH; ++i) {
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        float dot = 0.f;
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) dot = fmaf(qr[g][e], kr[i][e], dot);
-#pragma unroll
-        for (int off = LPS / 2; off > 0; off >>= 1)
-          dot += __shfl_xor_sync(0xffffffffu, dot, off);
-        sc[i][g] = ok[i] ? dot * ksc[i] * c : -INFINITY;
-      }
-    }
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      float m_new = m[g];
-#pragma unroll
-      for (int i = 0; i < CH; ++i) m_new = fmaxf(m_new, sc[i][g]);
-      if (m_new == -INFINITY) continue;  // nothing valid yet
-      const float alpha = exp2f(m[g] - m_new);
-      l[g] *= alpha;
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) acc[g][e] *= alpha;
-#pragma unroll
-      for (int i = 0; i < CH; ++i) {
-        const float p = exp2f(sc[i][g] - m_new);
-        l[g] += p;
-        const float pr = INT8 ? p * vsc[i] : m3::round_p<T>(p);
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) acc[g][e] = fmaf(pr, vr[i][e], acc[g][e]);
-      }
-      m[g] = m_new;
-    }
-  }
-
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    if (li == 0) {
-      sm_m[part][g] = m[g];
-      sm_l[part][g] = l[g];
-    }
-#pragma unroll
-    for (int e = 0; e < VEC; e += 4) m3::store16(&sm_acc[part][g][d0 + e], acc[g] + e);
-  }
-  __syncthreads();
-
-  T* ob = out + static_cast<int64_t>(b) * H * DH + static_cast<int64_t>(hk) * G * DH;
-  for (int idx = threadIdx.x; idx < G * DH; idx += THREADS) {
-    const int g = idx / DH, d = idx % DH;
-    float mx = -INFINITY;
-#pragma unroll
-    for (int p = 0; p < NP; ++p) mx = fmaxf(mx, sm_m[p][g]);
-    float lsum = 0.f, a = 0.f;
-    if (mx != -INFINITY) {
-#pragma unroll
-      for (int p = 0; p < NP; ++p) {
-        const float w = exp2f(sm_m[p][g] - mx);
-        lsum = fmaf(sm_l[p][g], w, lsum);
-        a = fmaf(sm_acc[p][g][d], w, a);
-      }
-    }
-    ob[idx] = m3::from_float<T>(lsum > 0.f ? a / lsum : 0.f);
-  }
+  DenseSlots<KV> slots;
+  slots.kb = k + b * k_sb + hk * k_sh;
+  slots.vb = v + b * v_sb + hk * v_sh;
+  slots.ksb = INT8 ? k_scale + b * sc_sb + hk * sc_sh : nullptr;
+  slots.vsb = INT8 ? v_scale + b * sc_sb + hk * sc_sh : nullptr;
+  slots.valid = kv_valid + b * valid_sb;
+  slots.kvp = kv_pos + b * pos_sb;
+  slots.k_ss = k_ss;
+  slots.v_ss = v_ss;
+  slots.sc_ss = sc_ss;
+  slots.qp = q_pos[b];
+  slots.window = window;
+  m3::decode_body<T, KV, DH, G>(
+      q + b * q_sb + static_cast<int64_t>(hk) * G * q_sh, q_sh, slots, S,
+      out + static_cast<int64_t>(b) * H * DH + static_cast<int64_t>(hk) * G * DH,
+      scale);
 }
 
 template <typename T, typename KV, int DH>

@@ -16,12 +16,12 @@ from typing import List
 
 import numpy as np
 
-from matryoshka_mm_tpu.constants import (DEFAULT_IM_END_TOKEN,
+from matryoshka_mm_torch.constants import (DEFAULT_IM_END_TOKEN,
                                          DEFAULT_IM_START_TOKEN,
                                          DEFAULT_IMAGE_TOKEN,
                                          IMAGE_PLACEHOLDER)
-from matryoshka_mm_tpu.conversation import SeparatorStyle, conv_templates
-from matryoshka_mm_tpu.mm_utils import (KeywordsStoppingCriteria,
+from matryoshka_mm_torch.conversation import SeparatorStyle, conv_templates
+from matryoshka_mm_torch.mm_utils import (KeywordsStoppingCriteria,
                                         get_model_name_from_path,
                                         process_images,
                                         tokenizer_image_token)

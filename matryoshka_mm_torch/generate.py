@@ -25,8 +25,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from matryoshka_mm_tpu.constants import IMAGE_TOKEN_INDEX
-from matryoshka_mm_tpu.kvconfig import parse_kv_from_string
+from .constants import IMAGE_TOKEN_INDEX
+from .kvconfig import parse_kv_from_string
 
 from .config import LlavaConfig
 from .models.llama import (KVCache, embed_tokens, init_kv_cache,

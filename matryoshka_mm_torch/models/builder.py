@@ -16,7 +16,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
-from matryoshka_mm_tpu.image_processing import ClipImageProcessor
+from matryoshka_mm_torch.image_processing import ClipImageProcessor
 
 from ..config import LlavaConfig
 from ..ops.quant import quantize_llama_params

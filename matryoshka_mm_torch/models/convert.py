@@ -13,7 +13,10 @@ Port layout (plain dicts of tensors):
 * quantized leaves (from the JAX ``maybe_quantize``, any ``fuse``) become
   per-layer ``{"qint4" | "qint8", "scale"}`` dicts with their dtypes kept;
   the TPU tile padding recorded in ``orig_shape`` is cut off (for int4 the
-  pad bytes sit after each half's ``K/2`` columns, so ``[:n, :k // 2]``).
+  pad bytes sit after each half's ``K/2`` columns, so ``[:n, :k // 2]``);
+* serving state: :func:`paged_cache_from_jax` and
+  :func:`page_allocator_from_jax` carry a paged KV pool and its allocator
+  across.
 """
 
 from __future__ import annotations
@@ -157,3 +160,34 @@ def init_params(cfg: LlavaConfig, device="cpu", seed: int = 0) -> dict:
     proj = {"layers": [dense(D, cfg.mm_hidden_size if i == 0 else D, ldt)
                        for i in range(depth)]} if depth else {}
     return {"llama": llama, "vision_tower": vision, "mm_projector": proj}
+
+
+def paged_cache_from_jax(k, v, k_scale=None, v_scale=None, device="cpu"):
+    """The numpy arrays of a JAX ``PagedKVCache`` -> the port's
+    ``serve.paged_cache.PagedKVCache`` with the same bytes.  The JAX scale
+    pools are flat ``(L, n_pages, page * n_kv)`` (index ``slot * n_kv +
+    head``); the port's ``(L, n_pages, page, n_kv)`` is a view of them."""
+    from ..serve.paged_cache import PagedKVCache
+
+    kt, vt = _tensor(k, device, None), _tensor(v, device, None)
+    if k_scale is None:
+        return PagedKVCache(kt, vt)
+    return PagedKVCache(
+        kt, vt, _tensor(k_scale, device, None).reshape(kt.shape[:4]),
+        _tensor(v_scale, device, None).reshape(kt.shape[:4]))
+
+
+def page_allocator_from_jax(tables, n_alloc, free, n_pages: int,
+                            page_size: int):
+    """The host state of a JAX ``PageAllocator`` (``tables``, ``n_alloc``,
+    ``free``) -> the port's ``PageAllocator`` in the same state, so that both
+    packages can decode from one pool state."""
+    from ..serve.paged_cache import PageAllocator
+
+    tables = np.asarray(tables, np.int32)
+    alloc = PageAllocator(n_pages, page_size, tables.shape[0],
+                          tables.shape[1])
+    alloc.tables[:] = tables
+    alloc.n_alloc[:] = np.asarray(n_alloc, np.int32)
+    alloc.free = [int(p) for p in free]
+    return alloc

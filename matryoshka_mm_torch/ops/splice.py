@@ -20,7 +20,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from matryoshka_mm_tpu.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
+from ..constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
 
 
 class SplicedBatch(NamedTuple):

@@ -10,7 +10,9 @@ Tolerances: bf16 ``atol=rtol=2e-2`` (bf16 outputs, probabilities rounded
 to bf16 before PV), float32 ``1e-4``; lse ``1e-3``.  The quantized matrix
 products: max error at most 1e-2 of max|plain| (bf16 output, f32 sums in
 another order); the quantized MLP 2e-2 (its bf16 ``h`` may round the other
-way).
+way).  Paged attention: the attention tolerances, bf16 and int8 pools alike
+(the int8 math is f32 in kernel and plain version); the bandwidth probes
+are exact (integer checksums, a byte copy).
 """
 
 import pytest
@@ -19,7 +21,9 @@ import torch
 from matryoshka_mm_torch.ops import decode_attention as tdec
 from matryoshka_mm_torch.ops import flash_attention as tflash
 from matryoshka_mm_torch.ops import fused_mlp as tmlp
+from matryoshka_mm_torch.ops import hbm_probe as thbm
 from matryoshka_mm_torch.ops import int4_matmul as tmm
+from matryoshka_mm_torch.ops import paged_attention as tpaged
 from matryoshka_mm_torch.ops import quant as tq
 
 pytestmark = pytest.mark.cuda
@@ -222,3 +226,125 @@ def test_quant_wrappers_raise_on_what_the_kernels_do_not_take(dev):
             torch.randn((1, 2, 128), device=dev), kq, kq,
             torch.ones((1, 8), dtype=torch.bool, device=dev),
             torch.arange(8, device=dev)[None], torch.tensor([7], device=dev))
+
+
+def _paged_case(dev, dtype, int8, B, H, Hkv, Dh, page, P, row_len, seed=0):
+    """Pools of 3 layers, scattered non-monotone page tables, one layer's
+    arguments for the wrapper."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n_pages = B * P + 1
+    q = torch.randn((B, H, Dh), generator=g, device=dev, dtype=dtype)
+    shape = (3, n_pages, page, Hkv, Dh)
+    k = torch.randn(shape, generator=g, device=dev, dtype=dtype)
+    v = torch.randn(shape, generator=g, device=dev, dtype=dtype)
+    ks = vs = None
+    if int8:
+        k, ks = tq._quantize_kv_slots(k)
+        v, vs = tq._quantize_kv_slots(v)
+    perm = torch.randperm(n_pages - 1, generator=g, device=dev) + 1
+    tables = perm[:B * P].reshape(B, P).to(torch.int32)
+    lens = torch.tensor(row_len, device=dev, dtype=torch.int32)
+    return q, k, v, ks, vs, tables, lens
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("B,H,Hkv,Dh,page,P,row_len", [
+    (1, 32, 32, 128, 64, 25, [700]),
+    (8, 32, 32, 128, 64, 25, [0, 63, 64, 65, 1599, 700, 5, 128]),
+    (4, 32, 8, 128, 64, 25, [0, 63, 64, 1599]),
+    (3, 16, 2, 64, 8, 7, [0, 7, 55]),
+    (2, 8, 1, 128, 16, 3, [1, 47])])
+def test_paged_kernel_matches_plain(dev, dtype, int8, B, H, Hkv, Dh, page, P,
+                                    row_len):
+    q, k, v, ks, vs, tables, lens = _paged_case(
+        dev, dtype, int8, B, H, Hkv, Dh, page, P, row_len)
+    for layer in (0, 2):
+        before = tpaged.paged_decode_attention.launches
+        got = tpaged.paged_decode_attention_stacked(
+            q, k, v, layer, tables, lens, ks, vs)
+        assert tpaged.paged_decode_attention.launches == before + 1
+        want = tpaged.paged_attention_plain(
+            q, k[layer], v[layer], tables, lens,
+            None if ks is None else ks[layer],
+            None if vs is None else vs[layer])
+        torch.cuda.synchronize()
+        tol = _tol(dtype)
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+
+
+def test_paged_kernel_never_reads_past_the_row(dev):
+    """Table entries past ceil(seq_len / page) may be anything, and pages
+    the row does not use may hold NaN."""
+    q, k, v, _, _, tables, lens = _paged_case(
+        dev, torch.bfloat16, False, 2, 8, 8, 128, 16, 4, [17, 3])
+    want = tpaged.paged_decode_attention(q, k[1], v[1], tables, lens)
+    used = {int(tables[0, 0]), int(tables[0, 1]), int(tables[1, 0])}
+    k2, v2 = k[1].clone(), v[1].clone()
+    for p in range(k2.shape[0]):
+        if p not in used:
+            k2[p] = float("nan")
+            v2[p] = float("nan")
+    tables2 = tables.clone()
+    tables2[0, 2:] = 10 ** 6
+    tables2[1, 1:] = -5
+    got = tpaged.paged_decode_attention(q, k2, v2, tables2, lens)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("bad_id", [-1, 10 ** 6])
+def test_paged_kernel_poisons_a_row_with_a_used_page_outside_the_pool(
+        dev, int8, bad_id):
+    """Where the plain version raises an index error, the kernel reads
+    nothing and returns NaN for that row; the other rows are untouched."""
+    q, k, v, ks, vs, tables, lens = _paged_case(
+        dev, torch.bfloat16, int8, 3, 8, 4, 128, 16, 4, [17, 40, 3])
+    scales = (None, None) if ks is None else (ks[1], vs[1])
+    want = tpaged.paged_decode_attention(q, k[1], v[1], tables, lens, *scales)
+    tables[1, 2] = bad_id                  # row 1 uses pages 0..2
+    got = tpaged.paged_decode_attention(q, k[1], v[1], tables, lens, *scales)
+    torch.cuda.synchronize()
+    assert torch.isnan(got[1]).all()
+    torch.testing.assert_close(got[[0, 2]], want[[0, 2]], atol=0, rtol=0)
+
+
+def test_paged_wrapper_raises_on_what_the_kernel_does_not_take(dev):
+    q, k, v, _, _, tables, lens = _paged_case(
+        dev, torch.float32, False, 1, 6, 2, 64, 8, 2, [3])
+    with pytest.raises(ValueError, match="group"):          # group of 3
+        tpaged.paged_decode_attention(q, k[0], v[0], tables, lens)
+    q, k, v, _, _, tables, lens = _paged_case(
+        dev, torch.float32, False, 1, 4, 2, 64, 8, 2, [3])
+    with pytest.raises(ValueError, match="int8 pool"):
+        tpaged.paged_decode_attention(q, k[0].to(torch.int8),
+                                      v[0].to(torch.int8), tables, lens)
+    with pytest.raises(ValueError, match="back to back"):
+        tpaged.paged_decode_attention(q, k[0][::2], v[0][::2], tables,
+                                      lens)
+
+
+@pytest.mark.parametrize("n,reps", [(16 * 1000, 1), (16 * 300_001, 3),
+                                    (1 << 26, 2)])
+def test_hbm_probe_kernels_match_plain(dev, n, reps):
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randint(-127, 128, (n,), generator=g, device=dev,
+                      dtype=torch.int8)
+    before = thbm.hbm_read.launches, thbm.hbm_copy.launches
+    got = thbm.hbm_read(x, reps)
+    y = thbm.hbm_copy(x, reps)
+    assert (thbm.hbm_read.launches, thbm.hbm_copy.launches) == \
+        (before[0] + 1, before[1] + 1)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, thbm.hbm_read_plain(x, reps), atol=0,
+                               rtol=0)
+    assert torch.equal(y, thbm.hbm_copy_plain(x))
+
+
+def test_hbm_probe_rates_are_positive_and_below_twice_the_data_sheet(dev):
+    r = thbm.hbm_read_gb_s(mb=256, reps=2, runs=5)
+    c = thbm.hbm_copy_gb_s(mb=128, reps=2, runs=5)
+    for bw in (r, c):
+        assert 0 < bw.lo <= bw.median <= bw.hi < 2 * 3350
