@@ -71,6 +71,31 @@ Phases; any failure exits non-zero, and no phase's exception is caught:
    batcher with the paged and with the dense backend, the paged one also
    with prefix_cache=True (hit == miss) and speculative_k=4.
 
+9. the flash-attention backward kernels (dQ, dK/dV) against their plain
+   versions in bf16 and float32: the training shapes (B=1, H=32, Dh=128, S
+   1024 and 1599, causal, a left-padded row whose first queries see no key;
+   B=3 at 1059), GQA, a window, q_index_offset with Dh=64 and a ragged S;
+   NaN scan, zero gradients on masked rows and slots, times of kernels,
+   plain versions and the library's backward;
+10. the training slice at full width: debug://7b, bf16 base frozen, LoRA
+   r=128 alpha=256 on every LM projection, remat, frozen_vision, K=5 scales,
+   T=1024, B=1, through create_train_state + make_train_step: one warm and
+   three timed steps on one seeded batch.  Gates: losses and grad norms
+   finite, loss lower at step 4 than at step 1, every lora_b non-zero after
+   step 1, every frozen leaf bit-identical at the end, exact launches a
+   step (dQ and dK/dV 32 x 3 forwards, flash forward twice that under full
+   recompute and once under remat_policy="names:flash_out,flash_lse"), the
+   loss within 1e-2 of the same loss through attn_impl="reference".
+   Printed: step time, tokens/s, peak memory, adapter count, a profile of
+   one step;
+11. small-model train steps (float32, Dh=128), the card (kernels) against
+   the CPU (plain versions): an M3-MoE config with full fine-tuning and
+   QLoRA over an int8 base; step-1 gradients, two steps' losses and grad
+   norms within 1e-3.
+
+With arguments (`python3 chip_smoke.py bwd train small`) only the build and
+the named phases of 9-11 run, and no result line is printed.
+
 Each kernel's record carries its bound: the larger of its bytes (inputs once,
 outputs once) over 3.35 TB/s and its operations over 989 TFLOP/s, the H100
 data sheet's rates, computed from this run's inputs; and, where one PyTorch
@@ -222,6 +247,28 @@ def library_ms(kind: str, operands: list, **kw) -> float:
         mask = (kw["kv_valid"][:, None, None, :] & causal[None, None])
         return time_ms(lambda q, k, v: sdpa(q, k, v, attn_mask=mask),
                        operands)
+    if kind == "flash_bwd":
+        # forward + backward less the forward: (q, k, v, do) with the same
+        # mask; the one call gives dq, dk and dv together
+        Sq, Sk = operands[0][0].shape[2], operands[0][1].shape[2]
+        dev = operands[0][0].device
+        causal = torch.arange(Sk, device=dev)[None] <= \
+            torch.arange(Sq, device=dev)[:, None]
+        mask = (kw["kv_valid"][:, None, None, :] & causal[None, None])
+        # a row with no key would give NaN in the library's softmax: let it
+        # see itself, which changes no other row
+        mask = mask | torch.eye(Sq, Sk, dtype=torch.bool, device=dev)
+
+        def fwd(q, k, v, do):
+            return sdpa(q, k, v, attn_mask=mask)
+
+        def fwd_bwd(q, k, v, do):
+            q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+            return torch.autograd.grad(sdpa(q, k, v, attn_mask=mask),
+                                       (q, k, v), do)
+
+        return time_ms(fwd_bwd, operands, reps=10) \
+            - time_ms(fwd, operands, reps=10)
     if kind == "decode":
         def call(q, k, v, valid, kv_pos, q_pos):
             return sdpa(q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
@@ -265,11 +312,36 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
+    """Build every source; print one line per compiled kernel (registers,
+    shared memory, spills) instead of ptxas' five."""
+    import contextlib
+    import io
+
     from matryoshka_mm_torch import _kernels
 
     t0 = time.perf_counter()
-    _kernels.build(verbose=True)
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        _kernels.build(verbose=True)
     _kernels.library()
+    entry = None
+    for line in log.getvalue().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = m.group(1)
+            spill = ""
+        elif "spill" in line and entry:
+            spill = line.strip()
+        elif "Used" in line and entry:
+            # _ZN..._cu_<hash><len><name>I<template arguments>E...
+            short = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}\d+", "",
+                           entry)
+            short = short.split("EEv")[0][:60]
+            print(f"[ptxas] {short}: {line.split(':', 1)[1].strip()}; "
+                  f"{spill}")
+            entry = None
+        elif line.startswith("nvcc build"):
+            print(line)
     print(f"[build] {time.perf_counter() - t0:.2f} s")
 
 
@@ -1344,6 +1416,423 @@ def phase_serving(dev) -> dict:
     return launches
 
 # ---------------------------------------------------------------------------
+# phase 9: the flash-attention backward kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+BWD_TOL = {torch.bfloat16: 2e-2,   # of max|plain|: bf16 gradients, p and ds
+                                   # rounded to bf16 on slightly other f32
+           torch.float32: 2e-4}    # f32 sums in another order, exp2f
+# (label, dtype, B, H, Hkv, Sq, Sk, window, q_offset, left padding, timed)
+BWD_CASES = (
+    ("train 1024 bf16", torch.bfloat16, 1, 32, 32, 1024, 1024, None, 0, 37, 1),
+    ("train 1599 bf16", torch.bfloat16, 1, 32, 32, 1599, 1599, None, 0, 61, 1),
+    ("train 1599 f32", torch.float32, 1, 32, 32, 1599, 1599, None, 0, 61, 0),
+    ("batch 3x1059 bf16", torch.bfloat16, 3, 32, 32, 1059, 1059, None, 0,
+     35, 0),
+    ("gqa bf16", torch.bfloat16, 2, 8, 2, 200, 200, None, 0, 9, 0),
+    ("window f32", torch.float32, 2, 4, 4, 203, 203, 48, 0, 5, 0),
+    ("offset f32 dh64", torch.float32, 1, 4, 2, 70, 131, None, 40, 3, 0),
+    ("ragged bf16 dh64", torch.bfloat16, 2, 4, 4, 65, 65, None, 0, 0, 0),
+)
+
+
+def phase_bwd_kernels(dev) -> dict:
+    """dQ and dK/dV kernels against their plain versions; the two records
+    carry the times at S=1599 in bf16, the longest sequence of a 7B train
+    step."""
+    from matryoshka_mm_torch.ops import flash_attention as fl
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    rec = {"flash_attention_bwd_dq": {"err": 0.0},
+           "flash_attention_bwd_dkv": {"err": 0.0}}
+    for (label, dtype, B, H, Hkv, Sq, Sk, window, offset, pad,
+         timed) in BWD_CASES:
+        Dh = 64 if "dh64" in label else 128
+
+        def operand(heads, S):
+            # the (B, heads, S, Dh) view of a (B, S, heads, Dh) tensor, as
+            # the model's projections and autograd hand them over
+            return torch.randn((B, S, heads, Dh), generator=gen, device=dev,
+                               dtype=torch.float32).to(dtype).transpose(1, 2)
+
+        q, k, v = operand(H, Sq), operand(Hkv, Sk), operand(Hkv, Sk)
+        do = operand(H, Sq)
+        valid = torch.ones((B, Sk), dtype=torch.bool, device=dev)
+        valid[0, :pad] = False          # a left-padded row: its first `pad`
+        kw = dict(causal=True, sliding_window=window,   # queries see no key
+                  q_index_offset=offset)
+        out, lse = fl.flash_attention_lse(q, k, v, kv_valid=valid, **kw)
+        args = (q, k, v, valid, out, lse, do)
+        dq = fl.flash_attention_bwd_dq(*args, **kw)
+        dk, dv = fl.flash_attention_bwd_dkv(*args, **kw)
+        want_q = fl.flash_attention_bwd_dq_plain(*args, **kw)
+        want_k, want_v = fl.flash_attention_bwd_dkv_plain(*args, **kw)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, got, want in (("dq", dq, want_q), ("dk", dk, want_k),
+                                ("dv", dv, want_v)):
+            if not bool(torch.isfinite(got).all()):
+                fail(f"backward {label}: {name} is not finite")
+            err, rel = _rel_err(got, want)
+            errs[name] = (err, rel)
+            if rel > BWD_TOL[dtype]:
+                fail(f"backward {label}: {name} disagrees with its plain "
+                     f"version: {err:.3e}, {rel:.2e} of max|plain|")
+        if offset == 0 and pad and not (
+                bool((dq[0, :, :pad] == 0).all())
+                and bool((dk[0, :, :pad] == 0).all())
+                and bool((dv[0, :, :pad] == 0).all())):
+            fail(f"backward {label}: a masked row or slot got a gradient")
+        print(f"[bwd {label}] " + "  ".join(
+            f"max|{n}-plain|={e:.3e} ({r:.1e} of max)"
+            for n, (e, r) in errs.items()) + f"  tolerance {BWD_TOL[dtype]}")
+        rq, rkv = rec["flash_attention_bwd_dq"], rec["flash_attention_bwd_dkv"]
+        rq["err"] = max(rq["err"], errs["dq"][0])
+        rkv["err"] = max(rkv["err"], errs["dk"][0], errs["dv"][0])
+        if not timed:
+            continue
+        ops = rotations(q, k, v, valid, out, lse, do)
+        t = {"dq": time_ms(lambda *a: fl.flash_attention_bwd_dq(*a, **kw),
+                           ops, reps=10),
+             "dkv": time_ms(lambda *a: fl.flash_attention_bwd_dkv(*a, **kw),
+                            ops, reps=10),
+             "dq_plain": time_ms(
+                 lambda *a: fl.flash_attention_bwd_dq_plain(*a, **kw), ops,
+                 reps=3, warmup=1),
+             "dkv_plain": time_ms(
+                 lambda *a: fl.flash_attention_bwd_dkv_plain(*a, **kw), ops,
+                 reps=3, warmup=1)}
+        lib_ops = rotations(q, k, v, do)
+        t["library_ms"] = library_ms("flash_bwd", lib_ops, kv_valid=valid)
+        # pairs (query i, valid slot j <= i): dQ needs 3 products of Dh each
+        # over them (s, dp, dq), dK/dV 4 (s, dp, dv, dk); a backward that
+        # shared s and dp would need 5
+        pairs = int((valid[:, None, :] & (
+            torch.arange(Sk, device=dev)[None]
+            <= torch.arange(Sq, device=dev)[:, None] + offset)[None]).sum())
+        stats = nbytes(lse) * 2                      # lse and delta
+        bq = bound(nbytes(q, k, v, out, do) + stats + nbytes(dq),
+                   6 * H * Dh * pairs)
+        bkv = bound(nbytes(q, k, v, do) + stats + nbytes(dk, dv),
+                    8 * H * Dh * pairs)
+        whole = bound(nbytes(q, k, v, out, do, lse) + nbytes(dq, dk, dv),
+                      10 * H * Dh * pairs)
+        print(f"[bwd {label}] {card_line()}: dq {t['dq']:.4f} ms (plain "
+              f"{t['dq_plain']:.4f})  dk/dv {t['dkv']:.4f} ms (plain "
+              f"{t['dkv_plain']:.4f})  both {t['dq'] + t['dkv']:.4f} ms; "
+              f"bound of the whole backward (5 products) "
+              f"{whole['bound_ms']:.4f} ms by {whole['bound_by']}; library "
+              f"backward (forward + backward less forward) "
+              f"{t['library_ms']:.4f} ms")
+        if Sq == 1599:
+            rq.update(bq, ms=t["dq"], plain_ms=t["dq_plain"])
+            rkv.update(bkv, ms=t["dkv"], plain_ms=t["dkv_plain"])
+            # the one library call computes dq, dk and dv together
+            rq["library_ms"] = rkv["library_ms"] = t["library_ms"]
+            _show("bwd dq 1599", rq)
+            _show("bwd dk/dv 1599", rkv)
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the training slice at full width
+# ---------------------------------------------------------------------------
+
+TRAIN_T = 1024            # text tokens of the train batch
+TRAIN_LR = 2e-4           # the reference's LoRA recipe
+TRAIN_LOSS_TOL = 1e-2     # kernel path against attn_impl="reference"
+# kernel names of a profiled step, by kind (first match wins)
+TRAIN_KERNEL_GROUPS = (
+    ("flash forward", ("flash_fwd_kernel",)),
+    ("flash dK/dV", ("flash_bwd_dkv_kernel",)),
+    ("flash dQ", ("flash_bwd_dq_kernel",)),
+    ("matrix products (cuBLAS)", ("nvjet", "gemm", "cutlass", "cublas")),
+    ("elementwise", ("elementwise", "CatArrayBatchedCopy", "copy")),
+    ("reductions and softmax", ("reduce", "softmax", "Softmax")),
+    ("gather / scatter / index", ("gather", "scatter", "index")),
+    ("optimizer (foreach)", ("multi_tensor", "foreach")),
+)
+
+
+def _frozen_checksums(params, labels) -> dict:
+    """path -> the int64 sum of a frozen leaf's bits."""
+    from matryoshka_mm_torch.train.optimizer import named_leaves
+
+    views = {1: torch.int8, 2: torch.int16, 4: torch.int32}
+    return {p: int(t.detach().contiguous().view(views[t.element_size()])
+                   .sum(dtype=torch.int64))
+            for p, t in named_leaves(params) if labels[p] == "frozen"}
+
+
+def _train_counters() -> dict:
+    from matryoshka_mm_torch.ops import flash_attention as fl
+
+    return {"flash_attention": fl.flash_attention_lse,
+            "flash_attention_bwd_dq": fl.flash_attention_bwd_dq,
+            "flash_attention_bwd_dkv": fl.flash_attention_bwd_dkv}
+
+
+def train_batch(cfg, dev, T=TRAIN_T, B=1):
+    """One seeded batch: BOS, the image sentinel at 5, random ids, labels on
+    the second half."""
+    from matryoshka_mm_torch.train.train_step import M3Batch
+
+    rng = np.random.default_rng(5)
+    size = cfg.vision.image_size
+    ids = np.stack([make_prompt(rng, T, cfg.llama.vocab_size)
+                    for _ in range(B)]).astype(np.int64)
+    labels = ids.copy()
+    labels[:, :T // 2] = -100
+    px = rng.standard_normal((B, 3, size, size)).astype(np.float32)
+    return M3Batch(torch.as_tensor(ids, device=dev),
+                   torch.as_tensor(px, device=dev),
+                   torch.as_tensor(labels, device=dev),
+                   torch.ones((B, T), dtype=torch.bool, device=dev))
+
+
+def phase_train(dev) -> dict:
+    """llava-v1.5-7b-m3, bf16 base frozen, LoRA r=128 alpha=256 on every LM
+    projection, K=5 scales, T=1024, B=1, full per-layer recompute: one warm
+    step and three timed ones.  Returns the launches of the timed steps."""
+    import dataclasses
+
+    from matryoshka_mm_torch.models.builder import load_pretrained_model
+    from matryoshka_mm_torch.ops.lora import add_lora, count_lora_params
+    from matryoshka_mm_torch.train.optimizer import (OptimizerConfig,
+                                                     named_leaves)
+    from matryoshka_mm_torch.train.train_step import m3_loss, scale_buckets
+    from matryoshka_mm_torch.train.trainer import (create_train_state,
+                                                   host_metrics,
+                                                   make_train_step)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _, model, _, _ = load_pretrained_model("debug://7b", device=str(dev))
+    cfg = dataclasses.replace(model.cfg, llama=dataclasses.replace(
+        model.cfg.llama, remat=True))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    params = add_lora(model.params, gen)          # r=128, alpha=256
+    opt_cfg = OptimizerConfig(learning_rate=TRAIN_LR, total_steps=10,
+                              lora_enable=True)
+    state, tx = create_train_state(params, opt_cfg)
+    step_fn = make_train_step(cfg, tx, frozen_vision=True)
+    batch = train_batch(cfg, dev)
+    buckets = scale_buckets(cfg, TRAIN_T)
+    L = cfg.llama.num_hidden_layers
+    n_adapter = count_lora_params(params)
+    tokens = sum(TRAIN_T - 1 + s for s in cfg.tokscale_list)
+    print(f"[train] {card_line()}: debug://7b + LoRA r=128: "
+          f"{n_adapter / 1e6:.1f} M adapter parameters in f32, "
+          f"{len(tx.trainable)} trainable leaves; buckets "
+          f"{[(cap, [cfg.tokscale_list[i] for i in m]) for cap, m in buckets]}"
+          f"; {tokens} tokens a step")
+    before = _frozen_checksums(params, tx.labels)
+    counters = _train_counters()
+
+    def counted_step(step, state):
+        """((state, metrics), seconds, launches) of one step."""
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = step(state, batch)
+        torch.cuda.synchronize()
+        return (result, time.perf_counter() - t0,
+                {k: fn.launches for k, fn in counters.items()})
+
+    # ---- one warm step, three timed ----
+    losses, norms, times = [], [], []
+    total = dict.fromkeys(counters, 0)
+    want = {"flash_attention": 2 * L * len(buckets),
+            "flash_attention_bwd_dq": L * len(buckets),
+            "flash_attention_bwd_dkv": L * len(buckets)}
+    for i in range(4):
+        (state, metrics), t, launches = counted_step(step_fn, state)
+        m = host_metrics(metrics)
+        losses.append(m["loss"])
+        norms.append(m["grad_norm"])
+        print(f"[train] step {i + 1}: loss {m['loss']:.5f} grad_norm "
+              f"{m['grad_norm']:.5f} {t * 1e3:.1f} ms launches {launches}")
+        if launches != want:
+            fail(f"train step {i + 1}: launches {launches}, expected {want}")
+        if i == 0:
+            leaves = dict(named_leaves(params))
+            dead = [p for p in tx.trainable if p.endswith("lora_b")
+                    and not bool(leaves[p].any())]
+            if dead:
+                fail(f"{len(dead)} lora_b leaves are still zero after one "
+                     f"step, e.g. {dead[0]}")
+        else:
+            times.append(t)
+            for k in total:
+                total[k] += launches[k]
+    if not all(np.isfinite(losses)) or not all(np.isfinite(norms)):
+        fail(f"train: losses {losses} grad norms {norms}")
+    if not losses[3] < losses[0]:
+        fail(f"train: the loss did not fall: {losses}")
+    step_s = statistics.median(times)
+    print(f"[train] {card_line()}: step {step_s * 1e3:.1f} ms (median of 3: "
+          f"{[round(t * 1e3, 1) for t in times]}), {tokens / step_s:.1f} "
+          f"tok/s, max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # ---- the same loss through attn_impl="reference" ----
+    with torch.no_grad():
+        got = float(m3_loss(params, cfg, batch, frozen_vision=True)[0])
+        ref = float(m3_loss(params, cfg.with_attn_impl("reference"), batch,
+                            frozen_vision=True)[0])
+    rel = abs(got - ref) / abs(ref)
+    print(f"[train] loss through the kernels {got:.5f}, through "
+          f"attn_impl=reference {ref:.5f}: relative {rel:.2e} (tolerance "
+          f"{TRAIN_LOSS_TOL})")
+    if not rel <= TRAIN_LOSS_TOL:
+        fail("train: the kernel path's loss leaves the reference path's")
+
+    # ---- one step keeping the flash forward's out and lse ----
+    keep_cfg = dataclasses.replace(cfg, llama=dataclasses.replace(
+        cfg.llama, remat_policy="names:flash_out,flash_lse"))
+    keep_step = make_train_step(keep_cfg, tx, frozen_vision=True)
+    (state, _), _, _ = counted_step(keep_step, state)   # warm
+    torch.cuda.reset_peak_memory_stats()
+    (state, _), t, launches = counted_step(keep_step, state)
+    print(f"[train] remat_policy=names:flash_out,flash_lse: step "
+          f"{t * 1e3:.1f} ms launches {launches} max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if launches != dict(want, flash_attention=L * len(buckets)):
+        fail("train: the recompute launched the flash forward again")
+
+    after = _frozen_checksums(params, tx.labels)
+    changed = [p for p in before if before[p] != after[p]]
+    print(f"[train] {len(before)} frozen leaves, {len(changed)} changed")
+    if changed:
+        fail(f"train: frozen leaves changed, e.g. {changed[0]}")
+
+    # ---- one step under the profiler ----
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step_fn(state, batch)
+        torch.cuda.synchronize()
+    # (the wall time inside the profiler is longer than outside it)
+    wall = counted_step(step_fn, state)[1] * 1e3
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) \
+            or getattr(e, "self_cuda_time_total", 0)
+
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(dev_us(e) for e in kernels) / 1e3
+    print(f"[train] {card_line()}: profile of one step: device {dev_ms:.1f} "
+          f"ms, wall {wall:.1f} ms, device idle "
+          f"{max(0.0, 1 - dev_ms / wall):.3f}, "
+          f"{sum(e.count for e in kernels)} kernels")
+    groups = {}
+    for e in kernels:
+        key = next((g for g, words in TRAIN_KERNEL_GROUPS
+                    if any(w in e.key for w in words)), "other")
+        ms, n = groups.get(key, (0.0, 0))
+        groups[key] = ms + dev_us(e) / 1e3, n + e.count
+    print("[train] device time by kind: " + "; ".join(
+        f"{g} {ms:.1f} ms ({100 * ms / max(dev_ms, 1e-9):.1f}%, x{n})"
+        for g, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0])))
+    for e in sorted(kernels, key=lambda e: -dev_us(e))[:6]:
+        print(f"[train]   {dev_us(e) / 1e3:9.2f} ms  x{e.count:5d}  "
+              f"{e.key[:80]}")
+    del model, params, state
+    torch.cuda.empty_cache()
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 11: small model train steps, card against CPU
+# ---------------------------------------------------------------------------
+
+SMALL_TRAIN_TOL = 1e-3
+SMALL_MOE = "t=dense_ft=cls_obj=weightedlm_loadb=switch_alpha=0.01"
+
+
+def _small_train_run(params, cfg, opt_cfg, dev):
+    """Step-1 gradients, then two train steps' losses and grad norms."""
+    from matryoshka_mm_torch.train.train_step import m3_loss
+    from matryoshka_mm_torch.train.trainer import (create_train_state,
+                                                   host_metrics,
+                                                   make_train_step)
+    from matryoshka_mm_torch.train.optimizer import named_leaves
+
+    state, tx = create_train_state(params, opt_cfg)
+    batch = train_batch(cfg, dev, T=40, B=2)
+    batch = batch._replace(attn_mask=batch.attn_mask.clone())
+    batch.attn_mask[1, 33:] = False                 # a shorter second row
+    leaves = dict(named_leaves(params))
+    loss, _ = m3_loss(params, cfg, batch, argmaxcost_ema=state.argmaxcost_ema,
+                      frozen_vision=True)
+    grads = torch.autograd.grad(loss, [leaves[p] for p in tx.trainable],
+                                allow_unused=True)
+    grads = {p: g.detach().cpu() for p, g in zip(tx.trainable, grads)
+             if g is not None}
+    step_fn = make_train_step(cfg, tx, frozen_vision=True)
+    seen = []
+    for _ in range(2):
+        state, metrics = step_fn(state, batch)
+        m = host_metrics(metrics)
+        seen += [m["loss"], m["grad_norm"]]
+    return grads, seen
+
+
+def phase_train_small(dev) -> None:
+    import copy
+    import dataclasses
+
+    from matryoshka_mm_torch.config import LlavaConfig
+    from matryoshka_mm_torch.models.convert import init_params
+    from matryoshka_mm_torch.ops.lora import add_lora
+    from matryoshka_mm_torch.ops.quant import quantize_llama_params
+    from matryoshka_mm_torch.train.optimizer import OptimizerConfig
+
+    counters = _train_counters()
+    for label in ("moe full fine-tune", "qlora int8"):
+        moe = SMALL_MOE if label.startswith("moe") else None
+        base = LlavaConfig.tiny_debug(moe=moe)
+        cfg = dataclasses.replace(base, llama=dataclasses.replace(
+            base.llama, hidden_size=256, num_attention_heads=2,
+            num_key_value_heads=2, intermediate_size=512, remat=True))
+        params = init_params(cfg, "cpu", seed=4)            # Dh = 128
+        opt_cfg = OptimizerConfig(learning_rate=1e-3, total_steps=10)
+        if label == "qlora int8":
+            quantize_llama_params(params, bits=8, fuse=False)
+            params = add_lora(params, torch.Generator().manual_seed(2), r=8,
+                              alpha=16.0)
+            opt_cfg = dataclasses.replace(opt_cfg, lora_enable=True)
+        on_card = _to(copy.deepcopy(params), dev)
+        for fn in counters.values():
+            fn.launches = 0
+        want_g, want = _small_train_run(params, cfg, opt_cfg, "cpu")
+        if any(fn.launches for fn in counters.values()):
+            fail(f"small train {label}: a kernel was launched on the CPU")
+        got_g, got = _small_train_run(on_card, cfg, opt_cfg, dev)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counters.items()}
+        if not all(launches.values()):
+            fail(f"small train {label}: launches on the card {launches}")
+        worst = max(
+            (float((got_g[p] - want_g[p]).abs().max()
+                   / want_g[p].abs().max().clamp(min=1e-12)), p)
+            for p in want_g)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        print(f"[small train {label}] card {[round(x, 6) for x in got]}\n"
+              f"[small train {label}] cpu  {[round(x, 6) for x in want]}\n"
+              f"[small train {label}] losses and grad norms within "
+              f"{rel:.2e}; {len(want_g)} gradients, the worst "
+              f"{worst[0]:.2e} of its max ({worst[1]}); tolerance "
+              f"{SMALL_TRAIN_TOL}; launches {launches}")
+        if set(got_g) != set(want_g) or not rel <= SMALL_TRAIN_TOL \
+                or not worst[0] <= SMALL_TRAIN_TOL:
+            fail(f"small train {label}: the card leaves the CPU")
+
+
+# ---------------------------------------------------------------------------
 # phase 8: small model, card against CPU
 # ---------------------------------------------------------------------------
 
@@ -1451,7 +1940,7 @@ def _to(tree, dev):
     return tree.to(dev)
 
 
-def main() -> int:
+def main(argv=()) -> int:
     if not (REPO / "matryoshka_mm_torch" / "csrc").is_dir():
         print("chip_smoke: the matryoshka_mm_torch package is not beside "
               "this script", file=sys.stderr)
@@ -1460,9 +1949,18 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = phase_device()
     phase_build()
+    if argv:
+        # a subset for work on one phase: `chip_smoke.py bwd train small`
+        # runs phases 9, 10 and 11 alone and prints no result line
+        for name in argv:
+            {"bwd": phase_bwd_kernels, "train": phase_train,
+             "small": phase_train_small}[name](dev)
+        print(f"partial run {argv}: no result")
+        return 1
     rec = phase_kernels(dev)
     rec.update(phase_quant_kernels(dev))
     launches = phase_slice(dev)["launches"]
@@ -1476,6 +1974,10 @@ def main() -> int:
     for k, n in phase_serving(dev).items():
         launches[k] = launches.get(k, 0) + n
     phase_small(dev)
+    rec.update(phase_bwd_kernels(dev))
+    for k, n in phase_train(dev).items():
+        launches[k] = launches.get(k, 0) + n
+    phase_train_small(dev)
     if [m for m in sys.modules
             if m.split(".")[0] in ("jax", "matryoshka_mm_tpu")]:
         fail("jax or the JAX package was imported")
@@ -1493,6 +1995,12 @@ def main() -> int:
                             "matryoshka_mm_tpu/ops/paged_attention.py:71"),
         "hbm_read": ("hbm_probe.cu", "matryoshka_mm_tpu/ops/hbm_probe.py:36"),
         "hbm_copy": ("hbm_probe.cu", "matryoshka_mm_tpu/ops/hbm_probe.py:56"),
+        "flash_attention_bwd_dq": (
+            "flash_attention_bwd.cu",
+            "matryoshka_mm_tpu/ops/flash_attention.py:199"),
+        "flash_attention_bwd_dkv": (
+            "flash_attention_bwd.cu",
+            "matryoshka_mm_tpu/ops/flash_attention.py:267"),
     }
     kernels = [{"name": name, "route": "cuda",
                 "source": f"matryoshka_mm_torch/csrc/{src}",
@@ -1510,6 +2018,7 @@ def main() -> int:
                       for k in kernels if k["bound_by"] == "bytes"))
     if any(k["launches"] <= 0 for k in kernels):
         fail("a kernel of the main path was never launched")
+    print(f"[total] {time.perf_counter() - t_start:.1f} s, the build included")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -1519,4 +2028,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

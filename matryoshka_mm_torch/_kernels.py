@@ -50,6 +50,16 @@ SIGNATURES = {
     "m3_flash_attention_fwd": [I, P, P, P, P, P, P, I, I, I, I, I, I,
                                LL, LL, LL, LL, LL, LL, LL, LL, LL, LL,
                                I, I, I, F, P],
+    # dtype, q, k, v, kv_valid, do, lse, delta, dq, B, H, Hkv, Sq, Sk, Dh,
+    # q, k, v and do strides (b, h, s) each, kv_valid batch stride, causal,
+    # window, q_offset, scale, stream
+    "m3_flash_attention_bwd_dq": [I, P, P, P, P, P, P, P, P,
+                                  I, I, I, I, I, I, *[LL] * 13,
+                                  I, I, I, F, P],
+    # the same with two outputs: ..., delta, dk, dv, B, ...
+    "m3_flash_attention_bwd_dkv": [I, P, P, P, P, P, P, P, P, P,
+                                   I, I, I, I, I, I, *[LL] * 13,
+                                   I, I, I, F, P],
     # dtype, q, k, v, kv_valid, kv_pos, q_pos, out, B, H, Hkv, S, Dh,
     # q strides (b, h), k strides (b, s, h), v strides (b, s, h),
     # kv_valid batch stride, kv_pos batch stride, window, scale, stream

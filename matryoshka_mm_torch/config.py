@@ -4,8 +4,7 @@ Field names and presets mirror the JAX package's ``LlamaConfig``
 (``matryoshka_mm_tpu/models/llama.py``), ``ClipVisionConfig``
 (``models/clip.py``) and ``M3Preset`` / ``LlavaConfig`` (``models/llava.py``),
 so a configuration reads the same on both sides.  Fields that only serve
-paths the port does not have yet (training remat, tensor parallelism) are
-left out.
+paths the port does not have yet (tensor parallelism) are left out.
 
 ``LlamaConfig.attn_impl`` keeps its JAX meaning:
 
@@ -46,6 +45,15 @@ class LlamaConfig:
     rms_norm_eps: float = 1e-5
     rope_theta: float = 10000.0
     dtype: str = "bfloat16"
+    # training-mode forward (no cache): recompute each decoder layer in the
+    # backward instead of keeping its activations
+    remat: bool = False
+    # what a recomputed layer keeps.  "" = nothing but the layer's input
+    # (least memory); "names:flash_out,flash_lse" = the flash forward's
+    # `out` and `lse`, so the recompute does not launch that kernel again.
+    # The JAX package's "dots" and its attn_q/attn_k/attn_v/attn_o names
+    # are not ported (ROADMAP.md Queue 1)
+    remat_policy: str = ""
     attn_impl: str = "auto"
     arch: str = "llama"
     sliding_window: int = 0          # 0 = disabled
@@ -136,6 +144,13 @@ class M3Preset:
     projector_loc: str = "after_vision_tower"
     lm_loss_type: str = "micro"
 
+    @classmethod
+    def from_dict(cls, d: Optional[dict]) -> "M3Preset":
+        if d is None:
+            return cls(use_alternative=False)
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in known})
+
 
 @dataclasses.dataclass(frozen=True)
 class LlavaConfig:
@@ -149,6 +164,8 @@ class LlavaConfig:
     image_grid_pinpoints: Optional[str] = None
     tokenizer_model_max_length: int = 2048
     tokenizer_padding_side: str = "right"
+    router_feature_types: Tuple[str, ...] = ()
+    text_embed_dim: int = 384  # bge-small-en-v1.5
 
     @property
     def is_m3(self) -> bool:
@@ -183,27 +200,32 @@ class LlavaConfig:
                                             kv_cache_dtype=kv_cache_dtype))
 
     @classmethod
-    def tiny_debug(cls, scales: Tuple[int, ...] = (1, 4, 16)
-                   ) -> "LlavaConfig":
+    def tiny_debug(cls, moe: Optional[str] = None,
+                   scales: Tuple[int, ...] = (1, 4, 16)) -> "LlavaConfig":
         """Small random-init config: 16-patch grid, 4-layer LLM."""
         scale_str = "[" + ",".join(str(s) for s in scales) + "]"
         return cls(
             llama=LlamaConfig.tiny_debug(),
             vision=ClipVisionConfig.tiny_debug(),
             preset=M3Preset(
-                matryoshka_vis_token_scale=f"ver=v0_numtoks={scale_str}"),
+                matryoshka_vis_token_scale=f"ver=v0_numtoks={scale_str}",
+                moe=moe),
             mm_projector_type="mlp2x_gelu",
             tokenizer_model_max_length=128,
+            router_feature_types=("cls",) if moe else (),
         )
 
     @classmethod
-    def llava_v15_7b_m3(cls, **kw) -> "LlavaConfig":
+    def llava_v15_7b_m3(cls, moe: Optional[str] = None,
+                        **kw) -> "LlavaConfig":
         scales = "[1,9,36,144,576]"
         return cls(
             llama=LlamaConfig.vicuna_7b(),
             vision=ClipVisionConfig.vit_l_14_336(dtype="bfloat16"),
             preset=M3Preset(
-                matryoshka_vis_token_scale=f"ver=v0_numtoks={scales}"),
+                matryoshka_vis_token_scale=f"ver=v0_numtoks={scales}",
+                moe=moe),
             tokenizer_model_max_length=2048,
+            router_feature_types=("cls",) if moe else (),
             **kw,
         )

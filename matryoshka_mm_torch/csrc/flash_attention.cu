@@ -1,4 +1,5 @@
-// Prefill flash attention, forward only, for Hopper (sm_90a).
+// Prefill flash attention, the forward kernel, for Hopper (sm_90a).  The
+// backward kernels (dQ, dK/dV) are in flash_attention_bwd.cu.
 //
 // Replaces the Pallas kernel matryoshka_mm_tpu/ops/flash_attention.py
 // _fwd_kernel / _fwd_call (behind flash_attention and flash_attention_lse).

@@ -210,8 +210,8 @@ def _parse_scale(spec: Optional[str]) -> Optional[int]:
             "Queue 1, item 4)")
     if kvs["numtoks"] == "gateprobargmax":
         raise NotImplementedError(
-            "numtoks=gateprobargmax needs the M3 router, not ported yet "
-            "(ROADMAP.md Queue 1, item 4)")
+            "numtoks=gateprobargmax (the router picks the scale while "
+            "decoding) is not ported yet (ROADMAP.md Queue 1, item 4)")
     return int(kvs["numtoks"])
 
 

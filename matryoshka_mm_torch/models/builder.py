@@ -3,7 +3,8 @@
 ``(tokenizer, model, image_processor, context_len)``.
 
 Sources: ``debug://tiny`` and ``debug://7b`` (random weights made on the
-device from a seed; no checkpoint is downloaded).  ``load_4bit`` /
+device from a seed; no checkpoint is downloaded); ``debug://tiny-moe`` is
+the tiny M3-MoE config with its dense router.  ``load_4bit`` /
 ``load_8bit`` quantize ``params["llama"]`` on the device leaf by leaf
 (``ops/quant.py`` ``quantize_llama_params``, the JAX ``maybe_quantize``;
 ``quant_fuse=False`` keeps the unfused q/k/v and gate/up leaves), and
@@ -151,14 +152,13 @@ def load_pretrained_model(
             f"{model_path!r}: HF and orbax checkpoint loading is not ported "
             f"yet (ROADMAP.md Queue 1, item 5)")
     which = model_path.split("//", 1)[1]
-    if which == "tiny":
-        cfg = LlavaConfig.tiny_debug()
+    if which.startswith("tiny"):
+        cfg = LlavaConfig.tiny_debug(
+            moe="t=dense_ft=cls_obj=weightedlm" if "moe" in which else None)
     elif which == "7b":
         cfg = LlavaConfig.llava_v15_7b_m3()
     else:
-        raise NotImplementedError(
-            f"debug model {which!r}: the port has debug://tiny and "
-            f"debug://7b (router configs: ROADMAP.md Queue 1, item 4)")
+        raise ValueError(f"unknown debug model {which!r}")
     if kv_cache_dtype:
         cfg = cfg.with_kv_cache_dtype(kv_cache_dtype)
     s = cfg.vision.image_size

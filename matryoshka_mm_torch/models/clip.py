@@ -1,5 +1,6 @@
 """CLIP ViT vision tower (ViT-L/14-336), PyTorch port of
-``matryoshka_mm_tpu/models/clip.py`` up to the select layer.
+``matryoshka_mm_tpu/models/clip.py``: the select-layer features and the
+M3 router's feature taps.
 
 Parameters: ``patch_embedding`` is the flattened conv kernel ``(3*P*P, D)``
 in ``(c, ph, pw)`` order and the patch embedding is one matmul, as in JAX
@@ -8,9 +9,8 @@ weight is ``{"weight": (out, in), "bias"}`` for ``F.linear``;
 ``params["layers"]`` is a list of per-layer dicts.
 
 Attention is the plain non-causal ``attention_reference`` (the JAX tower
-uses its reference path too; there is no kernel here).  The M3 router taps
-(``want_router_taps``) and the S2 multi-scale tower are not ported yet
-(ROADMAP.md Queue 1, items 3 and 8).
+uses its reference path too; there is no kernel here).  The S2 multi-scale
+tower is not ported yet (ROADMAP.md Queue 1, item 3).
 """
 
 from __future__ import annotations
@@ -80,12 +80,13 @@ def clip_vision_forward(params: dict, pixel_values: torch.Tensor,
                         cfg: ClipVisionConfig, *,
                         want_router_taps: bool = False
                         ) -> Dict[str, torch.Tensor]:
-    """Run the tower up to ``select_layer``; returns ``patch`` (B, G*G, D)
-    and ``cls_patch`` (B, 1 + G*G, D)."""
-    if want_router_taps:
-        raise NotImplementedError(
-            "CLIP router taps are not ported yet (ROADMAP.md Queue 1, "
-            "item 4: gateprobargmax)")
+    """Run the tower; returns ``patch`` (B, G*G, D) and ``cls_patch``
+    (B, 1 + G*G, D) of the select layer.  With ``want_router_taps`` the
+    layers past it run too and the router's inputs are added: ``cls``,
+    ``patchavgpool`` (select layer), ``clslast``, ``poolout`` (last layer,
+    the second through ``post_layernorm``), and ``attnqk`` / ``attnkk``, the
+    softmax over the patches of the last layer's raw cls query (or cls key)
+    against its raw patch keys, scaled by ``hidden_size ** -0.5``."""
     x = embed_pixels(params, pixel_values, cfg)
     x = _layer_norm(x, params["pre_layrnorm"], cfg.layer_norm_eps)
     n = cfg.num_hidden_layers
@@ -93,9 +94,35 @@ def clip_vision_forward(params: dict, pixel_values: torch.Tensor,
         else n + cfg.select_layer + 1
     if not 0 < sel <= n:
         raise ValueError(f"select_layer {cfg.select_layer} out of range")
-    for lp in params["layers"][:sel]:
+    layers = params["layers"]
+    for lp in layers[:sel]:
         x = _encoder_layer(lp, x, cfg)
-    return {"cls_patch": x, "patch": x[:, 1:, :]}
+    out = {"cls_patch": x, "patch": x[:, 1:, :]}
+    if not want_router_taps:
+        return out
+
+    # the last layer's q_proj / k_proj see the result of n - 1 layers (when
+    # the select layer IS the last one, that layer runs once more on its
+    # own output, as in the JAX package)
+    h = x
+    for lp in layers[sel:n - 1]:
+        h = _encoder_layer(lp, h, cfg)
+    last = layers[-1]
+    x_ln = _layer_norm(h, last["layer_norm1"], cfg.layer_norm_eps)
+    q_raw = _linear(last["self_attn"]["q_proj"], x_ln)
+    k_raw = _linear(last["self_attn"]["k_proj"], x_ln)
+    h_last = _encoder_layer(last, h, cfg)
+    scale = cfg.hidden_size ** -0.5
+    attn_qk = torch.einsum("bd,bnd->bn", q_raw[:, 0], k_raw[:, 1:]) * scale
+    attn_kk = torch.einsum("bd,bnd->bn", k_raw[:, 0], k_raw[:, 1:]) * scale
+    out["attnqk"] = torch.softmax(attn_qk.float(), dim=-1)
+    out["attnkk"] = torch.softmax(attn_kk.float(), dim=-1)
+    out["cls"] = x[:, 0, :]
+    out["patchavgpool"] = x[:, 1:, :].mean(dim=1)
+    out["clslast"] = h_last[:, 0, :]
+    out["poolout"] = _layer_norm(h_last[:, 0, :], params["post_layernorm"],
+                                 cfg.layer_norm_eps)
+    return out
 
 
 def feature_select(outputs: Dict[str, torch.Tensor],

@@ -14,6 +14,9 @@ Port layout (plain dicts of tensors):
   per-layer ``{"qint4" | "qint8", "scale"}`` dicts with their dtypes kept;
   the TPU tile padding recorded in ``orig_shape`` is cut off (for int4 the
   pad bytes sit after each half's ``K/2`` columns, so ``[:n, :k // 2]``);
+* a LoRA leaf ``{"w", "lora_a", "lora_b", "lora_scale"}`` (over a plain
+  or a quantized base) is unstacked with its layer and keeps its keys and
+  orientations; ``router`` dense leaves are transposed like every other;
 * serving state: :func:`paged_cache_from_jax` and
   :func:`page_allocator_from_jax` carry a paged KV pool and its allocator
   across.
@@ -27,8 +30,10 @@ import numpy as np
 import torch
 
 from ..config import LlavaConfig, torch_dtype
+from ..kvconfig import parse_kv_from_string
 from ..ops.quant import Q4KEY, QKEY, is_quantized
 from .projector import projector_depth
+from .router import init_dense_gating_params
 
 
 def _tensor(a, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
@@ -90,8 +95,12 @@ def params_from_jax(np_tree: dict, cfg: LlavaConfig, device="cpu",
     vis = dict(np_tree["vision_tower"])
     llama["layers"] = _unstack(llama["layers"], cfg.llama.num_hidden_layers)
     vis["layers"] = _unstack(vis["layers"], cfg.vision.num_hidden_layers)
-    return {"llama": _map(llama, fn), "vision_tower": _map(vis, fn),
-            "mm_projector": _map(np_tree["mm_projector"], fn)}
+    out = {"llama": _map(llama, fn), "vision_tower": _map(vis, fn),
+           "mm_projector": _map(np_tree["mm_projector"], fn)}
+    for key in ("router", "image_newline"):
+        if key in np_tree:
+            out[key] = _map(np_tree[key], fn)
+    return out
 
 
 def init_params(cfg: LlavaConfig, device="cpu", seed: int = 0) -> dict:
@@ -156,10 +165,17 @@ def init_params(cfg: LlavaConfig, device="cpu", seed: int = 0) -> dict:
         } for _ in range(vc.num_hidden_layers)],
         "post_layernorm": ln(),
     }
+    from .llava import router_embed_dim
+
     depth = projector_depth(cfg.mm_projector_type)
     proj = {"layers": [dense(D, cfg.mm_hidden_size if i == 0 else D, ldt)
                        for i in range(depth)]} if depth else {}
-    return {"llama": llama, "vision_tower": vision, "mm_projector": proj}
+    params = {"llama": llama, "vision_tower": vision, "mm_projector": proj}
+    if cfg.is_m3_moe and parse_kv_from_string(cfg.preset.moe).get("t") \
+            == "dense":
+        params["router"] = init_dense_gating_params(
+            gen, router_embed_dim(cfg), len(cfg.tokscale_list), device=device)
+    return params
 
 
 def paged_cache_from_jax(k, v, k_scale=None, v_scale=None, device="cpu"):

@@ -29,6 +29,13 @@ tensor, outside ``disable_fused_proj()``, launches ``int4_matmul`` /
 dequantizes to bf16 and multiplies, as the JAX package does off the TPU.
 The MLP of the fused layout takes ``quant_mlp`` under the JAX rule (rows
 <= 32, bf16, CUDA, fused kernels enabled).
+
+Training (``cache=None``): the forward carries gradients and writes nothing
+in place.  A LoRA leaf (``ops/lora.py``) multiplies as ``x W^T + ((x A^T)
+B^T) * scale`` over a plain or a quantized base.  With ``cfg.remat`` each
+decoder layer is recomputed in the backward (``torch.utils.checkpoint``);
+``remat_policy="names:flash_out,flash_lse"`` keeps the flash forward's
+``out`` and ``lse`` so the recompute does not launch that kernel again.
 """
 
 from __future__ import annotations
@@ -38,10 +45,12 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..config import LlamaConfig, torch_dtype
 from ..ops.attention import attention
 from ..ops.decode_attention import flash_decode_attention
+from ..ops.flash_attention import FlashResiduals
 from ..ops.fused_mlp import MAX_ROWS as MLP_MAX_ROWS, quant_mlp
 from ..ops.int4_matmul import MAX_FUSED_ROWS, leaf_matmul
 from ..ops.quant import (Q4KEY, _quantize_kv_slots, dequantize_array,
@@ -130,8 +139,15 @@ def _fused_ok(x: torch.Tensor, rows: int, limit: int) -> bool:
 
 
 def proj(x: torch.Tensor, leaf) -> torch.Tensor:
-    """``x (..., in)`` times a weight leaf stored ``(out, in)`` (a tensor
-    or a quantized dict) -> ``(..., out)``."""
+    """``x (..., in)`` times a weight leaf stored ``(out, in)`` (a tensor,
+    a quantized dict or a LoRA wrapper of either) -> ``(..., out)``."""
+    if isinstance(leaf, dict) and "lora_a" in leaf:
+        # the base product (never differentiated in the weight) plus the
+        # rank-r products in the activation dtype
+        y = proj(x, leaf["w"])
+        a = F.linear(x.to(y.dtype), leaf["lora_a"].to(y.dtype))
+        return y + F.linear(a, leaf["lora_b"].to(y.dtype)) \
+            * leaf["lora_scale"].to(y.dtype)
     if is_quantized(leaf):
         rows = x.numel() // x.shape[-1]
         if _fused_ok(x, rows, MAX_FUSED_ROWS):
@@ -173,7 +189,9 @@ def lm_head(params: dict, hidden: torch.Tensor) -> torch.Tensor:
 def _layer_forward(lp: dict, hidden: torch.Tensor, *, cfg: LlamaConfig,
                    cos, sin, q_positions, kv_valid,
                    cache: Optional[KVCache], layer_idx: int,
-                   q_index_offset: int = 0) -> torch.Tensor:
+                   q_index_offset: int = 0,
+                   flash_residuals: Optional[FlashResiduals] = None
+                   ) -> torch.Tensor:
     """One decoder layer.  With a cache, the S new K/V slots are written in
     place at ``cache.write_idx`` of layer ``layer_idx`` and attention reads
     that layer's whole cache."""
@@ -197,7 +215,8 @@ def _layer_forward(lp: dict, hidden: torch.Tensor, *, cfg: LlamaConfig,
     if cache is None:
         out = attention(q, k, v, causal=True, q_positions=q_positions,
                         kv_positions=q_positions, kv_valid=kv_valid,
-                        sliding_window=window, impl=cfg.attn_impl)
+                        sliding_window=window, impl=cfg.attn_impl,
+                        flash_residuals=flash_residuals)
     else:
         w = cache.write_idx
         ck, cv = cache.k[layer_idx], cache.v[layer_idx]   # (B, S_max, Hkv, Dh)
@@ -238,6 +257,22 @@ def _layer_forward(lp: dict, hidden: torch.Tensor, *, cfg: LlamaConfig,
     return hidden + _mlp(m, x)
 
 
+def _remat_keeps_flash(policy: str) -> bool:
+    """Whether a recomputed layer keeps the flash forward's ``out`` and
+    ``lse``.  Raises on the policies that are not ported or unknown."""
+    if not policy:
+        return False
+    if policy == "names:flash_out,flash_lse":
+        return True
+    if policy == "dots" or policy.startswith("names:"):
+        raise NotImplementedError(
+            f"remat_policy={policy!r}: only '' and "
+            f"'names:flash_out,flash_lse' are ported ('dots' and the attn_* "
+            f"names: ROADMAP.md Queue 1, slice 3)")
+    raise ValueError(f"unknown remat_policy={policy!r} (expected '', 'dots', "
+                     f"or 'names:<tag,...>')")
+
+
 def llama_forward(
     params: dict,
     cfg: LlamaConfig,
@@ -276,11 +311,19 @@ def llama_forward(
         kv_valid = attn_valid
 
     hidden = inputs_embeds
+    remat = cache is None and cfg.remat and torch.is_grad_enabled()
+    keep_flash = remat and _remat_keeps_flash(cfg.remat_policy)
     for i, lp in enumerate(params["layers"]):
-        hidden = _layer_forward(
-            lp, hidden, cfg=cfg, cos=cos, sin=sin, q_positions=position_ids,
-            kv_valid=kv_valid, cache=cache, layer_idx=i,
-            q_index_offset=q_index_offset)
+        def layer(h, lp=lp, i=i, res=FlashResiduals() if keep_flash else None):
+            return _layer_forward(
+                lp, h, cfg=cfg, cos=cos, sin=sin, q_positions=position_ids,
+                kv_valid=kv_valid, cache=cache, layer_idx=i,
+                q_index_offset=q_index_offset, flash_residuals=res)
+
+        # no random op in a layer, so the recompute needs no RNG state
+        hidden = checkpoint(layer, hidden, use_reentrant=False,
+                            preserve_rng_state=False) if remat \
+            else layer(hidden)
     if cache is not None:
         cache.write_idx += S
     return rms_norm(hidden, params["norm"], cfg.rms_norm_eps), cache

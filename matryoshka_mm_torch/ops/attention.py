@@ -4,8 +4,8 @@
 ``impl="auto"`` a multi-token query (prefill) goes to
 :func:`~matryoshka_mm_torch.ops.flash_attention.flash_attention`, which runs
 the hand-written CUDA kernel on a CUDA tensor and its plain version on a CPU
-tensor; single-token decode steps reach their own kernel from
-``models/llama.py``.  ``impl="reference"`` is :func:`attention_reference`,
+tensor, forward and (under autograd) backward; single-token decode steps
+reach their own kernel from ``models/llama.py``.  ``impl="reference"`` is :func:`attention_reference`,
 the plain masked softmax, with the JAX reference's numerics.
 
 Layout: ``(B, H, S, Dh)``, GQA via ``num_kv_heads <= num_heads``.
@@ -88,17 +88,22 @@ def attention(
     sliding_window: Optional[int] = None,
     q_index_offset: int = 0,
     impl: str = "auto",
+    flash_residuals=None,
 ) -> torch.Tensor:
     """Dispatch: ``impl="auto"`` sends a multi-token query with no bias to
     the flash kernel (index causality, which equals position causality on
     the monotone layouts the splice and the cache produce); everything
-    else, and ``impl="reference"``, to :func:`attention_reference`."""
+    else, and ``impl="reference"``, to :func:`attention_reference`.  Both
+    carry gradients; ``flash_residuals`` is handed to
+    :func:`~.flash_attention.flash_attention` (a recomputed layer's saved
+    ``out`` and ``lse``)."""
     if impl == "auto" and bias is None and q.shape[2] > 1:
         from .flash_attention import flash_attention
 
         return flash_attention(
             q, k, v, causal=causal, kv_valid=kv_valid,
-            sliding_window=sliding_window, q_index_offset=q_index_offset)
+            sliding_window=sliding_window, q_index_offset=q_index_offset,
+            residuals=flash_residuals)
     return attention_reference(
         q, k, v, causal=causal, q_positions=q_positions,
         kv_positions=kv_positions, kv_valid=kv_valid, bias=bias,

@@ -1,27 +1,43 @@
-"""Prefill flash attention, forward only: the hand-written CUDA kernel
-``csrc/flash_attention.cu`` and its plain PyTorch version.
+"""Prefill flash attention, forward and backward: the hand-written CUDA
+kernels ``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu`` and
+their plain PyTorch versions.
 
-Replaces the Pallas TPU kernel ``matryoshka_mm_tpu/ops/flash_attention.py``
+Replaces the Pallas TPU kernels of ``matryoshka_mm_tpu/ops/flash_attention.py``:
 ``_fwd_kernel`` / ``_fwd_call`` behind ``flash_attention`` and
-``flash_attention_lse``.  Same function: tiled online softmax with f32
-state, index-based causality with ``q_index_offset``, a ``kv_valid`` mask,
-a sliding window, GQA by head mapping (no K/V expansion), and the
-natural-log ``lse``.  A row with no valid key returns 0 (lse ``-1e30``).
+``flash_attention_lse``, and ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel`` /
+``_bwd_call`` behind the custom VJP ``_flash`` / ``_flash_fwd`` /
+``_flash_bwd``.  Same function: tiled online softmax with f32 state,
+index-based causality with ``q_index_offset``, a ``kv_valid`` mask, a
+sliding window, GQA by head mapping (no K/V expansion), and the natural-log
+``lse``.  A row with no valid key returns 0 (lse ``-1e30``) and passes no
+gradient.
 
-What bounds it on the H100: arithmetic.  A 7B prefill layer does
-``4 * B * H * Sq * Sk_seen * Dh`` FLOPs (QK^T and PV) over K/V tiles that
-each block reads once into shared memory, so bytes are small beside the
-math.  This first kernel does that math as plain f32 FMAs: one block per
-(64-row q tile, head, batch row), two threads per row, K/V tiles converted
-to f32 in shared memory and read as broadcasts, tiles above the causal
-diagonal and below the window skipped.  Its ceiling is the f32 FMA rate,
-far under the bf16 tensor-core rate; ``mma.sync``/``wgmma`` with TMA
+:func:`flash_attention` is differentiable through a
+``torch.autograd.Function`` whose backward launches the dQ and the dK/dV
+kernel; :func:`flash_attention_lse` stays non-differentiable, as in JAX.
+
+What bounds them on the H100: arithmetic.  A 7B prefill layer does
+``4 * B * H * Sq * Sk_seen * Dh`` FLOPs forward (QK^T and PV) and
+``10 * B * H * Sq * Sk_seen * Dh`` backward (QK^T and dO V^T recomputed in
+both kernels, then dQ, dV and dK) over tiles that each block reads once
+into shared memory, so bytes are small beside the math.  These first
+kernels do that math as plain f32 FMAs.  Forward: one block per (64-row q
+tile, head, batch row), two threads per row.  Backward: four threads per
+row, because a dK/dV thread keeps its share of k, v and of two f32
+accumulators in registers (4 * Dh/4 floats at Dh = 128); the dQ kernel
+loops over kv tiles as the forward does, the dK/dV kernel owns a 64-key
+tile, loops over the heads of its query group and the q tiles that can see
+it, and writes once (no atomics, deterministic).  Tiles above the causal
+diagonal and outside the window are skipped.  Their ceiling is the f32 FMA
+rate, far under the bf16 tensor-core rate; ``mma.sync``/``wgmma`` with TMA
 loads is the next step (ROADMAP Queue 2).
 
-Dispatch: a CPU tensor goes to :func:`flash_attention_plain`; a CUDA
-tensor launches the kernel or raises on what it does not take (dtype other
-than float32/bfloat16, ``Dh`` other than 64/128, a head dim that is not
-contiguous, unaligned strides).  There is no fallback.
+Dispatch: a CPU tensor goes to the plain versions
+(:func:`flash_attention_plain`, :func:`flash_attention_bwd_plain`), through
+the same ``autograd.Function``; a CUDA tensor launches the kernels or raises
+on what they do not take (dtype other than float32/bfloat16, ``Dh`` other
+than 64/128, a head dim that is not contiguous, unaligned strides).  There
+is no fallback.
 """
 
 from __future__ import annotations
@@ -33,23 +49,11 @@ import torch
 from .. import _kernels
 
 LSE_MASKED = -1e30   # lse of a row with no valid key
+LOG2E = 1.4426950408889634
 
 
-def flash_attention_plain(q, k, v, *, causal: bool = True,
-                          kv_valid: Optional[torch.Tensor] = None,
-                          sliding_window: Optional[int] = None,
-                          q_index_offset: int = 0
-                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the kernel: the whole score matrix at once,
-    same masks and numerics (f32 scores, probabilities rounded to
-    ``v.dtype`` for the PV product, sum kept in f32)."""
-    B, H, Sq, Dh = q.shape
-    Hkv, Sk = k.shape[1], k.shape[2]
-    G = H // Hkv
-    dev = q.device
-    kf = k.float().repeat_interleave(G, dim=1)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * (Dh ** -0.5)
-
+def _mask(B, Sq, Sk, kv_valid, causal, sliding_window, q_index_offset, dev):
+    """``(B, 1, Sq, Sk)`` bool: the pairs (query row, kv slot) that attend."""
     mask = torch.ones((B, 1, Sq, Sk), dtype=torch.bool, device=dev)
     if kv_valid is not None:
         mask = mask & kv_valid.bool()[:, None, None, :]
@@ -59,7 +63,24 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
         mask = mask & (cols <= rows)
     if sliding_window:
         mask = mask & (rows - cols < sliding_window)
+    return mask
 
+
+def flash_attention_plain(q, k, v, *, causal: bool = True,
+                          kv_valid: Optional[torch.Tensor] = None,
+                          sliding_window: Optional[int] = None,
+                          q_index_offset: int = 0
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the forward kernel: the whole score matrix
+    at once, same masks and numerics (f32 scores, probabilities rounded to
+    ``v.dtype`` for the PV product, sum kept in f32)."""
+    B, H, Sq, Dh = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    G = H // Hkv
+    kf = k.float().repeat_interleave(G, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * (Dh ** -0.5)
+    mask = _mask(B, Sq, Sk, kv_valid, causal, sliding_window, q_index_offset,
+                 q.device)
     s = s.masked_fill(~mask, float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
@@ -74,20 +95,93 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
     return out.to(q.dtype), lse
 
 
+def _bwd_p_ds(q, k, v, kv_valid, out, lse, do, causal, sliding_window,
+              q_index_offset):
+    """``(p, ds)`` of the backward, both ``(B, H, Sq, Sk)`` f32 and both 0
+    off the mask: ``p = exp2(s * scale * log2e - lse * log2e)`` recomputed
+    from the saved natural-log ``lse``, ``ds = p * (do . v^T - delta)`` with
+    ``delta = rowsum(out * do)``.  The mask is applied by selection, never
+    by a product: a row with no valid key has ``lse = -1e30`` and an
+    infinite ``exp2``."""
+    B, H, Sq, Dh = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    G = H // Hkv
+    mask = _mask(B, Sq, Sk, kv_valid, causal, sliding_window, q_index_offset,
+                 q.device)
+    c = (Dh ** -0.5) * LOG2E
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(),
+                     k.float().repeat_interleave(G, dim=1))
+    zero = torch.zeros((), dtype=torch.float32, device=q.device)
+    p = torch.where(mask, torch.exp2(s * c - lse[..., None] * LOG2E), zero)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(),
+                      v.float().repeat_interleave(G, dim=1))
+    delta = (out.float() * do.float()).sum(dim=-1, keepdim=True)
+    return p, p * (dp - delta)
+
+
+def flash_attention_bwd_dq_plain(q, k, v, kv_valid, out, lse, do, *,
+                                 causal: bool = True,
+                                 sliding_window: Optional[int] = None,
+                                 q_index_offset: int = 0) -> torch.Tensor:
+    """Plain version of the dQ kernel: ``dq = scale * ds . k`` with ``ds``
+    rounded to the input dtype first and the sum in f32."""
+    G = q.shape[1] // k.shape[1]
+    _, ds = _bwd_p_ds(q, k, v, kv_valid, out, lse, do, causal, sliding_window,
+                      q_index_offset)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds.to(k.dtype).float(),
+                      k.float().repeat_interleave(G, dim=1))
+    return (dq * (q.shape[-1] ** -0.5)).to(q.dtype)
+
+
+def flash_attention_bwd_dkv_plain(q, k, v, kv_valid, out, lse, do, *,
+                                  causal: bool = True,
+                                  sliding_window: Optional[int] = None,
+                                  q_index_offset: int = 0
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the dK/dV kernel: ``dv = p^T . do`` (``p`` rounded
+    to ``do``'s dtype), ``dk = scale * ds^T . q`` (``ds`` rounded to the
+    input dtype), sums in f32 and over the query group of each kv head."""
+    B, H, Sq, Dh = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    p, ds = _bwd_p_ds(q, k, v, kv_valid, out, lse, do, causal,
+                      sliding_window, q_index_offset)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(do.dtype).float(), do.float())
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds.to(q.dtype).float(), q.float())
+    dv = dv.reshape(B, Hkv, H // Hkv, Sk, Dh).sum(dim=2)
+    dk = dk.reshape(B, Hkv, H // Hkv, Sk, Dh).sum(dim=2) * (Dh ** -0.5)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_plain(q, k, v, kv_valid, out, lse, do, **kw):
+    """``(dq, dk, dv)`` by the explicit formulas of the two kernels (not
+    autograd through the plain forward)."""
+    dq = flash_attention_bwd_dq_plain(q, k, v, kv_valid, out, lse, do, **kw)
+    dk, dv = flash_attention_bwd_dkv_plain(q, k, v, kv_valid, out, lse, do,
+                                           **kw)
+    return dq, dk, dv
+
+
+def _operand_ok(t: torch.Tensor) -> bool:
+    """A contiguous head dim and 16-byte aligned rows."""
+    vec = 16 // t.element_size()
+    return t.stride(-1) == 1 and not any(s % vec for s in t.stride()[:-1]) \
+        and t.data_ptr() % 16 == 0
+
+
 def _check_operand(name: str, t: torch.Tensor, dtype: torch.dtype,
                    device: torch.device) -> None:
     if t.device != device or t.dtype != dtype:
         raise ValueError(f"flash_attention: {name} is {t.dtype} on {t.device}"
                          f", expected {dtype} on {device}")
-    vec = 16 // t.element_size()
-    if t.stride(-1) != 1 or any(s % vec for s in t.stride()[:-1]) \
-            or t.data_ptr() % 16:
+    if not _operand_ok(t):
         raise ValueError(f"flash_attention: {name} needs a contiguous head "
                          f"dim and 16-byte aligned rows, got strides "
                          f"{t.stride()}")
 
 
-def _launch(q, k, v, kv_valid, causal, window, q_offset):
+def _check_shapes(q, k, v, kv_valid):
+    """Raise on what the kernels do not take; returns ``kv_valid`` as a
+    contiguous ``(B, Sk)`` bool tensor on q's device."""
     B, H, Sq, Dh = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     if q.dtype not in _kernels.DTYPE_CODES or Dh not in (64, 128):
@@ -104,6 +198,13 @@ def _launch(q, k, v, kv_valid, causal, window, q_offset):
     if kv_valid.shape != (B, Sk):
         raise ValueError(f"flash_attention: kv_valid {tuple(kv_valid.shape)}"
                          f" != {(B, Sk)}")
+    return kv_valid
+
+
+def _launch(q, k, v, kv_valid, causal, window, q_offset):
+    B, H, Sq, Dh = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    kv_valid = _check_shapes(q, k, v, kv_valid)
     out = torch.empty((B, H, Sq, Dh), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     err = _kernels.library().m3_flash_attention_fwd(
@@ -128,11 +229,13 @@ def flash_attention_lse(
     q_index_offset: int = 0,                  # q row i <-> kv slot i + offset
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Flash attention returning ``(out (B, H, Sq, Dh), lse (B, H, Sq))``.
-    ``flash_attention_lse.launches`` counts kernel launches."""
+    Not differentiable.  ``flash_attention_lse.launches`` counts kernel
+    launches."""
     if q.device.type == "cpu":
-        return flash_attention_plain(
-            q, k, v, causal=causal, kv_valid=kv_valid,
-            sliding_window=sliding_window, q_index_offset=q_index_offset)
+        with torch.no_grad():
+            return flash_attention_plain(
+                q, k, v, causal=causal, kv_valid=kv_valid,
+                sliding_window=sliding_window, q_index_offset=q_index_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for {q.device}")
     return _launch(q, k, v, kv_valid, causal, sliding_window or 0,
@@ -142,13 +245,178 @@ def flash_attention_lse(
 flash_attention_lse.launches = 0
 
 
+def _bwd_operands(q, k, v, kv_valid, out, lse, do):
+    """Checked operands of a backward launch: ``do`` in whatever layout
+    autograd handed over is made contiguous where the kernels cannot read
+    it; ``delta = rowsum(out * do)`` in f32."""
+    kv_valid = _check_shapes(q, k, v, kv_valid)
+    B, H, Sq, Dh = q.shape
+    if do.shape != q.shape or out.shape != q.shape \
+            or lse.shape != (B, H, Sq):
+        raise ValueError(f"flash_attention backward: do {tuple(do.shape)} "
+                         f"out {tuple(out.shape)} lse {tuple(lse.shape)} for "
+                         f"q {tuple(q.shape)}")
+    if do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(f"flash_attention backward: do is {do.dtype} on "
+                         f"{do.device}, expected {q.dtype} on {q.device}")
+    if not _operand_ok(do):
+        do = do.contiguous()
+    lse = lse.to(torch.float32).contiguous()
+    delta = (out.float() * do.float()).sum(dim=-1).contiguous()
+    return kv_valid, lse, delta, do
+
+
+def _bwd_args(q, k, v, kv_valid, do, lse, delta, outs, causal, window,
+              q_offset):
+    B, H, Sq, Dh = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    return (_kernels.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), kv_valid.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), *(t.data_ptr() for t in outs), B, H, Hkv, Sq,
+            Sk, Dh, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *do.stride()[:3], kv_valid.stride(0), int(causal), int(window),
+            int(q_offset), Dh ** -0.5, _kernels.stream_ptr(q.device))
+
+
+def _launch_dq(q, k, v, kv_valid, do, lse, delta, causal, window, q_offset):
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    err = _kernels.library().m3_flash_attention_bwd_dq(*_bwd_args(
+        q, k, v, kv_valid, do, lse, delta, (dq,), causal, window, q_offset))
+    _kernels.check("m3_flash_attention_bwd_dq", err)
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def _launch_dkv(q, k, v, kv_valid, do, lse, delta, causal, window, q_offset):
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    err = _kernels.library().m3_flash_attention_bwd_dkv(*_bwd_args(
+        q, k, v, kv_valid, do, lse, delta, (dk, dv), causal, window,
+        q_offset))
+    _kernels.check("m3_flash_attention_bwd_dkv", err)
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def _bwd_dispatch(plain, launch, q, k, v, kv_valid, out, lse, do, causal,
+                  sliding_window, q_index_offset):
+    if q.device.type == "cpu":
+        return plain(q, k, v, kv_valid, out, lse, do, causal=causal,
+                     sliding_window=sliding_window,
+                     q_index_offset=q_index_offset)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for {q.device}")
+    kv_valid, lse, delta, do = _bwd_operands(q, k, v, kv_valid, out, lse, do)
+    return launch(q, k, v, kv_valid, do, lse, delta, causal,
+                  sliding_window or 0, q_index_offset)
+
+
+def flash_attention_bwd_dq(q, k, v, kv_valid, out, lse, do, *,
+                           causal: bool = True,
+                           sliding_window: Optional[int] = None,
+                           q_index_offset: int = 0) -> torch.Tensor:
+    """``dq (B, H, Sq, Dh)`` from the forward's operands, its ``out`` and
+    ``lse`` and the output gradient ``do``.
+    ``flash_attention_bwd_dq.launches`` counts kernel launches."""
+    return _bwd_dispatch(flash_attention_bwd_dq_plain, _launch_dq, q, k, v,
+                         kv_valid, out, lse, do, causal, sliding_window,
+                         q_index_offset)
+
+
+def flash_attention_bwd_dkv(q, k, v, kv_valid, out, lse, do, *,
+                            causal: bool = True,
+                            sliding_window: Optional[int] = None,
+                            q_index_offset: int = 0
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dk, dv)``, each ``(B, Hkv, Sk, Dh)``, summed over the query group
+    of each kv head.  ``flash_attention_bwd_dkv.launches`` counts kernel
+    launches."""
+    return _bwd_dispatch(flash_attention_bwd_dkv_plain, _launch_dkv, q, k, v,
+                         kv_valid, out, lse, do, causal, sliding_window,
+                         q_index_offset)
+
+
+flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd(q, k, v, kv_valid, out, lse, do, *,
+                        causal: bool = True,
+                        sliding_window: Optional[int] = None,
+                        q_index_offset: int = 0):
+    """``(dq, dk, dv)``: both backward kernels on a CUDA tensor (``delta``
+    and the operand checks shared), both plain versions on a CPU tensor."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(
+            q, k, v, kv_valid, out, lse, do, causal=causal,
+            sliding_window=sliding_window, q_index_offset=q_index_offset)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for {q.device}")
+    kv_valid, lse, delta, do = _bwd_operands(q, k, v, kv_valid, out, lse, do)
+    args = (q, k, v, kv_valid, do, lse, delta, causal, sliding_window or 0,
+            q_index_offset)
+    return (_launch_dq(*args), *_launch_dkv(*args))
+
+
+class FlashResiduals:
+    """``out`` and ``lse`` of one flash forward, kept by the caller across
+    a recompute of the layer around it (the ``flash_out`` / ``flash_lse``
+    names of the JAX remat policy): the first forward that is handed an
+    empty holder fills it, and a later forward handed the same holder
+    returns what it holds instead of launching the kernel again."""
+
+    __slots__ = ("out", "lse")
+
+    def __init__(self):
+        self.out = self.lse = None
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The port of the JAX custom VJP ``_flash``: forward through
+    :func:`flash_attention_lse`, backward through
+    :func:`flash_attention_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_valid, causal, sliding_window,
+                q_index_offset, residuals):
+        if residuals is not None and residuals.out is not None:
+            out, lse = residuals.out.detach(), residuals.lse
+        else:
+            out, lse = flash_attention_lse(
+                q, k, v, causal=causal, kv_valid=kv_valid,
+                sliding_window=sliding_window, q_index_offset=q_index_offset)
+            if residuals is not None:
+                residuals.out, residuals.lse = out.detach(), lse
+        ctx.save_for_backward(q, k, v, kv_valid, out, lse)
+        ctx.masks = (causal, sliding_window, q_index_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, kv_valid, out, lse = ctx.saved_tensors
+        causal, sliding_window, q_index_offset = ctx.masks
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, kv_valid, out, lse, do, causal=causal,
+            sliding_window=sliding_window, q_index_offset=q_index_offset)
+        return dq, dk, dv, None, None, None, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = True, q_positions=None,
                     kv_positions=None, kv_valid=None, sliding_window=None,
-                    q_index_offset: int = 0) -> torch.Tensor:
-    """Flash attention with a padding mask and index-based causality.
-    ``q_positions`` / ``kv_positions`` are accepted for signature parity
-    with the JAX function and not read: per-row positions are monotone in
-    the sequence index on every layout the splice and cache produce."""
-    return flash_attention_lse(
-        q, k, v, causal=causal, kv_valid=kv_valid,
-        sliding_window=sliding_window, q_index_offset=q_index_offset)[0]
+                    q_index_offset: int = 0,
+                    residuals: Optional[FlashResiduals] = None
+                    ) -> torch.Tensor:
+    """Flash attention with a padding mask and index-based causality,
+    differentiable in q, k and v.  ``q_positions`` / ``kv_positions`` are
+    accepted for signature parity with the JAX function and not read:
+    per-row positions are monotone in the sequence index on every layout
+    the splice and cache produce.  ``residuals``: see
+    :class:`FlashResiduals`."""
+    needs_grad = torch.is_grad_enabled() and (
+        q.requires_grad or k.requires_grad or v.requires_grad)
+    if not needs_grad and residuals is None:
+        return flash_attention_lse(
+            q, k, v, causal=causal, kv_valid=kv_valid,
+            sliding_window=sliding_window, q_index_offset=q_index_offset)[0]
+    return _FlashAttention.apply(q, k, v, kv_valid, causal, sliding_window,
+                                 q_index_offset, residuals)

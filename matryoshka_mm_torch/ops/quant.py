@@ -120,7 +120,14 @@ def int_weight(leaf: dict) -> torch.Tensor:
 def dequantize_array(leaf, dtype: torch.dtype = torch.bfloat16
                      ) -> torch.Tensor:
     """A quantized leaf -> ``(q * scale)`` rounded to ``dtype`` (bf16 by
-    default, as the JAX package); any other leaf is returned as it is."""
+    default, as the JAX package); a LoRA leaf (``ops/lora.py``) -> the
+    merged weight ``base.detach() + (lora_b @ lora_a) * lora_scale`` in the
+    base's dtype, so that gradients reach A and B only; any other leaf is
+    returned as it is."""
+    if isinstance(leaf, dict) and "lora_a" in leaf:
+        base = dequantize_array(leaf["w"], dtype).detach()
+        delta = (leaf["lora_b"] @ leaf["lora_a"]) * leaf["lora_scale"]
+        return base + delta.to(base.dtype)
     if not is_quantized(leaf):
         return leaf
     return (int_weight(leaf).float() * leaf["scale"]).to(dtype)

@@ -7,7 +7,10 @@ it also runs on a machine that has only PyTorch:
         tests/test_torch_kernels_cuda.py
 
 Tolerances: bf16 ``atol=rtol=2e-2`` (bf16 outputs, probabilities rounded
-to bf16 before PV), float32 ``1e-4``; lse ``1e-3``.  The quantized matrix
+to bf16 before PV), float32 ``1e-4``; lse ``1e-3``.  The flash-attention
+backward kernels: max error at most 2e-2 (bf16) and 2e-4 (float32) of
+max|plain| (p and ds rounded to bf16 on slightly other f32; f32 sums in
+another order), no NaN, and exactly 0 on masked rows and slots.  The quantized matrix
 products: max error at most 1e-2 of max|plain| (bf16 output, f32 sums in
 another order); the quantized MLP 2e-2 (its bf16 ``h`` may round the other
 way).  Paged attention: the attention tolerances, bf16 and int8 pools alike
@@ -348,3 +351,108 @@ def test_hbm_probe_rates_are_positive_and_below_twice_the_data_sheet(dev):
     c = thbm.hbm_copy_gb_s(mb=128, reps=2, runs=5)
     for bw in (r, c):
         assert 0 < bw.lo <= bw.median <= bw.hi < 2 * 3350
+
+
+# ---------------------------------------------------------------------------
+# flash attention backward
+# ---------------------------------------------------------------------------
+
+BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-4}
+
+
+def _bwd_case(dev, dtype, Dh, B, H, Hkv, Sq, Sk, pad, seed=0):
+    """Operands as the model hands them over: (B, heads, S, Dh) views of
+    (B, S, heads, Dh) tensors, a left-padded first row."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def operand(heads, S):
+        return torch.randn((B, S, heads, Dh), generator=g, device=dev,
+                           dtype=torch.float32).to(dtype).transpose(1, 2)
+
+    q, k, v, do = (operand(H, Sq), operand(Hkv, Sk), operand(Hkv, Sk),
+                   operand(H, Sq))
+    valid = torch.ones((B, Sk), dtype=torch.bool, device=dev)
+    valid[0, :pad] = False
+    return q, k, v, do, valid
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Dh", [64, 128])
+@pytest.mark.parametrize("group,window,offset,causal,Sq,Sk", [
+    (1, None, 0, True, 130, 130), (4, None, 0, True, 97, 97),
+    (1, 48, 0, True, 200, 200), (2, None, 96, True, 70, 300),
+    (1, None, 0, False, 65, 90), (1, None, 0, True, 1, 1)])
+def test_flash_backward_kernels_match_plain(dev, dtype, Dh, group, window,
+                                            offset, causal, Sq, Sk):
+    B, H, pad = 2, 8, 0 if Sq == 1 else 11
+    q, k, v, do, valid = _bwd_case(dev, dtype, Dh, B, H, H // group, Sq, Sk,
+                                   pad)
+    kw = dict(causal=causal, sliding_window=window, q_index_offset=offset)
+    out, lse = tflash.flash_attention_lse(q, k, v, kv_valid=valid, **kw)
+    args = (q, k, v, valid, out, lse, do)
+    before = (tflash.flash_attention_bwd_dq.launches,
+              tflash.flash_attention_bwd_dkv.launches)
+    dq = tflash.flash_attention_bwd_dq(*args, **kw)
+    dk, dv = tflash.flash_attention_bwd_dkv(*args, **kw)
+    torch.cuda.synchronize()
+    assert (tflash.flash_attention_bwd_dq.launches,
+            tflash.flash_attention_bwd_dkv.launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = tflash.flash_attention_bwd_plain(*args, **kw)
+    for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert got.dtype == dtype and got.is_contiguous(), name
+        assert torch.isfinite(got).all(), name
+        err = (got.float() - w.float()).abs().max().item()
+        # (with one query and one key dq and dk are 0 up to f32 rounding of
+        # do . v - delta: the scale is at least that of the inputs, 1)
+        assert err <= BWD_TOL[dtype] * max(w.float().abs().max().item(),
+                                           1.0), (name, err)
+    if causal and offset == 0 and pad:
+        # queries that see no key, and masked slots, get exactly nothing
+        assert torch.all(dq[0, :, :pad] == 0)
+        assert torch.all(dk[0, :, :pad] == 0) and torch.all(dv[0, :, :pad] == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_autograd_function_launches_both_kernels(dev, dtype):
+    q, k, v, do, valid = _bwd_case(dev, dtype, 128, 2, 4, 2, 150, 150, 20, 1)
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    counts = [fn.launches for fn in (tflash.flash_attention_lse,
+                                     tflash.flash_attention_bwd_dq,
+                                     tflash.flash_attention_bwd_dkv)]
+    out = tflash.flash_attention(q, k, v, kv_valid=valid)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in (tflash.flash_attention_lse,
+                                   tflash.flash_attention_bwd_dq,
+                                   tflash.flash_attention_bwd_dkv)] == \
+        [c + 1 for c in counts]
+    o, lse = tflash.flash_attention_plain(q.detach(), k.detach(), v.detach(),
+                                          kv_valid=valid)
+    want = tflash.flash_attention_bwd_plain(q.detach(), k.detach(),
+                                            v.detach(), valid, o, lse, do)
+    for g, w in zip(got, want):
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= 2 * BWD_TOL[dtype] * w.float().abs().max().item()
+
+
+def test_flash_backward_makes_an_unreadable_do_contiguous(dev):
+    """``do`` with a strided head dim is copied, never read wrongly; a
+    wrong dtype raises."""
+    q, k, v, do, valid = _bwd_case(dev, torch.float32, 64, 1, 2, 2, 40, 40, 3)
+    out, lse = tflash.flash_attention_lse(q, k, v, kv_valid=valid)
+    wide = torch.zeros((1, 2, 40, 128), device=dev)
+    wide[..., ::2] = do
+    strided = wide[..., ::2]
+    assert strided.stride(-1) == 2
+    got = tflash.flash_attention_bwd(q, k, v, valid, out, lse, strided)
+    want = tflash.flash_attention_bwd(q, k, v, valid, out, lse,
+                                      do.contiguous())
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError, match="do is"):
+        tflash.flash_attention_bwd(q, k, v, valid, out, lse, do.double())
+    with pytest.raises(ValueError, match="Dh 64 or 128"):
+        tflash.flash_attention_bwd(q[..., :32], k[..., :32], v[..., :32],
+                                   valid, out[..., :32], lse, do[..., :32])

@@ -43,12 +43,66 @@ assert not [m for m in sys.modules
 print("OK", out.tolist())
 """
 
+_TRAIN = """
+import sys
+sys.modules["jax"] = None
+sys.modules["matryoshka_mm_tpu"] = None
+import dataclasses
+import numpy as np
+import torch
+import matryoshka_mm_torch.train.train, matryoshka_mm_torch.train.train_mem
+import matryoshka_mm_torch.train.data, matryoshka_mm_torch.train.sampler
+import matryoshka_mm_torch.utils.checkpoint, matryoshka_mm_torch.models.router
+from matryoshka_mm_torch.models.builder import load_pretrained_model
+from matryoshka_mm_torch.ops.lora import add_lora
+from matryoshka_mm_torch.ops.quant import quantize_llama_params
+from matryoshka_mm_torch.train.optimizer import OptimizerConfig
+from matryoshka_mm_torch.train.train_step import M3Batch
+from matryoshka_mm_torch.train.trainer import (create_train_state,
+                                               host_metrics, make_train_step)
+_, model, _, _ = load_pretrained_model("debug://tiny-moe", device="cpu")
+cfg = dataclasses.replace(model.cfg, llama=dataclasses.replace(
+    model.cfg.llama, remat=True, remat_policy="names:flash_out,flash_lse"))
+assert "router" in model.params and cfg.is_m3_moe
+quantize_llama_params(model.params, bits=8, fuse=False)
+params = add_lora(model.params, torch.Generator().manual_seed(1), r=4)
+state, tx = create_train_state(params, OptimizerConfig(
+    learning_rate=1e-2, warmup_ratio=0.0, lora_enable=True))
+step = make_train_step(cfg, tx, frozen_vision=True)
+rng = np.random.default_rng(0)
+ids = rng.integers(5, 500, (2, 20)); ids[:, 3] = -200
+labels = ids.copy(); labels[:, :10] = -100
+batch = M3Batch(torch.tensor(ids), torch.tensor(
+    rng.standard_normal((2, 3, 56, 56)), dtype=torch.float32),
+    torch.tensor(labels), torch.ones((2, 20), dtype=torch.bool))
+losses = []
+for _ in range(3):
+    state, metrics = step(state, batch)
+    losses.append(host_metrics(metrics)["loss"])
+assert np.isfinite(losses).all() and losses[2] < losses[0], losses
+assert not [m for m in sys.modules
+            if m.split(".")[0] in ("jax", "jaxlib", "matryoshka_mm_tpu")
+            if sys.modules[m] is not None]
+print("OK", losses)
+"""
+
 
 def test_tiny_generate_runs_with_jax_blocked():
     """``generate`` and one request through the paged batcher, with ``jax``
     and ``matryoshka_mm_tpu`` made unimportable."""
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, "-c", _DRIVE], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("OK")
+
+
+def test_train_steps_run_with_jax_blocked():
+    """Three QLoRA steps of an M3-MoE config through ``create_train_state``
+    and ``make_train_step``, and the import of every training module, with
+    ``jax`` and ``matryoshka_mm_tpu`` made unimportable."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", _TRAIN], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("OK")

@@ -1,6 +1,6 @@
 """The port's own copies of the framework-free modules (constants, kvconfig,
-conversation, mm_utils, image_processing) give what the JAX package's
-originals give.  Everything here is exact: the copies run the same numpy /
+conversation, mm_utils, image_processing, train/data, train/sampler) give
+what the JAX package's originals give.  Everything here is exact: the copies run the same numpy /
 PIL code."""
 
 import numpy as np
@@ -126,3 +126,98 @@ def test_process_images_equal(mode, monkeypatch):
         jip.get_anyres_image_grid_shape((100, 200), [[672, 672], [336, 672]],
                                         336)
     assert not hasattr(tip, "normalize_images_jnp")
+
+
+# ---------------------------------------------------------------------------
+# train/data.py and train/sampler.py
+# ---------------------------------------------------------------------------
+
+class _WordTok:
+    """Whitespace tokenizer with the attributes the preprocessors read."""
+
+    bos_token_id, pad_token_id, model_max_length, legacy = 1, 0, 64, True
+
+    def __call__(self, text):
+        ids = [1] + [2 if w == "</s>" else 3 + (sum(map(ord, w)) % 400)
+                     for w in text.replace("</s>", " </s> ").split()]
+        return type("Enc", (), {"input_ids": ids})()
+
+
+_SOURCE = [{"from": "human", "value": "<image>\nwhat is this"},
+           {"from": "gpt", "value": "a small tree"},
+           {"from": "human", "value": "and the colour"},
+           {"from": "gpt", "value": "green all over"}]
+
+
+@pytest.mark.parametrize("template", ["v1", "plain", "llama_2", "mpt", "v0"])
+def test_preprocess_equal(template):
+    import copy
+
+    from matryoshka_mm_tpu.train import data as jdata
+    from matryoshka_mm_torch.train import data as tdata
+
+    outs = []
+    for conv, data in ((jconv, jdata), (tconv, tdata)):
+        old = conv.default_conversation
+        conv.default_conversation = conv.conv_templates[template]
+        try:
+            args = data.DataArguments(is_multimodal=True)
+            src = data.preprocess_multimodal(
+                [copy.deepcopy(_SOURCE[:2] if template == "plain"
+                               else _SOURCE)], args)
+            outs.append(data.preprocess(src, _WordTok(), has_image=True))
+        finally:
+            conv.default_conversation = old
+    for key in ("input_ids", "labels"):
+        np.testing.assert_array_equal(outs[1][key][0], outs[0][key][0])
+    assert (outs[1]["labels"][0] == tc.IGNORE_INDEX).any()
+
+
+def test_collator_and_dataset_equal(tmp_path):
+    import json
+
+    from PIL import Image
+
+    from matryoshka_mm_tpu.train import data as jdata
+    from matryoshka_mm_torch.train import data as tdata
+
+    Image.new("RGB", (40, 30), (10, 200, 30)).save(tmp_path / "a.png")
+    rows = [{"id": "0", "image": "a.png", "conversations": _SOURCE},
+            {"id": "1", "conversations": _SOURCE[2:]}]
+    (tmp_path / "d.json").write_text(json.dumps(rows))
+    small = dict(size={"shortest_edge": 56},
+                 crop_size={"height": 56, "width": 56})
+    batches = []
+    for data, ip in ((jdata, jip), (tdata, tip)):
+        args = data.DataArguments(
+            data_path=str(tmp_path / "d.json"), image_folder=str(tmp_path),
+            is_multimodal=True, image_aspect_ratio="pad",
+            image_processor=ip.ClipImageProcessor(**small))
+        module = data.make_supervised_data_module(_WordTok(), args)
+        ds = module["train_dataset"]
+        assert len(ds) == 2
+        batches.append((module["data_collator"]([ds[0], ds[1]]), ds.lengths,
+                        ds.modality_lengths))
+    (got, glen, gmod), (want, wlen, wmod) = batches[1], batches[0]
+    assert set(got) == set(want) and glen == wlen and gmod == wmod
+    for key in want:
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    assert got["input_ids"].shape[1] % 64 == 0
+
+
+@pytest.mark.parametrize("kw", [{}, {"group_by_modality": True},
+                                {"variable_length": True}])
+def test_samplers_equal(kw):
+    from matryoshka_mm_tpu.train import sampler as jsamp
+    from matryoshka_mm_torch.train import sampler as tsamp
+
+    lengths = [int(x) for x in
+               np.random.default_rng(0).integers(-50, 200, 37)]
+    if not kw.get("group_by_modality"):
+        lengths = [abs(x) + 1 for x in lengths]
+    orders = [list(mod.LengthGroupedSampler(
+        4, 2, lengths=lengths, generator=np.random.default_rng(5), **kw))
+        for mod in (jsamp, tsamp)]
+    assert orders[0] == orders[1] and sorted(orders[0]) == list(range(37))
+    assert tsamp.split_to_even_chunks(list(range(10)), lengths[:10], 3) == \
+        jsamp.split_to_even_chunks(list(range(10)), lengths[:10], 3)
