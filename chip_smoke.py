@@ -71,12 +71,15 @@ Phases; any failure exits non-zero, and no phase's exception is caught:
    batcher with the paged and with the dense backend, the paged one also
    with prefix_cache=True (hit == miss) and speculative_k=4.
 
-9. the flash-attention backward kernels (dQ, dK/dV) against their plain
-   versions in bf16 and float32: the training shapes (B=1, H=32, Dh=128, S
-   1024 and 1599, causal, a left-padded row whose first queries see no key;
-   B=3 at 1059), GQA, a window, q_index_offset with Dh=64 and a ragged S;
-   NaN scan, zero gradients on masked rows and slots, times of kernels,
-   plain versions and the library's backward;
+9. the flash-attention backward kernels (dQ, dK/dV; tensor cores in bf16,
+   f32 FMAs in float32) against their plain versions: the training shapes
+   (B=1, H=32, Dh=128, S 1024 and 1599, causal, a left-padded row whose
+   first queries see no key; B=3 at 1059), GQA groups 4 and 8, windows
+   narrower than a 64-wide tile and across three, q_index_offset with
+   Sq != Sk, Dh=64, S in {63, 64, 65, 129}, a padding longer than two tiles;
+   NaN scan, zero gradients on masked rows and slots, the same bits from
+   two launches, times of kernels, plain versions and the library's
+   backward, and the float32 kernels' times;
 10. the training slice at full width: debug://7b, bf16 base frozen, LoRA
    r=128 alpha=256 on every LM projection, remat, frozen_vision, K=5 scales,
    T=1024, B=1, through create_train_state + make_train_step: one warm and
@@ -1422,17 +1425,38 @@ def phase_serving(dev) -> dict:
 BWD_TOL = {torch.bfloat16: 2e-2,   # of max|plain|: bf16 gradients, p and ds
                                    # rounded to bf16 on slightly other f32
            torch.float32: 2e-4}    # f32 sums in another order, exp2f
-# (label, dtype, B, H, Hkv, Sq, Sk, window, q_offset, left padding, timed)
+# (label, dtype, B, H, Hkv, Sq, Sk, window, q_offset, left padding, timed);
+# timed: 1 = kernels, plain versions and the library, 2 = the kernels only
 BWD_CASES = (
     ("train 1024 bf16", torch.bfloat16, 1, 32, 32, 1024, 1024, None, 0, 37, 1),
     ("train 1599 bf16", torch.bfloat16, 1, 32, 32, 1599, 1599, None, 0, 61, 1),
-    ("train 1599 f32", torch.float32, 1, 32, 32, 1599, 1599, None, 0, 61, 0),
+    ("train 1599 f32", torch.float32, 1, 32, 32, 1599, 1599, None, 0, 61, 2),
     ("batch 3x1059 bf16", torch.bfloat16, 3, 32, 32, 1059, 1059, None, 0,
      35, 0),
     ("gqa bf16", torch.bfloat16, 2, 8, 2, 200, 200, None, 0, 9, 0),
     ("window f32", torch.float32, 2, 4, 4, 203, 203, 48, 0, 5, 0),
     ("offset f32 dh64", torch.float32, 1, 4, 2, 70, 131, None, 40, 3, 0),
     ("ragged bf16 dh64", torch.bfloat16, 2, 4, 4, 65, 65, None, 0, 0, 0),
+    # where a walk over 64 x 64 tiles goes wrong: kv tiles without a valid
+    # slot and q tiles without a valid key,
+    ("pad 150 bf16", torch.bfloat16, 2, 4, 4, 257, 257, None, 0, 150, 0),
+    ("pad 70 bf16 dh64", torch.bfloat16, 2, 4, 2, 129, 129, None, 0, 70, 0),
+    # lengths around one and two tiles,
+    ("s63 bf16", torch.bfloat16, 1, 4, 4, 63, 63, None, 0, 5, 0),
+    ("s64 bf16 dh64", torch.bfloat16, 1, 4, 4, 64, 64, None, 0, 0, 0),
+    ("s65 bf16", torch.bfloat16, 2, 4, 4, 65, 65, None, 0, 3, 0),
+    ("s129 bf16", torch.bfloat16, 1, 4, 4, 129, 129, None, 0, 64, 0),
+    # a window inside one tile and one across three,
+    ("window 16 bf16", torch.bfloat16, 2, 4, 4, 300, 300, 16, 0, 7, 0),
+    ("window 150 bf16 dh64", torch.bfloat16, 1, 4, 2, 300, 300, 150, 0, 70,
+     0),
+    # an offset between the two axes, with and without a window,
+    ("offset bf16", torch.bfloat16, 2, 4, 4, 70, 131, None, 40, 3, 0),
+    ("offset window bf16 dh64", torch.bfloat16, 1, 4, 4, 100, 260, 48, 160,
+     0, 0),
+    # and query groups of 4 and 8
+    ("gqa 4 bf16", torch.bfloat16, 2, 8, 2, 200, 200, None, 0, 66, 0),
+    ("gqa 8 bf16 dh64", torch.bfloat16, 1, 8, 1, 131, 131, None, 0, 9, 0),
 )
 
 
@@ -1465,6 +1489,8 @@ def phase_bwd_kernels(dev) -> dict:
         args = (q, k, v, valid, out, lse, do)
         dq = fl.flash_attention_bwd_dq(*args, **kw)
         dk, dv = fl.flash_attention_bwd_dkv(*args, **kw)
+        again = (fl.flash_attention_bwd_dq(*args, **kw),
+                 *fl.flash_attention_bwd_dkv(*args, **kw))
         want_q = fl.flash_attention_bwd_dq_plain(*args, **kw)
         want_k, want_v = fl.flash_attention_bwd_dkv_plain(*args, **kw)
         torch.cuda.synchronize()
@@ -1483,6 +1509,9 @@ def phase_bwd_kernels(dev) -> dict:
                 and bool((dk[0, :, :pad] == 0).all())
                 and bool((dv[0, :, :pad] == 0).all())):
             fail(f"backward {label}: a masked row or slot got a gradient")
+        if not all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again)):
+            fail(f"backward {label}: two launches on the same operands gave "
+                 f"other bits")
         print(f"[bwd {label}] " + "  ".join(
             f"max|{n}-plain|={e:.3e} ({r:.1e} of max)"
             for n, (e, r) in errs.items()) + f"  tolerance {BWD_TOL[dtype]}")
@@ -1492,16 +1521,40 @@ def phase_bwd_kernels(dev) -> dict:
         if not timed:
             continue
         ops = rotations(q, k, v, valid, out, lse, do)
+        # each wrapper checks its operands and computes delta = rowsum(out *
+        # do) before its launch (`prep`); the autograd path does that once
+        # for both kernels (`one call`)
         t = {"dq": time_ms(lambda *a: fl.flash_attention_bwd_dq(*a, **kw),
                            ops, reps=10),
              "dkv": time_ms(lambda *a: fl.flash_attention_bwd_dkv(*a, **kw),
                             ops, reps=10),
-             "dq_plain": time_ms(
-                 lambda *a: fl.flash_attention_bwd_dq_plain(*a, **kw), ops,
-                 reps=3, warmup=1),
-             "dkv_plain": time_ms(
-                 lambda *a: fl.flash_attention_bwd_dkv_plain(*a, **kw), ops,
-                 reps=3, warmup=1)}
+             "prep": time_ms(fl._bwd_operands, ops, reps=10),
+             "one_call": time_ms(lambda *a: fl.flash_attention_bwd(*a, **kw),
+                                 ops, reps=10)}
+        # the launches alone, on operands prepared beforehand
+        ready = []
+        for q_, k_, v_, valid_, out_, lse_, do_ in ops:
+            valid_, lse_, delta_, do_ = fl._bwd_operands(q_, k_, v_, valid_,
+                                                         out_, lse_, do_)
+            ready.append((q_, k_, v_, valid_, do_, lse_, delta_,
+                          kw["causal"], window or 0, offset))
+        t["dq_alone"] = time_ms(fl._launch_dq, ready, reps=10)
+        t["dkv_alone"] = time_ms(fl._launch_dkv, ready, reps=10)
+        print(f"[bwd {label}] {card_line()}: dq {t['dq']:.4f} ms  dk/dv "
+              f"{t['dkv']:.4f} ms, each with its own operand checks and "
+              f"delta ({t['prep']:.4f} ms); the launches alone "
+              f"{t['dq_alone']:.4f} and {t['dkv_alone']:.4f} ms; both "
+              f"kernels behind one such pass, as autograd calls them, "
+              f"{t['one_call']:.4f} ms")
+        if timed == 2:
+            continue
+        t.update({
+            "dq_plain": time_ms(
+                lambda *a: fl.flash_attention_bwd_dq_plain(*a, **kw), ops,
+                reps=3, warmup=1),
+            "dkv_plain": time_ms(
+                lambda *a: fl.flash_attention_bwd_dkv_plain(*a, **kw), ops,
+                reps=3, warmup=1)})
         lib_ops = rotations(q, k, v, do)
         t["library_ms"] = library_ms("flash_bwd", lib_ops, kv_valid=valid)
         # pairs (query i, valid slot j <= i): dQ needs 3 products of Dh each
@@ -1544,8 +1597,8 @@ TRAIN_LOSS_TOL = 1e-2     # kernel path against attn_impl="reference"
 # kernel names of a profiled step, by kind (first match wins)
 TRAIN_KERNEL_GROUPS = (
     ("flash forward", ("flash_fwd_kernel",)),
-    ("flash dK/dV", ("flash_bwd_dkv_kernel",)),
-    ("flash dQ", ("flash_bwd_dq_kernel",)),
+    ("flash dK/dV", ("flash_bwd_dkv_",)),    # ..._mma_kernel or ..._kernel
+    ("flash dQ", ("flash_bwd_dq_",)),
     ("matrix products (cuBLAS)", ("nvjet", "gemm", "cutlass", "cublas")),
     ("elementwise", ("elementwise", "CatArrayBatchedCopy", "copy")),
     ("reductions and softmax", ("reduce", "softmax", "Softmax")),

@@ -40,31 +40,21 @@
 //     loads at ragged edges (any M, N and even K).
 #include <mma.h>
 
+#include "mma_tiles.cuh"
 #include "quant_gemv.cuh"
 
 namespace {
 
 using namespace nvcuda;
+using m3::cp_async16;
+using m3::cp_async_commit;
+using m3::cp_async_wait_all;
 
 constexpr int TN = 128;              // output channels per block
 constexpr int TK = 64;               // logical k per step
 constexpr int MMA_THREADS = 256;     // 8 warps: 2 along M, 4 along N
 constexpr int LDS = TK + 8;          // bf16 row stride of the stages
 constexpr int LDC = 20;              // f32 row stride of a warp's epilogue
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           int src_bytes) {
-  const unsigned dst =
-      static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(gmem), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
 
 // bf16 of 8 signed integers, as one 16-byte vector
 __device__ __forceinline__ uint4 pack8(const int* v) {

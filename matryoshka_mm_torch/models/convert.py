@@ -103,10 +103,11 @@ def params_from_jax(np_tree: dict, cfg: LlavaConfig, device="cpu",
     return out
 
 
-def init_params(cfg: LlavaConfig, device="cpu", seed: int = 0) -> dict:
-    """Random parameters made on ``device`` with a seeded
-    ``torch.Generator`` (normal(0, 0.02) dense weights, unit norms, zero
-    biases), so a 7B model never crosses from the host."""
+def init_params(cfg: LlavaConfig, device="cuda", seed: int = 0) -> dict:
+    """Random parameters made on ``device`` (the card unless the caller
+    names the CPU) with a seeded ``torch.Generator`` (normal(0, 0.02) dense
+    weights, unit norms, zero biases), so a 7B model never crosses from the
+    host."""
     gen = torch.Generator(device=device).manual_seed(seed)
 
     def normal(shape, dtype):

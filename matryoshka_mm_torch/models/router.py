@@ -18,8 +18,10 @@ import torch.nn.functional as F
 def init_dense_gating_params(generator: torch.Generator, embed_dim: int,
                              num_experts: int,
                              dtype: torch.dtype = torch.float32,
-                             device="cpu") -> dict:
-    """``U(-1 / sqrt(in), 1 / sqrt(in))`` weights and zero biases."""
+                             device="cuda") -> dict:
+    """``U(-1 / sqrt(in), 1 / sqrt(in))`` weights and zero biases, made on
+    ``device`` (the card unless the caller names the CPU; ``generator``
+    lives on the same device)."""
     bound = embed_dim ** -0.5
 
     def dense(out_dim):

@@ -18,19 +18,34 @@ kernel; :func:`flash_attention_lse` stays non-differentiable, as in JAX.
 
 What bounds them on the H100: arithmetic.  A 7B prefill layer does
 ``4 * B * H * Sq * Sk_seen * Dh`` FLOPs forward (QK^T and PV) and
-``10 * B * H * Sq * Sk_seen * Dh`` backward (QK^T and dO V^T recomputed in
+``14 * B * H * Sq * Sk_seen * Dh`` backward (QK^T and dO V^T recomputed in
 both kernels, then dQ, dV and dK) over tiles that each block reads once
-into shared memory, so bytes are small beside the math.  These first
-kernels do that math as plain f32 FMAs.  Forward: one block per (64-row q
-tile, head, batch row), two threads per row.  Backward: four threads per
-row, because a dK/dV thread keeps its share of k, v and of two f32
-accumulators in registers (4 * Dh/4 floats at Dh = 128); the dQ kernel
-loops over kv tiles as the forward does, the dK/dV kernel owns a 64-key
-tile, loops over the heads of its query group and the q tiles that can see
-it, and writes once (no atomics, deterministic).  Tiles above the causal
-diagonal and outside the window are skipped.  Their ceiling is the f32 FMA
-rate, far under the bf16 tensor-core rate; ``mma.sync``/``wgmma`` with TMA
-loads is the next step (ROADMAP Queue 2).
+into shared memory, so bytes are small beside the math.  The forward kernel
+does that math as plain f32 FMAs: one block per (64-row q tile, head, batch
+row), two threads per row (its tensor-core design is ROADMAP Queue 2).
+
+The backward kernels, for bfloat16 operands, do every product on the tensor
+cores (``mma.sync`` m16n8k16, bf16 in, f32 sums; fragments fetched with
+``ldmatrix`` from bf16 tiles whose rows are padded by 16 bytes against bank
+conflicts).  Four warps own a 64-row tile of the output, 16 rows each, keep
+its f32 accumulators in registers and write once (no atomics, the same bits
+on every run).  dQ: a block owns 64 query rows of one head, holds their Q
+and dO fragments, ``lse`` and ``delta`` in registers and loops over 64-key
+kv tiles: ``S = Q K^T``, ``dP = dO V^T``, ``dS`` in registers, ``dQ += dS
+K``.  dK/dV: a block owns 64 keys of one kv head (K and V resident in
+shared memory), loops over the heads of its query group and the 64-row q
+tiles that can see it, with the keys as the rows of every product: ``S^T =
+K Q^T``, ``dP^T = V dO^T``, then ``dV += P^T dO`` and ``dK += dS^T Q``.  The
+accumulator fragment of the first product, rounded to bf16 pairs, is the A
+fragment of the next, so probabilities never leave registers.  The tile a
+block loops over streams through a two-stage ``cp.async`` ring (rows past a
+sequence's end zero-filled), tiles above the causal diagonal or outside the
+window are loop bounds, the per-element mask runs only on tiles that need
+it, and blocks go out heaviest first.  :func:`flash_attention_bwd_tiled_plain`
+walks the same tiles in PyTorch for the CPU tests.  For float32 operands the
+backward stays on f32 FMAs (four threads a row, a quarter of the head dim
+each): TF32 tensor cores keep three decimal digits, too few for float32
+callers.  ``wgmma`` fed by TMA is the step that remains.
 
 Dispatch: a CPU tensor goes to the plain versions
 (:func:`flash_attention_plain`, :func:`flash_attention_bwd_plain`), through
@@ -161,6 +176,97 @@ def flash_attention_bwd_plain(q, k, v, kv_valid, out, lse, do, **kw):
     return dq, dk, dv
 
 
+BWD_TILE = 64   # rows and keys of a tile of the tensor-core backward kernels
+
+
+def flash_attention_bwd_tiled_plain(q, k, v, kv_valid, out, lse, do, *,
+                                    causal: bool = True,
+                                    sliding_window: Optional[int] = None,
+                                    q_index_offset: int = 0):
+    """``(dq, dk, dv)`` computed tile by tile, the way the tensor-core
+    kernels walk: ``BWD_TILE`` x ``BWD_TILE`` tiles, the kernels' loop
+    bounds for causality, the window and ``q_index_offset`` (tiles outside
+    them are never touched), their rule for which tiles run the per-element
+    mask (on the others ``p`` is used without a select), the same bf16
+    roundings, GQA summed head by head.  For tests: it shows on the CPU
+    that bounds and rule lose no pair and let no masked one through."""
+    B, H, Sq, Dh = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    G, T = H // Hkv, BWD_TILE
+    off, window = q_index_offset, sliding_window or 0
+    scale = Dh ** -0.5
+    c = scale * LOG2E
+    if kv_valid is None:
+        kv_valid = torch.ones((B, Sk), dtype=torch.bool, device=q.device)
+    kv_valid = kv_valid.bool()
+    delta = (out.float() * do.float()).sum(dim=-1)          # (B, H, Sq)
+    zero = torch.zeros((), dtype=torch.float32, device=q.device)
+
+    def p_ds(qt, kt, vt, dot, lse_t, delta_t, ok, masked):
+        """(p, ds) of one pair of tiles, ``(heads, rows, keys)`` f32."""
+        s = torch.einsum("hqd,hkd->hqk", qt.float(), kt.float())
+        p = torch.exp2(s * c - lse_t[..., None] * LOG2E)
+        if masked:
+            p = torch.where(ok, p, zero)
+        dp = torch.einsum("hqd,hkd->hqk", dot.float(), vt.float())
+        return p, p * (dp - delta_t[..., None])
+
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=q.device)
+    for b in range(B):
+        sees = _mask(1, Sq, Sk, kv_valid[b:b + 1], causal, sliding_window,
+                     off, q.device)[0]                      # (1, Sq, Sk)
+        kb = k[b].repeat_interleave(G, dim=0)               # (H, Sk, Dh)
+        vb = v[b].repeat_interleave(G, dim=0)
+        # ---- dQ: a block per q tile, a loop over kv tiles ----
+        for q0 in range(0, Sq, T):
+            q1 = min(q0 + T, Sq)
+            q_first, q_last = q0 + off, q1 - 1 + off
+            kv_end = min(Sk, q_last + 1) if causal else Sk
+            kv_begin = max(0, q_first - window + 1) // T * T if window else 0
+            for k0 in range(kv_begin, kv_end, T):
+                k1 = min(k0 + T, Sk)
+                all_valid = k0 + T <= Sk and bool(kv_valid[b, k0:k1].all())
+                masked = (not all_valid
+                          or (causal and k0 + T - 1 > q_first)
+                          or (window > 0 and q_last - k0 >= window))
+                _, ds = p_ds(q[b, :, q0:q1], kb[:, k0:k1], vb[:, k0:k1],
+                             do[b, :, q0:q1], lse[b, :, q0:q1],
+                             delta[b, :, q0:q1], sees[:, q0:q1, k0:k1],
+                             masked)
+                dq[b, :, q0:q1] += torch.einsum(
+                    "hqk,hkd->hqd", ds.to(k.dtype).float(),
+                    kb[:, k0:k1].float())
+        # ---- dK/dV: a block per kv tile, a loop over the group's heads
+        # and the q tiles that can see it ----
+        for k0 in range(0, Sk, T):
+            k1 = min(k0 + T, Sk)
+            keys_all = k0 + T <= Sk and bool(kv_valid[b, k0:k1].all())
+            q_begin = max(0, k0 - off) // T * T if causal else 0
+            q_end = max(0, min(Sq, k1 - 1 + window - off)) if window else Sq
+            for g in range(G):
+                heads = slice(g, H, G)        # head hk * G + g of each hk
+                for q0 in range(q_begin, q_end, T):
+                    q1 = min(q0 + T, Sq)
+                    masked = (not keys_all or q0 + T > Sq
+                              or (causal and k0 + T - 1 > q0 + off)
+                              or (window > 0
+                                  and q0 + T - 1 + off - k0 >= window))
+                    p, ds = p_ds(q[b, heads, q0:q1], k[b, :, k0:k1],
+                                 v[b, :, k0:k1], do[b, heads, q0:q1],
+                                 lse[b, heads, q0:q1], delta[b, heads, q0:q1],
+                                 sees[:, q0:q1, k0:k1], masked)
+                    dv[b, :, k0:k1] += torch.einsum(
+                        "hqk,hqd->hkd", p.to(do.dtype).float(),
+                        do[b, heads, q0:q1].float())
+                    dk[b, :, k0:k1] += torch.einsum(
+                        "hqk,hqd->hkd", ds.to(q.dtype).float(),
+                        q[b, heads, q0:q1].float())
+    return ((dq * scale).to(q.dtype), (dk * scale).to(k.dtype),
+            dv.to(v.dtype))
+
+
 def _operand_ok(t: torch.Tensor) -> bool:
     """A contiguous head dim and 16-byte aligned rows."""
     vec = 16 // t.element_size()
@@ -262,7 +368,10 @@ def _bwd_operands(q, k, v, kv_valid, out, lse, do):
     if not _operand_ok(do):
         do = do.contiguous()
     lse = lse.to(torch.float32).contiguous()
-    delta = (out.float() * do.float()).sum(dim=-1).contiguous()
+    # f32 products of the two, summed in f32: one f32 copy of `out` (a copy
+    # also where it is float32 already) multiplied in place by `do`, which
+    # is widened inside the multiply
+    delta = out.to(torch.float32, copy=True).mul_(do).sum(dim=-1).contiguous()
     return kv_valid, lse, delta, do
 
 

@@ -23,7 +23,7 @@ def _model(moe=None, bits=0, lora=False):
     cfg = dataclasses.replace(cfg, llama=dataclasses.replace(
         cfg.llama, num_hidden_layers=2, remat=True,
         remat_policy="names:flash_out,flash_lse"))
-    params = init_params(cfg, seed=3)
+    params = init_params(cfg, device="cpu", seed=3)
     if bits:
         quantize_llama_params(params, bits=bits, fuse=False)
     if lora:

@@ -456,3 +456,88 @@ def test_flash_backward_makes_an_unreadable_do_contiguous(dev):
     with pytest.raises(ValueError, match="Dh 64 or 128"):
         tflash.flash_attention_bwd(q[..., :32], k[..., :32], v[..., :32],
                                    valid, out[..., :32], lse, do[..., :32])
+
+
+# Where a walk over 64 x 64 tiles goes wrong: (Dh, B, H, Hkv, Sq, Sk, window,
+# offset, left padding of row 0)
+BWD_TILE_EDGES = {
+    "pad_150": (128, 2, 4, 4, 257, 257, None, 0, 150),
+    "pad_70_dh64": (64, 2, 4, 2, 129, 129, None, 0, 70),
+    "s63": (128, 1, 4, 4, 63, 63, None, 0, 5),
+    "s64_dh64": (64, 1, 4, 4, 64, 64, None, 0, 0),
+    "s65": (128, 2, 4, 4, 65, 65, None, 0, 3),
+    "s129": (128, 1, 4, 4, 129, 129, None, 0, 64),
+    "window_16": (128, 2, 4, 4, 300, 300, 16, 0, 7),
+    "window_150_dh64": (64, 1, 4, 2, 300, 300, 150, 0, 70),
+    "offset": (128, 2, 4, 4, 70, 131, None, 40, 3),
+    "offset_window_dh64": (64, 1, 4, 4, 100, 260, 48, 160, 0),
+    "gqa_4": (128, 2, 8, 2, 200, 200, None, 0, 66),
+    "gqa_8_dh64": (64, 1, 8, 1, 131, 131, None, 0, 9),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name", sorted(BWD_TILE_EDGES))
+def test_flash_backward_tile_edges(dev, name, dtype):
+    """Within tolerance of the whole-matrix plain versions and of the tiled
+    walk, no NaN, exact zeros on masked rows and slots, and the same bits
+    from two launches."""
+    Dh, B, H, Hkv, Sq, Sk, window, offset, pad = BWD_TILE_EDGES[name]
+    q, k, v, do, valid = _bwd_case(dev, dtype, Dh, B, H, Hkv, Sq, Sk, pad, 2)
+    kw = dict(causal=True, sliding_window=window, q_index_offset=offset)
+    out, lse = tflash.flash_attention_lse(q, k, v, kv_valid=valid, **kw)
+    args = (q, k, v, valid, out, lse, do)
+    got = tflash.flash_attention_bwd(*args, **kw)
+    again = tflash.flash_attention_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    for want in (tflash.flash_attention_bwd_plain(*args, **kw),
+                 tflash.flash_attention_bwd_tiled_plain(*args, **kw)):
+        for nm, g, w in zip(("dq", "dk", "dv"), got, want):
+            assert torch.isfinite(g).all(), nm
+            err = (g.float() - w.float()).abs().max().item()
+            assert err <= BWD_TOL[dtype] * w.float().abs().max().item(), \
+                (nm, err)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    if offset == 0 and pad:
+        for g in got:
+            assert torch.all(g[0, :, :pad] == 0)
+
+
+def test_flash_backward_design_follows_the_dtype_alone(dev):
+    """bfloat16 operands launch the tensor-core kernels, float32 operands
+    the f32-FMA kernels: one launch each a call, told apart by the kernel
+    names in a profile."""
+    from torch.profiler import ProfilerActivity, profile
+
+    names = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, do, valid = _bwd_case(dev, dtype, 128, 1, 4, 4, 130, 130, 7)
+        out, lse = tflash.flash_attention_lse(q, k, v, kv_valid=valid)
+        tflash.flash_attention_bwd(q, k, v, valid, out, lse, do)    # build
+        counts = (tflash.flash_attention_bwd_dq.launches,
+                  tflash.flash_attention_bwd_dkv.launches)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            tflash.flash_attention_bwd(q, k, v, valid, out, lse, do)
+            torch.cuda.synchronize()
+        assert (tflash.flash_attention_bwd_dq.launches,
+                tflash.flash_attention_bwd_dkv.launches) == \
+            (counts[0] + 1, counts[1] + 1)
+        names[dtype] = sorted(e.key for e in prof.key_averages()
+                              if "flash_bwd" in e.key)
+    assert len(names[torch.bfloat16]) == len(names[torch.float32]) == 2
+    assert all("_mma_kernel" in n for n in names[torch.bfloat16])
+    assert not any("_mma_kernel" in n for n in names[torch.float32])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_backward_raises_on_what_the_kernels_do_not_take(dev, dtype):
+    q, k, v, do, valid = _bwd_case(dev, dtype, 96, 1, 2, 2, 40, 40, 3)
+    out, lse = torch.zeros_like(q), torch.zeros((1, 2, 40), device=dev)
+    with pytest.raises(ValueError, match="Dh 64 or 128"):
+        tflash.flash_attention_bwd(q, k, v, valid, out, lse, do)
+    q, k, v, do, valid = _bwd_case(dev, dtype, 64, 1, 2, 2, 40, 40, 3)
+    out, lse = tflash.flash_attention_lse(q, k, v, kv_valid=valid)
+    other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
+    with pytest.raises(ValueError, match="do is"):
+        tflash.flash_attention_bwd(q, k, v, valid, out, lse, do.to(other))

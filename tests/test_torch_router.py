@@ -143,7 +143,7 @@ def test_router_variants_and_refusals(pair):
 
 def test_init_params_makes_a_router_for_dense_moe_configs(pair):
     _, _, tcfg, _ = pair
-    params = init_params(tcfg, seed=1)
+    params = init_params(tcfg, device="cpu", seed=1)
     r = params["router"]
     assert r["fc1"]["weight"].shape == (32, 32)
     assert r["fc2"]["weight"].shape == (3, 32)
@@ -151,4 +151,15 @@ def test_init_params_makes_a_router_for_dense_moe_configs(pair):
     assert not bool(r["fc2"]["bias"].any())
     plain = dataclasses.replace(tcfg, preset=dataclasses.replace(
         tcfg.preset, moe="t=id_obj=weightedlm"))
-    assert "router" not in init_params(plain, seed=1)
+    assert "router" not in init_params(plain, device="cpu", seed=1)
+
+
+@pytest.mark.parametrize("fn", [init_params,
+                                trouter.init_dense_gating_params],
+                         ids=lambda f: f.__name__)
+def test_public_initialisers_build_on_the_card_unless_told_otherwise(fn):
+    """Like ``load_pretrained_model`` and the trainer's entry point, the
+    initialisers run on the card by default; the CPU has to be named."""
+    import inspect
+
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
