@@ -12,8 +12,16 @@ Phases; any failure exits non-zero, and no phase's exception is caught:
 3. kernels against their plain PyTorch versions at the main path's shapes
    in bf16, with max errors and the median time of kernel and plain version
    over CUDA events: prefill flash attention B=1 H=32 Dh=128 Sq=640 against
-   a 672-slot cache, GQA and window cases; decode attention B in {1, 4},
-   S=672, GQA, window and a ragged S, then its int8-KV branch at B in
+   a 672-slot cache, GQA and window cases (the float32 FMA kernel timed at
+   the same shape), the training shapes S=1024 and S=1599 (kernel, plain
+   version and library timed, TFLOP/s), and the edges of a 64 x 64 tile
+   walk in bf16 and float32 (S of 63/64/65/129, paddings of 70 and 150,
+   windows of 16 and 150, q_index_offset with Sq != Sk, GQA 4 and 8, Dh=64,
+   non-causal; zeros and lse = -1e30 on keyless rows, the same bits from two
+   launches); decode attention with its n_split printed: B in {1, 4}, S=672,
+   GQA, window, a ragged S, S=40, S=65, a row whose last split is wholly
+   masked, B=1 at S=4096 (each against the plain and the split plain
+   version, two launches bit-identical), then its int8-KV branch at B in
    {1, 4}, S in {672, 673}, GQA and window; int4_matmul / int8_matmul at the
    7B projections (qkv 12288x4096, o 4096x4096, gateup 22016x4096, down
    4096x11008, lm_head 32000x4096) for M in {1, 4, 640}; quant_mlp at 7B
@@ -96,8 +104,9 @@ Phases; any failure exits non-zero, and no phase's exception is caught:
    QLoRA over an int8 base; step-1 gradients, two steps' losses and grad
    norms within 1e-3.
 
-With arguments (`python3 chip_smoke.py bwd train small`) only the build and
-the named phases of 9-11 run, and no result line is printed.
+With arguments (`python3 chip_smoke.py kernels bwd train small`) only the
+build and the named phases of 3 and 9-11 run, and no result line is
+printed.
 
 Each kernel's record carries its bound: the larger of its bytes (inputs once,
 outputs once) over 3.35 TB/s and its operations over 989 TFLOP/s, the H100
@@ -356,6 +365,107 @@ def _rand(shape, gen, dev):
     return torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
 
 
+# flash forward cases where a walk over 64 x 64 tiles goes wrong, run in
+# bf16 (tensor cores) and float32 (FMA kernel): (label, B, H, Hkv, Sq, Sk,
+# causal, window, q_offset, left padding of row 0, Dh)
+FLASH_EDGES = (
+    ("s63", 1, 4, 4, 63, 63, True, None, 0, 5, 128),
+    ("s64 dh64", 1, 4, 4, 64, 64, True, None, 0, 0, 64),
+    ("s65", 2, 4, 4, 65, 65, True, None, 0, 3, 128),
+    ("s129", 1, 4, 4, 129, 129, True, None, 0, 64, 128),
+    ("pad 70 dh64", 2, 4, 2, 129, 129, True, None, 0, 70, 64),
+    ("pad 150", 2, 4, 4, 257, 257, True, None, 0, 150, 128),
+    ("window 16", 2, 4, 4, 300, 300, True, 16, 0, 7, 128),
+    ("window 150 dh64", 1, 4, 2, 300, 300, True, 150, 0, 70, 64),
+    ("offset", 2, 4, 4, 70, 131, True, None, 40, 3, 128),
+    ("offset window dh64", 1, 4, 4, 100, 260, True, 48, 160, 0, 64),
+    ("gqa 4", 2, 8, 2, 200, 200, True, None, 0, 66, 128),
+    ("gqa 8 dh64", 1, 8, 1, 131, 131, True, None, 0, 9, 64),
+    ("non-causal", 2, 4, 4, 65, 130, False, None, 0, 4, 128),
+)
+# the training shapes of the flash forward (B=1, H=32, Dh=128, causal):
+# (S, left padding); bf16 kernel, plain version and library timed
+FLASH_TRAIN = ((1024, 37), (1599, 61))
+# decode cases: (label, B, H, Hkv, S, window); every row valid up to S - 20
+# except that the last row's first 31 slots are not, the query at S - 21
+DECODE_CASES = (
+    ("b1", 1, 32, 32, 672, None), ("b4", 4, 32, 32, 672, None),
+    ("gqa", 4, 32, 8, 672, None), ("window", 4, 32, 32, 672, 128),
+    ("ragged", 2, 32, 32, 673, None), ("s40", 1, 32, 32, 40, None),
+    ("s65", 1, 32, 32, 65, None),
+    # slots 0-30 invalid and the last split (504-671 of 4) wholly masked
+    ("masked split", 1, 32, 32, 672, None),
+    ("long b1", 1, 32, 32, 4096, None))
+DECODE_INT8 = (
+    ("int8 b1", 1, 32, 32, 672, None), ("int8 b4", 4, 32, 32, 673, None),
+    ("int8 gqa", 4, 32, 8, 672, None), ("int8 window", 4, 32, 32, 673, 128))
+
+
+def _pairs(valid, Sq, Sk, offset=0) -> int:
+    """(query, valid slot) pairs under index causality, over the batch."""
+    dev = valid.device
+    sees = torch.arange(Sk, device=dev)[None] \
+        <= torch.arange(Sq, device=dev)[:, None] + offset
+    return int((valid[:, None, :] & sees[None]).sum())
+
+
+def _flash_operands(gen, dev, dtype, B, H, Hkv, Sq, Sk, Dh, pad):
+    """q, and K/V as the strided (B, Hkv, S, Dh) view of a (B, S, Hkv, Dh)
+    cache layer, as the cached prefill passes them; row 0 left-padded."""
+    def operand(heads, S):
+        return torch.randn((B, S, heads, Dh), generator=gen, device=dev,
+                           dtype=torch.float32).to(dtype).transpose(1, 2)
+
+    q = torch.randn((B, H, Sq, Dh), generator=gen, device=dev,
+                    dtype=torch.float32).to(dtype)
+    k, v = operand(Hkv, Sk), operand(Hkv, Sk)
+    valid = torch.ones((B, Sk), dtype=torch.bool, device=dev)
+    valid[0, :pad] = False
+    return q, k, v, valid
+
+
+def flash_edge_cases(dev, gen) -> float:
+    """The forward kernels against flash_attention_plain at the edges of a
+    64 x 64 walk, both dtypes: tolerances, no NaN, zeros and lse = -1e30 on
+    rows that see no key, the same bits from two launches.  Returns the
+    largest error."""
+    from matryoshka_mm_torch.ops import flash_attention as fl
+
+    worst = 0.0
+    for (label, B, H, Hkv, Sq, Sk, causal, window, offset, pad,
+         Dh) in FLASH_EDGES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, valid = _flash_operands(gen, dev, dtype, B, H, Hkv, Sq,
+                                             Sk, Dh, pad)
+            kw = dict(causal=causal, kv_valid=valid, sliding_window=window,
+                      q_index_offset=offset)
+            out, lse = fl.flash_attention_lse(q, k, v, **kw)
+            out2, lse2 = fl.flash_attention_lse(q, k, v, **kw)
+            ref_o, ref_l = fl.flash_attention_plain(q, k, v, **kw)
+            keyless = ~fl._mask(B, Sq, Sk, valid, causal, window, offset,
+                                dev).any(-1)                 # (B, 1, Sq)
+            keyless = keyless.expand(B, H, Sq)
+            torch.cuda.synchronize()
+            err = (out.float() - ref_o.float()).abs().max().item()
+            lerr = (lse - ref_l).abs().max().item()
+            name = f"flash {label} {str(dtype)[6:]}"
+            print(f"[{name}] max|out-plain|={err:.3e} "
+                  f"max|lse-plain|={lerr:.3e} keyless rows "
+                  f"{int(keyless.sum())}")
+            if not (bool(torch.isfinite(out).all())
+                    and torch.allclose(out.float(), ref_o.float(),
+                                       atol=FLASH_TOL, rtol=FLASH_TOL)
+                    and lerr <= LSE_TOL):
+                fail(f"{name} disagrees with its plain version")
+            if not (bool((out[keyless] == 0).all())
+                    and bool((lse[keyless] == fl.LSE_MASKED).all())):
+                fail(f"{name}: a row without a key is not 0 / -1e30")
+            if not (torch.equal(out, out2) and torch.equal(lse, lse2)):
+                fail(f"{name}: two launches gave other bits")
+            worst = max(worst, err)
+    return worst
+
+
 def phase_kernels(dev) -> dict:
     from matryoshka_mm_torch.ops import decode_attention as dec
     from matryoshka_mm_torch.ops import flash_attention as fl
@@ -390,61 +500,110 @@ def phase_kernels(dev) -> dict:
                                             err)
         if name == "mha":
             ops = rotations(q, k, v)
-            rec["flash_attention"]["ms"] = time_ms(
-                lambda *a: fl.flash_attention_lse(*a, **kw), ops)
-            rec["flash_attention"]["plain_ms"] = time_ms(
+            r = rec["flash_attention"]
+            r["ms"] = time_ms(lambda *a: fl.flash_attention_lse(*a, **kw), ops)
+            r["plain_ms"] = time_ms(
                 lambda *a: fl.flash_attention_plain(*a, **kw), ops, reps=5)
-            rec["flash_attention"]["library_ms"] = library_ms(
-                "flash", ops, kv_valid=valid)
+            r["library_ms"] = library_ms("flash", ops, kv_valid=valid)
             # pairs (query i, valid slot j <= i): 2 products of Dh each
-            pairs = int((valid[0][None, :] & (
-                torch.arange(Sk, device=dev)[None]
-                <= torch.arange(Sq, device=dev)[:, None])).sum())
-            rec["flash_attention"].update(bound(
-                nbytes(q, k, v) + nbytes(out, lse), 4 * H * Dh * pairs))
-            _show("flash mha", rec["flash_attention"])
+            flops = 4 * H * Dh * _pairs(valid, Sq, Sk)
+            r.update(bound(nbytes(q, k, v) + nbytes(out, lse), flops))
+            _show("flash mha", r)
+            print(f"[flash mha] {card_line()}: {flops / 1e9:.2f} GFLOP, "
+                  f"kernel {flops / r['ms'] / 1e9:.1f} TFLOP/s, library "
+                  f"{flops / r['library_ms'] / 1e9:.1f} TFLOP/s")
+            ops32 = rotations(*(t.float() for t in (q, k, v)))
+            ms32 = time_ms(lambda *a: fl.flash_attention_lse(*a, **kw), ops32)
+            print(f"[flash mha f32] {card_line()}: the float32 FMA kernel "
+                  f"{ms32:.4f} ms ({flops / ms32 / 1e9:.1f} TFLOP/s)")
+            del ops, ops32
 
-    for name, B, H, Hkv, S, window in (
-            ("b1", 1, 32, 32, 672, None), ("b4", 4, 32, 32, 672, None),
-            ("gqa", 4, 32, 8, 672, None), ("window", 4, 32, 32, 672, 128),
-            ("ragged", 2, 32, 32, 673, None)):
+    # ---- the training shapes ----
+    for S, tpad in FLASH_TRAIN:
+        q, k, v, valid = _flash_operands(gen, dev, torch.bfloat16, 1, 32, 32,
+                                         S, S, Dh, tpad)
+        out, lse = fl.flash_attention_lse(q, k, v, kv_valid=valid)
+        ref_o, ref_l = fl.flash_attention_plain(q, k, v, kv_valid=valid)
+        torch.cuda.synchronize()
+        err = (out.float() - ref_o.float()).abs().max().item()
+        lerr = (lse - ref_l).abs().max().item()
+        if not (torch.allclose(out.float(), ref_o.float(), atol=FLASH_TOL,
+                               rtol=FLASH_TOL) and lerr <= LSE_TOL):
+            fail(f"flash train {S} disagrees with its plain version")
+        ops = rotations(q, k, v)
+        ms = time_ms(lambda *a: fl.flash_attention_lse(*a, kv_valid=valid),
+                     ops)
+        pms = time_ms(lambda *a: fl.flash_attention_plain(*a, kv_valid=valid),
+                      ops, reps=3, warmup=1)
+        train_library_ms = library_ms("flash", ops, kv_valid=valid)
+        flops = 4 * 32 * Dh * _pairs(valid, S, S)
+        b = bound(nbytes(q, k, v) + nbytes(out, lse), flops)
+        print(f"[flash train {S}] {card_line()}: max|out-plain|={err:.3e} "
+              f"max|lse-plain|={lerr:.3e}; kernel {ms:.4f} ms "
+              f"({flops / ms / 1e9:.1f} TFLOP/s)  plain {pms:.4f} ms  bound "
+              f"{b['bound_ms']:.4f} ms by {b['bound_by']}  library "
+              f"{train_library_ms:.4f} ms "
+              f"({flops / train_library_ms / 1e9:.1f} TFLOP/s)")
+        rec["flash_attention"]["err"] = max(rec["flash_attention"]["err"],
+                                            err)
+        del ops
+    rec["flash_attention"]["err"] = max(rec["flash_attention"]["err"],
+                                        flash_edge_cases(dev, gen))
+
+    sms = dec._sm_count(dev.index or 0)
+    for name, B, H, Hkv, S, window in DECODE_CASES:
         q = _rand((B, H, Dh), gen, dev)
         k_all = _rand((2, B, S, Hkv, Dh), gen, dev)
         v_all = _rand((2, B, S, Hkv, Dh), gen, dev)
         valid = torch.zeros((B, S), dtype=torch.bool, device=dev)
         valid[:, :S - 20] = True
         valid[-1, :31] = False                        # a left-padded row
+        n_split = dec.decode_splits(B, Hkv, S, sms)
+        if name == "masked split":
+            last = dec.split_ranges(S, n_split)[-1]
+            valid[:, last[0]:] = False
         kv_pos = torch.arange(S, device=dev, dtype=torch.int32).expand(B, S)
         q_pos = torch.full((B,), S - 21, device=dev, dtype=torch.int32)
         args = (q, k_all[1], v_all[1], valid, kv_pos, q_pos)
         got = dec.flash_decode_attention(*args, sliding_window=window)
+        again = dec.flash_decode_attention(*args, sliding_window=window)
         want = dec.decode_attention_plain(*args, sliding_window=window)
+        split = dec.decode_attention_split_plain(*args,
+                                                 sliding_window=window,
+                                                 n_split=n_split)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
-        print(f"[decode {name}] max|out-plain|={err:.3e}")
-        if not torch.allclose(got.float(), want.float(), atol=FLASH_TOL,
-                              rtol=FLASH_TOL):
+        serr = (got.float() - split.float()).abs().max().item()
+        print(f"[decode {name}] B={B} S={S} n_split={n_split} "
+              f"({B * Hkv * n_split} blocks) max|out-plain|={err:.3e} "
+              f"max|out-split plain|={serr:.3e}")
+        if not (torch.allclose(got.float(), want.float(), atol=FLASH_TOL,
+                               rtol=FLASH_TOL)
+                and torch.allclose(got.float(), split.float(),
+                                   atol=FLASH_TOL, rtol=FLASH_TOL)):
             fail(f"decode {name} disagrees with its plain version")
+        if not torch.equal(got, again):
+            fail(f"decode {name}: two launches gave other bits")
+        if name == "b1" and n_split < 2:
+            fail(f"decode b1: the slots were not split (n_split {n_split})")
         rec["decode_attention"]["err"] = max(rec["decode_attention"]["err"],
                                              err)
         if name in ("b1", "b4"):
             ops = rotations(*args)
             ms = time_ms(dec.flash_decode_attention, ops)
             plain = time_ms(dec.decode_attention_plain, ops, reps=5)
+            case_library_ms = library_ms("decode", ops)
+            slots = int(valid.sum())      # K and V of the valid slots
+            b = bound(2 * slots * Hkv * Dh * 2 + nbytes(q, got, valid),
+                      4 * H * Dh * slots)
             rec["decode_attention"][f"ms_{name}"] = ms
             rec["decode_attention"][f"plain_ms_{name}"] = plain
-            print(f"[decode {name}] kernel {ms:.4f} ms  plain {plain:.4f} ms")
+            print(f"[decode {name}] {card_line()}: kernel {ms:.4f} ms  "
+                  f"plain {plain:.4f} ms  bound {b['bound_ms']:.4f} ms by "
+                  f"{b['bound_by']}  library {case_library_ms:.4f} ms")
             if name == "b1":
-                rec["decode_attention"]["library_ms"] = library_ms(
-                    "decode", ops)
-                slots = int(valid.sum())      # K and V of the valid slots
-                rec["decode_attention"].update(bound(
-                    2 * slots * Hkv * Dh * 2 + nbytes(q, got, valid),
-                    4 * H * Dh * slots))
-    for name, B, H, Hkv, S, window in (
-            ("int8 b1", 1, 32, 32, 672, None), ("int8 b4", 4, 32, 32, 673, None),
-            ("int8 gqa", 4, 32, 8, 672, None),
-            ("int8 window", 4, 32, 32, 673, 128)):
+                rec["decode_attention"].update(b, library_ms=case_library_ms)
+    for name, B, H, Hkv, S, window in DECODE_INT8:
         q = _rand((B, H, Dh), gen, dev)
         kq, ks = _quantize_kv_slots(_rand((2, B, S, Hkv, Dh), gen, dev))
         vq, vs = _quantize_kv_slots(_rand((2, B, S, Hkv, Dh), gen, dev))
@@ -455,14 +614,19 @@ def phase_kernels(dev) -> dict:
         q_pos = torch.full((B,), S - 21, device=dev, dtype=torch.int32)
         args = (q, kq[1], vq[1], valid, kv_pos, q_pos)
         kw = dict(sliding_window=window, k_scale=ks[1], v_scale=vs[1])
+        n_split = dec.decode_splits(B, Hkv, S, sms)
         got = dec.flash_decode_attention(*args, **kw)
+        again = dec.flash_decode_attention(*args, **kw)
         want = dec.decode_attention_plain(*args, **kw)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
-        print(f"[decode {name}] max|out-plain|={err:.3e}")
+        print(f"[decode {name}] B={B} S={S} n_split={n_split} "
+              f"max|out-plain|={err:.3e}")
         if not torch.allclose(got.float(), want.float(), atol=FLASH_TOL,
                               rtol=FLASH_TOL):
             fail(f"decode {name} disagrees with its plain version")
+        if not torch.equal(got, again):
+            fail(f"decode {name}: two launches gave other bits")
         rec["decode_attention"]["err"] = max(rec["decode_attention"]["err"],
                                              err)
         if name == "int8 b1":
@@ -480,7 +644,12 @@ def phase_kernels(dev) -> dict:
 
             ms = time_ms(kernel, ops)
             plain = time_ms(plain_fn, ops, reps=5)
-            print(f"[decode {name}] kernel {ms:.4f} ms  plain {plain:.4f} ms")
+            slots = int(valid.sum())      # int8 K and V, their f32 scales
+            b = bound(2 * slots * Hkv * (Dh + 4) + nbytes(q, got, valid),
+                      4 * H * Dh * slots)
+            print(f"[decode {name}] {card_line()}: kernel {ms:.4f} ms  "
+                  f"plain {plain:.4f} ms  bound {b['bound_ms']:.4f} ms by "
+                  f"{b['bound_by']}  library none")
     rec["decode_attention"]["ms"] = rec["decode_attention"]["ms_b1"]
     rec["decode_attention"]["plain_ms"] = \
         rec["decode_attention"]["plain_ms_b1"]
@@ -1596,7 +1765,7 @@ TRAIN_LR = 2e-4           # the reference's LoRA recipe
 TRAIN_LOSS_TOL = 1e-2     # kernel path against attn_impl="reference"
 # kernel names of a profiled step, by kind (first match wins)
 TRAIN_KERNEL_GROUPS = (
-    ("flash forward", ("flash_fwd_kernel",)),
+    ("flash forward", ("flash_fwd_",)),      # ..._mma_kernel or ..._kernel
     ("flash dK/dV", ("flash_bwd_dkv_",)),    # ..._mma_kernel or ..._kernel
     ("flash dQ", ("flash_bwd_dq_",)),
     ("matrix products (cuBLAS)", ("nvjet", "gemm", "cutlass", "cublas")),
@@ -2007,11 +2176,11 @@ def main(argv=()) -> int:
     card = phase_device()
     phase_build()
     if argv:
-        # a subset for work on one phase: `chip_smoke.py bwd train small`
-        # runs phases 9, 10 and 11 alone and prints no result line
+        # a subset for work on one phase: `chip_smoke.py kernels bwd train
+        # small` runs phases 3, 9, 10 and 11 alone and prints no result line
         for name in argv:
-            {"bwd": phase_bwd_kernels, "train": phase_train,
-             "small": phase_train_small}[name](dev)
+            {"kernels": phase_kernels, "bwd": phase_bwd_kernels,
+             "train": phase_train, "small": phase_train_small}[name](dev)
         print(f"partial run {argv}: no result")
         return 1
     rec = phase_kernels(dev)

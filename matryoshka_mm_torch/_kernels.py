@@ -61,16 +61,17 @@ SIGNATURES = {
                                    I, I, I, I, I, I, *[LL] * 13,
                                    I, I, I, F, P],
     # dtype, q, k, v, kv_valid, kv_pos, q_pos, out, B, H, Hkv, S, Dh,
-    # q strides (b, h), k strides (b, s, h), v strides (b, s, h),
+    # n_split, q strides (b, h), k strides (b, s, h), v strides (b, s, h),
     # kv_valid batch stride, kv_pos batch stride, window, scale, stream
-    "m3_decode_attention": [I, P, P, P, P, P, P, P, I, I, I, I, I,
+    "m3_decode_attention": [I, P, P, P, P, P, P, P, I, I, I, I, I, I,
                             LL, LL, LL, LL, LL, LL, LL, LL, LL, LL,
                             I, F, P],
     # dtype, q, k, v, k_scale, v_scale, kv_valid, kv_pos, q_pos, out,
-    # B, H, Hkv, S, Dh, q strides (b, h), k strides (b, s, h),
+    # B, H, Hkv, S, Dh, n_split, q strides (b, h), k strides (b, s, h),
     # v strides (b, s, h), scale strides (b, s, h), kv_valid batch stride,
     # kv_pos batch stride, window, scale, stream
-    "m3_decode_attention_int8": [I, P, P, P, P, P, P, P, P, P, I, I, I, I, I,
+    "m3_decode_attention_int8": [I, P, P, P, P, P, P, P, P, P,
+                                 I, I, I, I, I, I,
                                  LL, LL, LL, LL, LL, LL, LL, LL, LL, LL, LL,
                                  LL, LL, I, F, P],
     # bits, x, w, scale, out, M, N, K, x row stride, out row stride, stream

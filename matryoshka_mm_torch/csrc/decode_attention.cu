@@ -9,19 +9,29 @@
 // causality (kv_pos <= q_pos), kv_valid, sliding window, GQA.  A row with no
 // valid slot returns 0.
 //
-// Design (the body is decode_body.cuh, shared with paged_attention.cu):
-// * one block of 128 threads per (kv head, batch row); the block serves the
-//   G = H / Hkv query heads of its group, so each cache byte is read once
-//   (the TPU kernel multiplied every query head against every kv head,
-//   n_kv times the work, to keep its matrix unit busy; not copied);
-// * a slot's Dh-wide row is read by LPS lanes with 16-byte loads, so a warp
-//   reads 32 / LPS slots at once; each such lane group keeps its own running
-//   (max, sum, accumulator) over a strided share of the slots, CH slots per
-//   step with all loads issued before the math;
-// * the partial states are merged through shared memory at the end;
+// What bounds it: bytes.  A step reads the layer's K and V once for two
+// FLOPs an element.  Design (the body is decode_body.cuh, shared with
+// paged_attention.cu):
+// * the slots of one (kv head, batch row) are split over n_split blocks
+//   (split-K flash-decoding), n_split chosen by the caller from the launch
+//   geometry (ops/decode_attention.py decode_splits: at most two blocks an
+//   SM, at least 128 slots a split, at most 8 blocks; 4 for the 7B model at
+//   B = 1); split r walks the slots [r S / n_split, (r + 1) S / n_split);
+// * each block serves the G = H / Hkv query heads of its group, so each
+//   cache byte is read once (the TPU kernel multiplied every query head
+//   against every kv head, n_kv times the work, to keep its matrix unit
+//   busy; not copied); a slot's Dh-wide row is read by LPS lanes with
+//   16-byte loads, each lane group keeping its own running (max, sum,
+//   accumulator) over a strided share of the split, CH slots per step with
+//   all loads issued before the math; the lane groups' states are merged in
+//   shared memory into the block's;
+// * the n_split blocks of one (kv head, row) form a thread-block cluster:
+//   after a cluster barrier the cluster's rank 0 reads every block's (max,
+//   sum, accumulator) through distributed shared memory, merges them and
+//   writes the output; a second barrier keeps each block's shared memory
+//   alive until rank 0 has read it.  One launch, nothing allocated.  A
+//   split whose slots are all masked has max -inf and weight 0;
 // * any S: the ragged tail is masked, with no divisibility rule.
-// At B = 1 there are only Hkv blocks (32 at 7B) for 132 SMs; splitting the
-// slot axis across blocks (split-K flash-decoding) is left for later.
 //
 // The int8-KV branch (KV = int8_t, the TPU kernel's kv_int8 path): K and V
 // are int8 with f32 per-(slot, kv head) scales.  The K scale multiplies the
@@ -31,6 +41,8 @@
 // its matrix unit; there is no matrix unit here).  A lane reads 8 int8
 // values (8 bytes) of a slot row, so the lane geometry of the bf16 cache
 // holds and the cache stream is half as many bytes.
+#include <cooperative_groups.h>
+
 #include "decode_body.cuh"
 
 namespace {
@@ -66,14 +78,21 @@ decode_kernel(const T* __restrict__ q, const KV* __restrict__ k,
               const float* __restrict__ v_scale,
               const uint8_t* __restrict__ kv_valid,
               const int* __restrict__ kv_pos, const int* __restrict__ q_pos,
-              T* __restrict__ out, int H, int S,
+              T* __restrict__ out, int H, int S, int n_split,
               int64_t q_sb, int64_t q_sh,
               int64_t k_sb, int64_t k_ss, int64_t k_sh,
               int64_t v_sb, int64_t v_ss, int64_t v_sh,
               int64_t sc_sb, int64_t sc_ss, int64_t sc_sh,
               int64_t valid_sb, int64_t pos_sb, int window, float scale) {
+  namespace cg = cooperative_groups;
   constexpr bool INT8 = std::is_same<KV, int8_t>::value;
-  const int hk = blockIdx.x, b = blockIdx.y;
+  __shared__ m3::DecodeParts<KV, DH, G> parts;
+  __shared__ float blk_m[G], blk_l[G];
+  __shared__ __align__(16) float blk_acc[G][DH];
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int hk = blockIdx.x / n_split, b = blockIdx.y;
   DenseSlots<KV> slots;
   slots.kb = k + b * k_sb + hk * k_sh;
   slots.vb = v + b * v_sb + hk * v_sh;
@@ -86,31 +105,89 @@ decode_kernel(const T* __restrict__ q, const KV* __restrict__ k,
   slots.sc_ss = sc_ss;
   slots.qp = q_pos[b];
   slots.window = window;
-  m3::decode_body<T, KV, DH, G>(
-      q + b * q_sb + static_cast<int64_t>(hk) * G * q_sh, q_sh, slots, S,
-      out + static_cast<int64_t>(b) * H * DH + static_cast<int64_t>(hk) * G * DH,
-      scale);
+  const int s_begin = static_cast<int>(static_cast<int64_t>(rank) * S / n_split);
+  const int s_end =
+      static_cast<int>(static_cast<int64_t>(rank + 1) * S / n_split);
+  m3::decode_walk<T, KV, DH, G>(
+      q + b * q_sb + static_cast<int64_t>(hk) * G * q_sh, q_sh, slots,
+      s_begin, s_end, scale, parts);
+
+  // this block's state of its split
+  for (int idx = threadIdx.x; idx < G * DH; idx += THREADS) {
+    const int g = idx / DH, d = idx % DH;
+    float mx, lsum, a;
+    m3::merge_parts(parts, g, d, mx, lsum, a);
+    blk_acc[g][d] = a;
+    if (d == 0) {
+      blk_m[g] = mx;
+      blk_l[g] = lsum;
+    }
+  }
+  cluster.sync();   // every block's state is written and visible
+
+  if (rank == 0) {
+    T* out_row =
+        out + static_cast<int64_t>(b) * H * DH + static_cast<int64_t>(hk) * G * DH;
+    for (int idx = threadIdx.x; idx < G * DH; idx += THREADS) {
+      const int g = idx / DH, d = idx % DH;
+      float mx = -INFINITY;
+      for (int r = 0; r < n_split; ++r)
+        mx = fmaxf(mx, *cluster.map_shared_rank(&blk_m[g], r));
+      float lsum = 0.f, a = 0.f;
+      if (mx != -INFINITY) {   // a split with nothing valid weighs 0
+        for (int r = 0; r < n_split; ++r) {
+          const float w = exp2f(*cluster.map_shared_rank(&blk_m[g], r) - mx);
+          lsum = fmaf(*cluster.map_shared_rank(&blk_l[g], r), w, lsum);
+          a = fmaf(*cluster.map_shared_rank(&blk_acc[g][d], r), w, a);
+        }
+      }
+      out_row[idx] = m3::from_float<T>(lsum > 0.f ? a / lsum : 0.f);
+    }
+  }
+  cluster.sync();   // no block leaves while rank 0 may still read it
 }
 
 template <typename T, typename KV, int DH>
 int launch_dh(int G, const void* q, const void* k, const void* v,
               const void* k_scale, const void* v_scale, const void* kv_valid,
               const void* kv_pos, const void* q_pos, void* out, int B, int H,
-              int Hkv, int S, long long q_sb, long long q_sh, long long k_sb,
-              long long k_ss, long long k_sh, long long v_sb, long long v_ss,
-              long long v_sh, long long sc_sb, long long sc_ss,
-              long long sc_sh, long long valid_sb, long long pos_sb,
-              int window, float scale, cudaStream_t stream) {
-  const dim3 grid(Hkv, B);
+              int Hkv, int S, int n_split, long long q_sb, long long q_sh,
+              long long k_sb, long long k_ss, long long k_sh, long long v_sb,
+              long long v_ss, long long v_sh, long long sc_sb,
+              long long sc_ss, long long sc_sh, long long valid_sb,
+              long long pos_sb, int window, float scale,
+              cudaStream_t stream) {
+  if (n_split < 1 || n_split > 8)   // 8: the portable cluster size
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(Hkv * n_split, B);
+  config.blockDim = dim3(THREADS);
+  config.dynamicSmemBytes = 0;
+  config.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n_split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  cudaError_t err;
 #define M3_LAUNCH(GG)                                                        \
-  decode_kernel<T, KV, DH, GG><<<grid, THREADS, 0, stream>>>(                \
-      static_cast<const T*>(q), static_cast<const KV*>(k),                   \
-      static_cast<const KV*>(v), static_cast<const float*>(k_scale),         \
+  err = cudaLaunchKernelEx(                                                  \
+      &config, decode_kernel<T, KV, DH, GG>, static_cast<const T*>(q),       \
+      static_cast<const KV*>(k), static_cast<const KV*>(v),                  \
+      static_cast<const float*>(k_scale),                                    \
       static_cast<const float*>(v_scale),                                    \
       static_cast<const uint8_t*>(kv_valid),                                 \
       static_cast<const int*>(kv_pos), static_cast<const int*>(q_pos),       \
-      static_cast<T*>(out), H, S, q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,  \
-      v_sh, sc_sb, sc_ss, sc_sh, valid_sb, pos_sb, window, scale)
+      static_cast<T*>(out), H, S, n_split, static_cast<int64_t>(q_sb),       \
+      static_cast<int64_t>(q_sh), static_cast<int64_t>(k_sb),                \
+      static_cast<int64_t>(k_ss), static_cast<int64_t>(k_sh),                \
+      static_cast<int64_t>(v_sb), static_cast<int64_t>(v_ss),                \
+      static_cast<int64_t>(v_sh), static_cast<int64_t>(sc_sb),               \
+      static_cast<int64_t>(sc_ss), static_cast<int64_t>(sc_sh),              \
+      static_cast<int64_t>(valid_sb), static_cast<int64_t>(pos_sb), window,  \
+      scale)
   switch (G) {
     case 1: M3_LAUNCH(1); break;
     case 2: M3_LAUNCH(2); break;
@@ -119,27 +196,30 @@ int launch_dh(int G, const void* q, const void* k, const void* v,
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef M3_LAUNCH
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16, for q, K, V and out.  Returns
-// cudaGetLastError() after the launch (cudaErrorInvalidValue for a dtype,
-// head dim or group size it does not take).
+// dtype: 0 = float32, 1 = bfloat16, for q, K, V and out.  n_split: the
+// blocks (1 to 8, one cluster) that share the slots of one (kv head, row).
+// Returns the launch's error, or cudaGetLastError() after it
+// (cudaErrorInvalidValue for a dtype, head dim, group size or n_split it
+// does not take).
 extern "C" int m3_decode_attention(
     int dtype, const void* q, const void* k, const void* v,
     const void* kv_valid, const void* kv_pos, const void* q_pos, void* out,
-    int B, int H, int Hkv, int S, int Dh, long long q_sb, long long q_sh,
-    long long k_sb, long long k_ss, long long k_sh, long long v_sb,
-    long long v_ss, long long v_sh, long long valid_sb, long long pos_sb,
-    int window, float scale, void* stream) {
+    int B, int H, int Hkv, int S, int Dh, int n_split, long long q_sb,
+    long long q_sh, long long k_sb, long long k_ss, long long k_sh,
+    long long v_sb, long long v_ss, long long v_sh, long long valid_sb,
+    long long pos_sb, int window, float scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int G = H / Hkv;
 #define M3_ARGS                                                              \
   G, q, k, v, nullptr, nullptr, kv_valid, kv_pos, q_pos, out, B, H, Hkv, S,  \
-      q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, 0, 0, 0, valid_sb,     \
-      pos_sb, window, scale, st
+      n_split, q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, 0, 0, 0,      \
+      valid_sb, pos_sb, window, scale, st
   if (dtype == 0 && Dh == 64) return launch_dh<float, float, 64>(M3_ARGS);
   if (dtype == 0 && Dh == 128) return launch_dh<float, float, 128>(M3_ARGS);
   if (dtype == 1 && Dh == 64)
@@ -152,12 +232,12 @@ extern "C" int m3_decode_attention(
 
 // The int8-KV branch.  dtype (0 = float32, 1 = bfloat16) is that of q and
 // out; K and V are int8, k_scale and v_scale f32 with the (b, s, h)
-// strides sc_*.
+// strides sc_*; n_split as above.
 extern "C" int m3_decode_attention_int8(
     int dtype, const void* q, const void* k, const void* v,
     const void* k_scale, const void* v_scale, const void* kv_valid,
     const void* kv_pos, const void* q_pos, void* out, int B, int H, int Hkv,
-    int S, int Dh, long long q_sb, long long q_sh, long long k_sb,
+    int S, int Dh, int n_split, long long q_sb, long long q_sh, long long k_sb,
     long long k_ss, long long k_sh, long long v_sb, long long v_ss,
     long long v_sh, long long sc_sb, long long sc_ss, long long sc_sh,
     long long valid_sb, long long pos_sb, int window, float scale,
@@ -166,8 +246,8 @@ extern "C" int m3_decode_attention_int8(
   const int G = H / Hkv;
 #define M3_ARGS                                                              \
   G, q, k, v, k_scale, v_scale, kv_valid, kv_pos, q_pos, out, B, H, Hkv, S,  \
-      q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, sc_sb, sc_ss, sc_sh,   \
-      valid_sb, pos_sb, window, scale, st
+      n_split, q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, sc_sb, sc_ss, \
+      sc_sh, valid_sb, pos_sb, window, scale, st
   if (dtype == 0 && Dh == 64) return launch_dh<float, int8_t, 64>(M3_ARGS);
   if (dtype == 0 && Dh == 128) return launch_dh<float, int8_t, 128>(M3_ARGS);
   if (dtype == 1 && Dh == 64)

@@ -98,6 +98,10 @@ struct Strides {
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
+using m3::allow_smem;
+using m3::fast_exp2;
+using m3::sees;
+using m3::zero_tiles;
 
 constexpr int MMA_TILE = 64;          // rows of every tile: queries or keys
 constexpr int MMA_THREADS = 128;      // 4 warps of 16 output rows
@@ -113,26 +117,6 @@ constexpr int DQ_SMEM = 4 * TILE_ELEMS<DH> * int(sizeof(bf16))
 template <int DH>
 constexpr int KV_SMEM = 6 * TILE_ELEMS<DH> * int(sizeof(bf16))
                         + 4 * MMA_TILE * int(sizeof(float));
-
-// exp2f without its rescaling of results below 2^-126, which flush to zero
-// here: a probability that small adds nothing to a bf16 product, and the
-// rescaling's instructions showed in the kernels' times
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// may query index qi (on the kv axis) attend to slot kv?
-__device__ __forceinline__ bool sees(int qi, int kv, int causal, int window) {
-  return (!causal || kv <= qi) && (window <= 0 || qi - kv < window);
-}
-
-template <int N>
-__device__ __forceinline__ void zero_tiles(float (&c)[N][4]) {
-#pragma unroll
-  for (int j = 0; j < N; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
-}
 
 template <int DH>
 __global__ void __launch_bounds__(MMA_THREADS, 2)
@@ -477,13 +461,6 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
   const int rows = min(MMA_TILE, Sk - k0);
   m3::store_tile<DH, MMA_TILE, MMA_THREADS>(dk_s, dk + o_row * DH, rows, tid);
   m3::store_tile<DH, MMA_TILE, MMA_THREADS>(dv_s, dv + o_row * DH, rows, tid);
-}
-
-// dynamic shared memory above 48 KB has to be asked for, once a kernel
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes) {
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 template <int DH>

@@ -176,6 +176,33 @@ __device__ __forceinline__ void store_c_tile(const float (&c)[NB][4],
   }
 }
 
+// exp2f without its rescaling of results below 2^-126, which flush to zero
+// here: a probability that small adds nothing to a bf16 product, and the
+// rescaling's instructions showed in the kernels' times
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// may query index qi (on the kv axis) attend to slot kv?
+__device__ __forceinline__ bool sees(int qi, int kv, int causal, int window) {
+  return (!causal || kv <= qi) && (window <= 0 || qi - kv < window);
+}
+
+template <int N>
+__device__ __forceinline__ void zero_tiles(float (&c)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
+}
+
+// dynamic shared memory above 48 KB has to be asked for, once a kernel
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
 // Copy rows [0, rows) of a shared DH-wide padded tile to contiguous global
 // rows of DH values, 16 bytes a thread.
 template <int DH, int ROWS, int THREADS>

@@ -83,7 +83,7 @@ def _map(tree, fn):
     return fn(tree)
 
 
-def params_from_jax(np_tree: dict, cfg: LlavaConfig, device="cpu",
+def params_from_jax(np_tree: dict, cfg: LlavaConfig, device="cuda",
                     dtype: Optional[torch.dtype] = None) -> dict:
     """JAX LLaVA parameters (every leaf as a numpy array) -> port params.
     ``dtype`` casts every float leaf; None keeps each leaf's dtype.
@@ -179,7 +179,7 @@ def init_params(cfg: LlavaConfig, device="cuda", seed: int = 0) -> dict:
     return params
 
 
-def paged_cache_from_jax(k, v, k_scale=None, v_scale=None, device="cpu"):
+def paged_cache_from_jax(k, v, k_scale=None, v_scale=None, device="cuda"):
     """The numpy arrays of a JAX ``PagedKVCache`` -> the port's
     ``serve.paged_cache.PagedKVCache`` with the same bytes.  The JAX scale
     pools are flat ``(L, n_pages, page * n_kv)`` (index ``slot * n_kv +

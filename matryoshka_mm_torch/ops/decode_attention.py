@@ -19,15 +19,19 @@ attention over the cache dequantized to f32.
 What bounds it on the H100: bytes.  Each decode step reads the layer's
 whole cache, ``2 * B * S * n_kv * Dh`` elements, for two FLOPs per element;
 that is far below the card's FLOP-per-byte balance.  The design reads each
-cache byte once: one block per (kv head, batch row) serves the whole query
-group (the TPU kernel multiplied every query head by every kv head to feed
-its matrix unit; not copied), with 16-byte coalesced loads, several slots'
-loads in flight per lane group, and the partial softmax states merged in
-shared memory.  Any ``S`` is taken: the ragged tail is masked (no
-``_pick_bs`` divisibility rule).  At B = 1 the grid is only ``n_kv``
-blocks (32 at 7B) on 132 SMs, so one step cannot reach the card's
-bandwidth; splitting the slot axis over blocks (split-K flash-decoding) is
-a later change (ROADMAP Queue 2).
+cache byte once: a block serves the whole query group of one kv head (the
+TPU kernel multiplied every query head by every kv head to feed its matrix
+unit; not copied), with 16-byte coalesced loads, several slots' loads in
+flight per lane group, and its lane groups' partial softmax states merged in
+shared memory.  A row's slots are split over ``n_split`` blocks
+(split-K flash-decoding; :func:`decode_splits` picks it from the launch
+geometry): at B = 1 the 7B model has only 32 (kv head, row) pairs for 132
+SMs.  The ``n_split`` blocks of one pair form a thread-block cluster and
+merge their (max, sum, accumulator) states through distributed shared
+memory, so a call is one launch and allocates nothing.
+:func:`decode_attention_split_plain` runs the same split and merge in
+PyTorch.  Any ``S`` is taken: the ragged tail is masked (no ``_pick_bs``
+divisibility rule).
 
 Dispatch: a CPU tensor goes to :func:`decode_attention_plain`; a CUDA
 tensor launches the kernel or raises on what it does not take.
@@ -35,6 +39,7 @@ tensor launches the kernel or raises on what it does not take.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -72,8 +77,94 @@ def decode_attention_plain(q, k, v, kv_valid, kv_positions, q_positions, *,
     return out.reshape(B, H, Dh).to(q.dtype)
 
 
+MAX_SPLIT = 8          # blocks of a cluster: the portable size
+SPLIT_MIN_SLOTS = 128  # slots of one split at the least: four steps of a
+                       # block's walk, so that the walk and not the merge
+                       # sets a block's time
+BLOCKS_PER_SM = 2      # beyond this, clusters of 4 no longer fit one wave
+                       # (scripts/sweep_torch_decode_splits.py)
+H100_SMS = 132
+
+
+def decode_splits(B: int, Hkv: int, S: int, sms: int = H100_SMS) -> int:
+    """Blocks over which the kernel splits the slots of one (kv head, row):
+    the largest power of two, at most :data:`MAX_SPLIT`, with which the
+    ``B * Hkv * n_split`` blocks stay within :data:`BLOCKS_PER_SM` a SM and
+    every split keeps :data:`SPLIT_MIN_SLOTS` slots: 4 for the 7B model at
+    B = 1 and 672 slots, 2 at B = 4, 1 where ``B * Hkv`` already exceeds
+    the SMs (B = 8) or the cache is short.  It changes the order of the f32
+    sums only, never the masks."""
+    n = 1
+    while (2 * n <= MAX_SPLIT and B * Hkv * 2 * n <= BLOCKS_PER_SM * sms
+           and S >= 2 * n * SPLIT_MIN_SLOTS):
+        n *= 2
+    return n
+
+
+def split_ranges(S: int, n_split: int) -> list:
+    """``[(begin, end), ...]``: the contiguous slots of each split, as the
+    kernel's blocks take them (split r: ``[r S / n, (r + 1) S / n)``)."""
+    return [(r * S // n_split, (r + 1) * S // n_split)
+            for r in range(n_split)]
+
+
+def decode_attention_split_plain(q, k, v, kv_valid, kv_positions,
+                                 q_positions, *,
+                                 sliding_window: Optional[int] = None,
+                                 k_scale: Optional[torch.Tensor] = None,
+                                 v_scale: Optional[torch.Tensor] = None,
+                                 n_split: Optional[int] = None
+                                 ) -> torch.Tensor:
+    """The kernel's split and merge in PyTorch: each split's (max, sum,
+    accumulator) over its own slots, then the states merged with weights
+    ``exp(m_r - max_r m_r)``; a split with no valid slot weighs 0 and a row
+    with none at all gives 0.  ``n_split`` defaults to the kernel's rule
+    (:func:`decode_splits`).  For tests."""
+    if k.dtype == torch.int8:
+        k = k.float() * k_scale[..., None]
+        v = v.float() * v_scale[..., None]
+    B, H, Dh = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    n = decode_splits(B, Hkv, S) if n_split is None else n_split
+    qg = q.float().reshape(B, Hkv, G, Dh)
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k.float()) * (Dh ** -0.5)
+    rel = q_positions[:, None] - kv_positions                      # (B, S)
+    ok = kv_valid.bool() & (rel >= 0)
+    if sliding_window:
+        ok = ok & (rel < sliding_window)
+    s = s.masked_fill(~ok[:, None, None, :], float("-inf"))
+    zero = torch.zeros((), dtype=torch.float32, device=q.device)
+    ms, ls, accs = [], [], []
+    for a, e in split_ranges(S, n):
+        part = s[..., a:e]
+        m = part.amax(dim=-1, keepdim=True) if e > a \
+            else torch.full((B, Hkv, G, 1), float("-inf"), device=q.device)
+        base = torch.where(m == float("-inf"), zero, m)
+        p = torch.exp(part - base)
+        ms.append(m)
+        ls.append(p.sum(dim=-1, keepdim=True))
+        accs.append(torch.einsum("bkgs,bskd->bkgd", p.to(v.dtype),
+                                 v[:, a:e]).float())
+    mx = torch.stack(ms).amax(dim=0)
+    base = torch.where(mx == float("-inf"), zero, mx)
+    w = [torch.exp(m - base) for m in ms]          # 0 for an empty split
+    l = sum(li * wi for li, wi in zip(ls, w))
+    acc = sum(ai * wi for ai, wi in zip(accs, w))
+    out = torch.where(l > 0, acc / torch.where(l > 0, l, torch.ones_like(l)),
+                      zero)
+    return out.reshape(B, H, Dh).to(q.dtype)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _launch(q, k, v, kv_valid, kv_positions, q_positions, window,
-            k_scale=None, v_scale=None):
+            k_scale=None, v_scale=None, n_split=None):
+    """The kernel launch; ``n_split`` (1 to 8) overrides
+    :func:`decode_splits` for the tests and the split sweep."""
     B, H, Dh = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     int8 = k.dtype == torch.int8
@@ -105,6 +196,11 @@ def _launch(q, k, v, kv_valid, kv_positions, q_positions, window,
         raise ValueError("decode_attention: kv_valid/kv_positions must be "
                          "(B, S) and q_positions (B,)")
     out = torch.empty((B, H, Dh), dtype=q.dtype, device=q.device)
+    if n_split is None:
+        n_split = decode_splits(B, Hkv, S, _sm_count(q.device.index or 0))
+    if not 1 <= n_split <= MAX_SPLIT:
+        raise ValueError(f"decode_attention: n_split={n_split} is not in "
+                         f"1..{MAX_SPLIT}")
     if int8:
         for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
             if t is None or t.dtype != torch.float32 \
@@ -117,8 +213,8 @@ def _launch(q, k, v, kv_valid, kv_positions, q_positions, window,
             _kernels.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
             v.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
             valid.data_ptr(), kv_pos.data_ptr(), q_pos.data_ptr(),
-            out.data_ptr(), B, H, Hkv, S, Dh, q.stride(0), q.stride(1),
-            *k.stride()[:3], *v.stride()[:3], *k_scale.stride(),
+            out.data_ptr(), B, H, Hkv, S, Dh, n_split, q.stride(0),
+            q.stride(1), *k.stride()[:3], *v.stride()[:3], *k_scale.stride(),
             valid.stride(0), kv_pos.stride(0), int(window), Dh ** -0.5,
             _kernels.stream_ptr(q.device))
         _kernels.check("m3_decode_attention_int8", err)
@@ -127,7 +223,7 @@ def _launch(q, k, v, kv_valid, kv_positions, q_positions, window,
     err = _kernels.library().m3_decode_attention(
         _kernels.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
         v.data_ptr(), valid.data_ptr(), kv_pos.data_ptr(), q_pos.data_ptr(),
-        out.data_ptr(), B, H, Hkv, S, Dh, q.stride(0), q.stride(1),
+        out.data_ptr(), B, H, Hkv, S, Dh, n_split, q.stride(0), q.stride(1),
         *k.stride()[:3], *v.stride()[:3], valid.stride(0), kv_pos.stride(0),
         int(window), Dh ** -0.5, _kernels.stream_ptr(q.device))
     _kernels.check("m3_decode_attention", err)
@@ -147,8 +243,10 @@ def flash_decode_attention(
     k_scale: Optional[torch.Tensor] = None,  # (B, S, n_kv) f32, int8 cache
     v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """-> (B, H, Dh) attention output in ``q.dtype``.
-    ``flash_decode_attention.launches`` counts kernel launches."""
+    """-> (B, H, Dh) attention output in ``q.dtype``; on the card the
+    slots are split as :func:`decode_splits` says.
+    ``flash_decode_attention.launches`` counts kernel launches, one a
+    call."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, kv_valid, kv_positions,
                                       q_positions,

@@ -20,9 +20,21 @@ What bounds them on the H100: arithmetic.  A 7B prefill layer does
 ``4 * B * H * Sq * Sk_seen * Dh`` FLOPs forward (QK^T and PV) and
 ``14 * B * H * Sq * Sk_seen * Dh`` backward (QK^T and dO V^T recomputed in
 both kernels, then dQ, dV and dK) over tiles that each block reads once
-into shared memory, so bytes are small beside the math.  The forward kernel
-does that math as plain f32 FMAs: one block per (64-row q tile, head, batch
-row), two threads per row (its tensor-core design is ROADMAP Queue 2).
+into shared memory, so bytes are small beside the math.
+
+The forward kernel, for bfloat16 operands, does both products on the tensor
+cores with the building blocks of the backward's dQ kernel: a block of four
+warps owns 64 query rows of one head and keeps their Q fragments, running
+max and sum and f32 output accumulator in registers; per 64-key kv tile it
+computes ``S = Q K^T``, runs the online softmax in the exp2 domain on the S
+fragments (row max and sum over the four lanes of a row), rounds ``P`` to
+bf16 in registers and adds ``P V``.  K and V stream through a two-stage
+``cp.async`` ring, the per-element mask runs only on tiles that need it,
+and a row that has seen no valid key yet exponentiates against 0, so a row
+padded on the left starts cleanly at its first valid tile.
+:func:`flash_attention_tiled_plain` walks the same tiles in PyTorch for the
+CPU tests.  For float32 operands the forward stays on f32 FMAs (one block
+per 64-row q tile, two threads a row).
 
 The backward kernels, for bfloat16 operands, do every product on the tensor
 cores (``mma.sync`` m16n8k16, bf16 in, f32 sums; fragments fetched with
@@ -65,6 +77,7 @@ from .. import _kernels
 
 LSE_MASKED = -1e30   # lse of a row with no valid key
 LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
 
 
 def _mask(B, Sq, Sk, kv_valid, causal, sliding_window, q_index_offset, dev):
@@ -107,6 +120,90 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
                       torch.zeros_like(pv))
     lse = torch.where(l > 0, m + torch.log(l),
                       torch.full_like(l, LSE_MASKED))[..., 0]
+    return out.to(q.dtype), lse
+
+
+TILE = 64   # query rows and keys of a tile of the tensor-core kernels
+
+
+def _kv_tiles(q0, q1, Sk, kv_valid_b, causal, window, off):
+    """The kv tiles that a block of the tensor-core kernels owning query
+    rows ``[q0, q1)`` walks: ``(k0, k1, masked)``.  Tiles wholly above the
+    causal diagonal or below the window are outside the loop bounds;
+    ``masked``: the tile touches the diagonal, the window's edge, the
+    ragged end or an invalid slot, so the per-element mask runs on it (on
+    the others every pair attends)."""
+    q_first, q_last = q0 + off, q1 - 1 + off
+    kv_end = min(Sk, q_last + 1) if causal else Sk
+    kv_begin = max(0, q_first - window + 1) // TILE * TILE if window else 0
+    for k0 in range(kv_begin, kv_end, TILE):
+        k1 = min(k0 + TILE, Sk)
+        all_valid = k0 + TILE <= Sk and bool(kv_valid_b[k0:k1].all())
+        masked = (not all_valid
+                  or (causal and k0 + TILE - 1 > q_first)
+                  or (window > 0 and q_last - k0 >= window))
+        yield k0, k1, masked
+
+
+def flash_attention_tiled_plain(q, k, v, *, causal: bool = True,
+                                kv_valid: Optional[torch.Tensor] = None,
+                                sliding_window: Optional[int] = None,
+                                q_index_offset: int = 0
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(out, lse)`` computed tile by tile, the way the tensor-core forward
+    kernel walks: ``TILE`` query rows at a time over ``TILE``-key tiles,
+    the kernel's loop bounds and its rule for which tiles run the
+    per-element mask, the online softmax in the exp2 domain in the kernel's
+    order (row max, rescale, ``P = exp2(S - m)``, the sum over f32 ``P``,
+    ``P`` rounded to ``v.dtype`` for the PV product), a row without a valid
+    key so far exponentiating against 0.  For tests: it shows on the CPU
+    that bounds, rule and order lose no pair, let no masked one through and
+    give 0 and ``lse = -1e30`` on rows without a key."""
+    B, H, Sq, Dh = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    G = H // Hkv
+    off, window = q_index_offset, sliding_window or 0
+    c = (Dh ** -0.5) * LOG2E
+    if kv_valid is None:
+        kv_valid = torch.ones((B, Sk), dtype=torch.bool, device=q.device)
+    kv_valid = kv_valid.bool()
+    out = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    lse = torch.full((B, H, Sq), LSE_MASKED, dtype=torch.float32,
+                     device=q.device)
+    zero = torch.zeros((), dtype=torch.float32, device=q.device)
+    for b in range(B):
+        sees = _mask(1, Sq, Sk, kv_valid[b:b + 1], causal, sliding_window,
+                     off, q.device)[0]                      # (1, Sq, Sk)
+        kb = k[b].float().repeat_interleave(G, dim=0)       # (H, Sk, Dh)
+        vb = v[b].repeat_interleave(G, dim=0)
+        for q0 in range(0, Sq, TILE):
+            q1 = min(q0 + TILE, Sq)
+            qt = q[b, :, q0:q1].float()
+            m = torch.full((H, q1 - q0), float("-inf"), device=q.device)
+            l = torch.zeros((H, q1 - q0), device=q.device)
+            acc = torch.zeros((H, q1 - q0, Dh), device=q.device)
+            for k0, k1, masked in _kv_tiles(q0, q1, Sk, kv_valid[b], causal,
+                                            window, off):
+                s = torch.einsum("hqd,hkd->hqk", qt, kb[:, k0:k1]) * c
+                if masked:
+                    s = torch.where(sees[:, q0:q1, k0:k1], s,
+                                    torch.full_like(s, float("-inf")))
+                mx = torch.maximum(m, s.amax(dim=-1))
+                base = torch.where(mx == float("-inf"), zero, mx)
+                alpha = torch.exp2(m - base)
+                p = torch.exp2(s - base[..., None])
+                l = l * alpha + p.sum(dim=-1)
+                acc = acc * alpha[..., None] + torch.einsum(
+                    "hqk,hkd->hqd", p.to(v.dtype).float(),
+                    vb[:, k0:k1].float())
+                m = mx
+            has = l > 0
+            out[b, :, q0:q1] = torch.where(
+                has[..., None], acc / torch.where(has, l, 1.0)[..., None],
+                zero)
+            lse[b, :, q0:q1] = torch.where(
+                has, m * LN2 + torch.log(torch.where(has, l, 1.0)),
+                torch.full_like(l, LSE_MASKED))
     return out.to(q.dtype), lse
 
 
@@ -176,15 +273,12 @@ def flash_attention_bwd_plain(q, k, v, kv_valid, out, lse, do, **kw):
     return dq, dk, dv
 
 
-BWD_TILE = 64   # rows and keys of a tile of the tensor-core backward kernels
-
-
 def flash_attention_bwd_tiled_plain(q, k, v, kv_valid, out, lse, do, *,
                                     causal: bool = True,
                                     sliding_window: Optional[int] = None,
                                     q_index_offset: int = 0):
     """``(dq, dk, dv)`` computed tile by tile, the way the tensor-core
-    kernels walk: ``BWD_TILE`` x ``BWD_TILE`` tiles, the kernels' loop
+    kernels walk: ``TILE`` x ``TILE`` tiles, the kernels' loop
     bounds for causality, the window and ``q_index_offset`` (tiles outside
     them are never touched), their rule for which tiles run the per-element
     mask (on the others ``p`` is used without a select), the same bf16
@@ -192,7 +286,7 @@ def flash_attention_bwd_tiled_plain(q, k, v, kv_valid, out, lse, do, *,
     that bounds and rule lose no pair and let no masked one through."""
     B, H, Sq, Dh = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
-    G, T = H // Hkv, BWD_TILE
+    G, T = H // Hkv, TILE
     off, window = q_index_offset, sliding_window or 0
     scale = Dh ** -0.5
     c = scale * LOG2E
@@ -222,15 +316,8 @@ def flash_attention_bwd_tiled_plain(q, k, v, kv_valid, out, lse, do, *,
         # ---- dQ: a block per q tile, a loop over kv tiles ----
         for q0 in range(0, Sq, T):
             q1 = min(q0 + T, Sq)
-            q_first, q_last = q0 + off, q1 - 1 + off
-            kv_end = min(Sk, q_last + 1) if causal else Sk
-            kv_begin = max(0, q_first - window + 1) // T * T if window else 0
-            for k0 in range(kv_begin, kv_end, T):
-                k1 = min(k0 + T, Sk)
-                all_valid = k0 + T <= Sk and bool(kv_valid[b, k0:k1].all())
-                masked = (not all_valid
-                          or (causal and k0 + T - 1 > q_first)
-                          or (window > 0 and q_last - k0 >= window))
+            for k0, k1, masked in _kv_tiles(q0, q1, Sk, kv_valid[b], causal,
+                                            window, off):
                 _, ds = p_ds(q[b, :, q0:q1], kb[:, k0:k1], vb[:, k0:k1],
                              do[b, :, q0:q1], lse[b, :, q0:q1],
                              delta[b, :, q0:q1], sees[:, q0:q1, k0:k1],

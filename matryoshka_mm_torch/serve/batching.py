@@ -157,7 +157,8 @@ class ContinuousBatcher:
         if adapters:
             raise NotImplementedError(
                 "multi-LoRA serving (adapters=) is not ported yet: it needs "
-                "ops/lora.py (ROADMAP.md Queue 1, item 7a)")
+                "serve/multi_lora.py (AdapterPack, pack_adapters, lora_delta) "
+                "on top of ops/lora.py (ROADMAP.md Queue 1, item 5, tag 7a)")
         if cfg.llama.arch != "llama":
             raise NotImplementedError(
                 f"arch={cfg.llama.arch!r}: the batcher is ported for 'llama' "

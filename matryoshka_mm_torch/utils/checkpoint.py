@@ -71,7 +71,7 @@ def save_checkpoint(path: str, params, cfg, step: int = 0,
         json.dump({"step": int(step), **(extra or {})}, f)
 
 
-def load_checkpoint(path: str, device="cpu") -> Tuple[dict, object]:
+def load_checkpoint(path: str, device="cuda") -> Tuple[dict, object]:
     """Returns ``(params, cfg)`` with the tensors on ``device``."""
     path = os.path.abspath(path)
     with open(os.path.join(path, "llava_config.json")) as f:

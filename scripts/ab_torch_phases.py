@@ -1,0 +1,68 @@
+#!/usr/bin/env python3
+"""Run phases of ``chip_smoke.py`` from two checkouts of the port on one
+NVIDIA GPU, in turns (A, B, B, A), each in a process of its own:
+
+    python3 scripts/ab_torch_phases.py OLD_ROOT NEW_ROOT [slice] [train]
+
+Each root is a directory holding ``chip_smoke.py`` and its
+``matryoshka_mm_torch/`` (for instance a ``git archive`` of another commit,
+unpacked into a git-ignored directory).  Each process builds that root's
+kernels and runs the named phases (default: ``slice train``: phase 4,
+TTFT per scale and decode tok/s on debug://7b in bf16; phase 10, the 7B
+LoRA train step with its profile).  The lines the phases print that carry
+a measurement are printed again, prefixed with the run's label and root,
+so that the two versions' numbers stand side by side.  Exits non-zero if a
+run fails.
+"""
+
+from __future__ import annotations
+
+import subprocess
+import sys
+from pathlib import Path
+
+PHASES = {"slice": "phase_slice", "train": "phase_train"}
+# the lines worth comparing (the phases print more)
+KEEP = ("TTFT", "tok/s", "[train] step", "profile of one step",
+        "device time by kind", "launches", "max_memory")
+
+RUN = """
+import sys, torch
+sys.path.insert(0, {root!r})
+import chip_smoke as cs
+dev = torch.device("cuda", 0)
+cs.phase_device()
+cs.phase_build()
+for name in {phases!r}:
+    getattr(cs, name)(dev)
+"""
+
+
+def main(argv) -> int:
+    if len(argv) < 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    roots = [str(Path(r).resolve()) for r in argv[:2]]
+    phases = [PHASES[p] for p in (argv[2:] or ["slice", "train"])]
+    for root in roots:
+        if not (Path(root) / "chip_smoke.py").is_file():
+            print(f"{root}: no chip_smoke.py", file=sys.stderr)
+            return 2
+    rc = 0
+    for label, root in (("A", roots[0]), ("B", roots[1]), ("B", roots[1]),
+                        ("A", roots[0])):
+        proc = subprocess.run(
+            [sys.executable, "-c", RUN.format(root=root, phases=phases)],
+            capture_output=True, text=True, cwd=root)
+        for line in proc.stdout.splitlines():
+            if line.startswith("[") and any(k in line for k in KEEP):
+                print(f"{label} {root}: {line}")
+        if proc.returncode != 0:
+            print(f"{label} {root}: exit {proc.returncode}\n"
+                  f"{proc.stderr[-3000:]}")
+            rc = 1
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

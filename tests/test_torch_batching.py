@@ -39,7 +39,8 @@ def models():
     jparams = init_llava_params(jax.random.PRNGKey(0), jcfg)
     jq = maybe_quantize(jax.tree.map(lambda a: a, jparams),
                         load_8bit=False, load_4bit=True)
-    bridge = lambda p: params_from_jax(jax.tree.map(np.asarray, p), tcfg)
+    bridge = lambda p: params_from_jax(jax.tree.map(np.asarray, p), tcfg,
+                                       device="cpu")
     return jcfg, tcfg, {"float": (jparams, bridge(jparams)),
                         "int4": (jq, bridge(jq))}
 
@@ -569,6 +570,17 @@ def test_submit_rejects_what_the_pool_cannot_take(models):
             b.submit(*_inputs(0), numtoks=4, lora_id="a")
     finally:
         b.shutdown()
+
+
+def test_multi_lora_raises_naming_what_is_missing(models):
+    """``ops/lora.py`` is ported; what multi-LoRA serving still lacks is
+    ``serve/multi_lora.py``."""
+    _, tcfg, params = models
+    with pytest.raises(NotImplementedError) as err:
+        ContinuousBatcher(params["float"][1], tcfg, adapters={"a": {}})
+    msg = str(err.value)
+    assert "serve/multi_lora.py" in msg and "Queue 1, item 5" in msg
+    assert "needs ops/lora.py" not in msg
 
 
 def test_unported_options_raise(models):

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from matryoshka_mm_torch.config import LlavaConfig
+from matryoshka_mm_torch.models import convert
 from matryoshka_mm_torch.models.convert import init_params
 from matryoshka_mm_torch.ops.lora import add_lora, load_lora, strip_lora
 from matryoshka_mm_torch.ops.quant import quantize_llama_params
@@ -51,7 +52,7 @@ def test_full_checkpoint_round_trip(tmp_path, moe, bits):
     ck.save_checkpoint(out, params, cfg, step=7,
                        opt_state={"count": 3, "mu": {"a": torch.ones(2)}},
                        extra={"argmaxcost_ema": 0.25})
-    restored, rcfg = ck.load_checkpoint(out)
+    restored, rcfg = ck.load_checkpoint(out, device="cpu")
     assert rcfg == cfg and rcfg.router_feature_types == \
         cfg.router_feature_types
     _assert_same_tree(restored, params)
@@ -66,7 +67,7 @@ def test_projector_only_round_trip(tmp_path):
     params["image_newline"] = torch.arange(4.0)
     out = str(tmp_path / "proj")
     ck.save_projector_only(out, params, cfg, step=2)
-    restored, rcfg = ck.load_checkpoint(out)
+    restored, rcfg = ck.load_checkpoint(out, device="cpu")
     assert set(restored) == {"mm_projector", "image_newline"} and rcfg == cfg
     _assert_same_tree(restored["mm_projector"], params["mm_projector"])
     assert ck.load_meta(out) == {"step": 2, "projector_only": True}
@@ -77,7 +78,7 @@ def test_lora_checkpoint_round_trip(tmp_path, bits):
     cfg, params = _model(moe=MOE, bits=bits, lora=True)
     out = str(tmp_path / "lora")
     ck.save_lora_checkpoint(out, params, cfg, step=5)
-    restored, _ = ck.load_checkpoint(out)
+    restored, _ = ck.load_checkpoint(out, device="cpu")
     assert set(restored) == {"lora", "mm_projector", "router"}
     assert not [p for p, _ in named_leaves(restored["lora"])
                 if "/w" in p or "qint" in p]
@@ -94,3 +95,17 @@ def test_latest_checkpoint(tmp_path):
     (tmp_path / "other").mkdir()
     assert ck.latest_checkpoint(str(tmp_path)) == \
         str(tmp_path / "checkpoint-10")
+
+
+@pytest.mark.parametrize("fn", [convert.params_from_jax,
+                                convert.paged_cache_from_jax,
+                                ck.load_checkpoint],
+                         ids=lambda f: f.__name__)
+def test_weight_bridges_and_loader_build_on_the_card_unless_told_otherwise(
+        fn):
+    """Like ``init_params`` and ``load_pretrained_model``, the weight
+    bridge, the paged-cache bridge and the checkpoint loader put their
+    tensors on the card by default; the CPU has to be named."""
+    import inspect
+
+    assert inspect.signature(fn).parameters["device"].default == "cuda"

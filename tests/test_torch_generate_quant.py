@@ -44,7 +44,8 @@ def quantized(tiny):
     for bits in (4, 8):
         jq = maybe_quantize(jax.tree.map(lambda a: a, jparams),
                             load_8bit=bits == 8, load_4bit=bits == 4)
-        out[bits] = jq, params_from_jax(jax.tree.map(np.asarray, jq), tcfg)
+        out[bits] = jq, params_from_jax(jax.tree.map(np.asarray, jq), tcfg,
+                                       device="cpu")
     return out
 
 
@@ -91,7 +92,8 @@ def test_port_quantized_weights_give_the_jax_tokens(tiny, quantized):
     weights: the same tokens as the JAX-quantized run."""
     jcfg, jparams, tcfg = tiny
     tp = quantize_llama_params(
-        params_from_jax(jax.tree.map(np.asarray, jparams), tcfg), bits=4)
+        params_from_jax(jax.tree.map(np.asarray, jparams), tcfg,
+                        device="cpu"), bits=4)
     ids, px, mask = _prompt(2)
     kw = dict(max_new_tokens=6, decode_chunk=4, eos_token_id=-1)
     want = jax_generate(quantized[4][0], jcfg, ids, px, attention_mask=mask,

@@ -7,7 +7,11 @@ it also runs on a machine that has only PyTorch:
         tests/test_torch_kernels_cuda.py
 
 Tolerances: bf16 ``atol=rtol=2e-2`` (bf16 outputs, probabilities rounded
-to bf16 before PV), float32 ``1e-4``; lse ``1e-3``.  The flash-attention
+to bf16 before PV), float32 ``1e-4``; lse ``1e-3``.  The flash forward's
+tile-edge cases hold both designs (tensor cores in bf16, f32 FMAs in
+float32) against the whole-matrix and the tiled plain versions; the decode
+kernel runs at every ``n_split`` against the plain and the split plain
+version.  The flash-attention
 backward kernels: max error at most 2e-2 (bf16) and 2e-4 (float32) of
 max|plain| (p and ds rounded to bf16 on slightly other f32; f32 sums in
 another order), no NaN, and exactly 0 on masked rows and slots.  The quantized matrix
@@ -541,3 +545,177 @@ def test_flash_backward_raises_on_what_the_kernels_do_not_take(dev, dtype):
     other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
     with pytest.raises(ValueError, match="do is"):
         tflash.flash_attention_bwd(q, k, v, valid, out, lse, do.to(other))
+
+
+# ---------------------------------------------------------------------------
+# flash attention forward: the tensor-core design
+# ---------------------------------------------------------------------------
+
+# Where a walk over 64 x 64 tiles goes wrong: (Dh, B, H, Hkv, Sq, Sk, causal,
+# window, offset, left padding of row 0)
+FWD_TILE_EDGES = {
+    "s63": (128, 1, 4, 4, 63, 63, True, None, 0, 5),
+    "s64_dh64": (64, 1, 4, 4, 64, 64, True, None, 0, 0),
+    "s65": (128, 2, 4, 4, 65, 65, True, None, 0, 3),
+    "s129": (128, 1, 4, 4, 129, 129, True, None, 0, 64),
+    "pad_70_dh64": (64, 2, 4, 2, 129, 129, True, None, 0, 70),
+    "pad_150": (128, 2, 4, 4, 257, 257, True, None, 0, 150),
+    "window_16": (128, 2, 4, 4, 300, 300, True, 16, 0, 7),
+    "window_150_dh64": (64, 1, 4, 2, 300, 300, True, 150, 0, 70),
+    "offset": (128, 2, 4, 4, 70, 131, True, None, 40, 3),
+    "offset_window_dh64": (64, 1, 4, 4, 100, 260, True, 48, 160, 0),
+    "gqa_4": (128, 2, 8, 2, 200, 200, True, None, 0, 66),
+    "gqa_8_dh64": (64, 1, 8, 1, 131, 131, True, None, 0, 9),
+    "non_causal": (128, 2, 4, 4, 65, 130, False, None, 0, 4),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name", sorted(FWD_TILE_EDGES))
+def test_flash_forward_tile_edges(dev, name, dtype):
+    """Within tolerance of the whole-matrix and the tiled plain versions,
+    no NaN, exactly 0 and lse = -1e30 on rows that see no key, the same
+    bits from two launches, one count a call."""
+    Dh, B, H, Hkv, Sq, Sk, causal, window, offset, pad = \
+        FWD_TILE_EDGES[name]
+    q, k, v, _, valid = _bwd_case(dev, dtype, Dh, B, H, Hkv, Sq, Sk, pad, 3)
+    kw = dict(causal=causal, kv_valid=valid, sliding_window=window,
+              q_index_offset=offset)
+    before = tflash.flash_attention_lse.launches
+    out, lse = tflash.flash_attention_lse(q, k, v, **kw)
+    again = tflash.flash_attention_lse(q, k, v, **kw)
+    assert tflash.flash_attention_lse.launches == before + 2
+    torch.cuda.synchronize()
+    tol = _tol(dtype)
+    for want_o, want_l in (tflash.flash_attention_plain(q, k, v, **kw),
+                           tflash.flash_attention_tiled_plain(q, k, v, **kw)):
+        assert torch.isfinite(out).all()
+        torch.testing.assert_close(out.float(), want_o.float(), atol=tol,
+                                   rtol=tol)
+        torch.testing.assert_close(lse, want_l, atol=1e-3, rtol=1e-3)
+    keyless = ~tflash._mask(B, Sq, Sk, valid, causal, window, offset,
+                            dev).any(-1).expand(B, H, Sq)
+    assert torch.all(out[keyless] == 0)
+    assert torch.all(lse[keyless] == tflash.LSE_MASKED)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+
+
+def test_flash_forward_design_follows_the_dtype_alone(dev):
+    """bfloat16 operands launch the tensor-core kernel, float32 operands
+    the f32-FMA kernel: one launch a call, told apart by the kernel names
+    in a profile."""
+    from torch.profiler import ProfilerActivity, profile
+
+    names = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, _, valid = _bwd_case(dev, dtype, 128, 1, 4, 4, 130, 130, 7)
+        tflash.flash_attention_lse(q, k, v, kv_valid=valid)         # build
+        count = tflash.flash_attention_lse.launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            tflash.flash_attention_lse(q, k, v, kv_valid=valid)
+            torch.cuda.synchronize()
+        assert tflash.flash_attention_lse.launches == count + 1
+        names[dtype] = sorted(e.key for e in prof.key_averages()
+                              if "flash_fwd" in e.key)
+    assert len(names[torch.bfloat16]) == len(names[torch.float32]) == 1
+    assert "flash_fwd_mma_kernel" in names[torch.bfloat16][0]
+    assert "_mma_kernel" not in names[torch.float32][0]
+
+
+# ---------------------------------------------------------------------------
+# decode attention: the slots split over a cluster
+# ---------------------------------------------------------------------------
+
+def _decode_case(dev, dtype, int8, B, H, Hkv, S, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, H, 128), generator=g, device=dev, dtype=dtype)
+    k = torch.randn((2, B, S, Hkv, 128), generator=g, device=dev)
+    v = torch.randn((2, B, S, Hkv, 128), generator=g, device=dev)
+    kw = {}
+    if int8:
+        k, ks = tq._quantize_kv_slots(k)
+        v, vs = tq._quantize_kv_slots(v)
+        kw = dict(k_scale=ks[1], v_scale=vs[1])
+    else:
+        k, v = k.to(dtype), v.to(dtype)
+    valid = torch.ones((B, S), dtype=torch.bool, device=dev)
+    kv_pos = torch.arange(S, device=dev).expand(B, S)
+    q_pos = torch.full((B,), S - 1, device=dev)
+    return [q, k[1], v[1], valid, kv_pos, q_pos], kw
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_split", [1, 2, 4, 8])
+def test_decode_kernel_at_every_split(dev, dtype, int8, n_split):
+    """A row with its first 31 slots invalid and its last split wholly
+    masked, a row with no valid slot at all (gives 0), a ragged S: within
+    tolerance of the plain and the split plain version, the same bits from
+    two launches, one count a call."""
+    B, H, Hkv, S = 3, 16, 4, 677
+    args, kw = _decode_case(dev, dtype, int8, B, H, Hkv, S)
+    valid = args[3]
+    valid[0, :31] = False
+    valid[0, tdec.split_ranges(S, n_split)[-1][0]:] = False
+    valid[1] = False
+    before = tdec.flash_decode_attention.launches
+    got = tdec._launch(*args, 0, n_split=n_split, **kw)
+    again = tdec._launch(*args, 0, n_split=n_split, **kw)
+    assert tdec.flash_decode_attention.launches == before + 2
+    torch.cuda.synchronize()
+    tol = _tol(dtype) if not int8 else 2e-2
+    for want in (tdec.decode_attention_plain(*args, **kw),
+                 tdec.decode_attention_split_plain(*args, n_split=n_split,
+                                                   **kw)):
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+    assert torch.all(got[1] == 0) and torch.isfinite(got).all()
+    assert torch.equal(got, again)
+
+
+def test_decode_kernel_splits_at_batch_one(dev):
+    """The rule the wrapper applies on the card: the 7B model at B = 1
+    (Hkv = 32, S = 672) gets n_split >= 2, and the result is that of the
+    same call at n_split = 1 within the bf16 tolerance."""
+    args, _ = _decode_case(dev, torch.bfloat16, False, 1, 32, 32, 672)
+    n = tdec.decode_splits(1, 32, 672, tdec._sm_count(dev.index or 0))
+    assert n >= 2
+    got = tdec.flash_decode_attention(*args)
+    one = tdec._launch(*args, 0, n_split=1)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), one.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+def test_decode_launch_raises_on_a_split_it_does_not_take(dev):
+    args, _ = _decode_case(dev, torch.bfloat16, False, 1, 8, 8, 100)
+    for n in (0, 9):
+        with pytest.raises(ValueError, match="n_split"):
+            tdec._launch(*args, 0, n_split=n)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_paged_kernel_walks_as_the_unsplit_decode_kernel(dev, int8):
+    """The paged kernel keeps one block per (kv head, row) over the shared
+    body: on the same slots (one row's pages gathered into a dense cache,
+    every slot valid) it gives the bits of the dense kernel at n_split =
+    1, whose cluster merge of one block multiplies by exp2(0) = 1."""
+    q, k, v, ks, vs, tables, lens = _paged_case(
+        dev, torch.bfloat16, int8, 1, 32, 8, 128, 16, 14, [200])
+    got = tpaged.paged_decode_attention(
+        q, k[1], v[1], tables, lens, None if ks is None else ks[1],
+        None if vs is None else vs[1])
+    S = 201
+    pages = tables[0].long()
+
+    def dense(pool):
+        return pool[1][pages].reshape(1, -1, *pool.shape[3:])[:, :S]
+
+    kw = {} if not int8 else dict(k_scale=dense(ks), v_scale=dense(vs))
+    want = tdec._launch(
+        q, dense(k), dense(v), torch.ones((1, S), dtype=torch.bool,
+                                          device=dev),
+        torch.arange(S, device=dev)[None], torch.tensor([S - 1], device=dev),
+        0, n_split=1, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)

@@ -23,7 +23,8 @@ def models():
     jcfg = JaxLlavaConfig.tiny_debug()
     jparams = init_llava_params(jax.random.PRNGKey(0), jcfg)
     tcfg = LlavaConfig.tiny_debug()
-    tparams = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg)
+    tparams = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg,
+                              device="cpu")
     return jcfg, jparams["llama"], tcfg, tparams["llama"]
 
 

@@ -37,7 +37,8 @@ def models():
     jcfg = JaxLlavaConfig.tiny_debug()
     jparams = init_llava_params(jax.random.PRNGKey(0), jcfg)
     tcfg = LlavaConfig.tiny_debug()
-    tparams = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg)
+    tparams = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg,
+                              device="cpu")
     return jcfg.llama, jparams["llama"], tcfg.llama, tparams["llama"]
 
 
@@ -274,7 +275,7 @@ def _prefilled(models, kv, B=2, S=16, seed=0, window=0):
     jpaged = jpc.import_prefill_group(jpaged, dense, [0] * B, alloc.tables,
                                       PAGE)
     tpaged = paged_cache_from_jax(*(None if x is None else np.asarray(x)
-                                    for x in jpaged))
+                                    for x in jpaged), device="cpu")
     talloc = page_allocator_from_jax(alloc.tables, alloc.n_alloc, alloc.free,
                                      n_pages, PAGE)
     return jcfg, tcfg, jpaged, alloc, tpaged, talloc, tok, S

@@ -116,9 +116,11 @@ def test_quantize_llama_params_matches_maybe_quantize(tiny, bits, fuse):
     jq_params = maybe_quantize(jax.tree.map(lambda a: a, jparams),
                                load_8bit=bits == 8, load_4bit=bits == 4,
                                fuse=fuse)
-    want = params_from_jax(jax.tree.map(np.asarray, jq_params), tcfg)
+    want = params_from_jax(jax.tree.map(np.asarray, jq_params), tcfg,
+                           device="cpu")
     got = tq.quantize_llama_params(
-        params_from_jax(jax.tree.map(np.asarray, jparams), tcfg), bits,
+        params_from_jax(jax.tree.map(np.asarray, jparams), tcfg,
+                        device="cpu"), bits,
         fuse=fuse)
     key = "qint4" if bits == 4 else "qint8"
 

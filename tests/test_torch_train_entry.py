@@ -62,7 +62,7 @@ def test_projector_only_training_saves_resumes_and_loads_back(tmp_path, data):
         assert json.load(f)["model_args"]["tune_mm_mlp_adapter"] is True
 
     # the final save lands in output_dir itself and holds the projector only
-    restored, cfg = load_checkpoint(out)
+    restored, cfg = load_checkpoint(out, device="cpu")
     assert set(restored) == {"mm_projector"} and cfg.llama.remat
     assert load_meta(out) == {"step": 2, "projector_only": True}
     w_final = restored["mm_projector"]["layers"][0]["weight"]
@@ -75,7 +75,7 @@ def test_projector_only_training_saves_resumes_and_loads_back(tmp_path, data):
     assert [r["step"] for r in _metrics(out)] == [1, 2, 3, 4]
     assert sorted(d for d in os.listdir(out) if d.startswith("checkpoint-")) \
         == ["checkpoint-3", "checkpoint-4"]       # save_total_limit = 2
-    resumed, _ = load_checkpoint(out)
+    resumed, _ = load_checkpoint(out, device="cpu")
     assert not torch.equal(resumed["mm_projector"]["layers"][0]["weight"],
                            w_final)
 
@@ -104,7 +104,7 @@ def test_lora_training_with_accumulation_saves_adapters(tmp_path, data):
                             "_alpha=0.01"]
     state = ttrain.train(argv=args)
     assert state.step == 2 and state.opt_state["inner"]["count"] == 1
-    restored, cfg = load_checkpoint(out)
+    restored, cfg = load_checkpoint(out, device="cpu")
     assert set(restored) == {"lora", "mm_projector", "router"}
     assert cfg.router_feature_types == ("cls",) and cfg.is_m3_moe
     assert load_meta(out)["lora_only"] is True

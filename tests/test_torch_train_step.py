@@ -44,7 +44,8 @@ def make_pair(moe=None, scales=(1, 4, 16), seed=0, **llama_kw):
 def bridge(jtree, tcfg):
     """A JAX tree shaped like the parameters (parameters, gradients) in the
     port's layout."""
-    return params_from_jax(jax.tree.map(np.asarray, jtree), tcfg)
+    return params_from_jax(jax.tree.map(np.asarray, jtree), tcfg,
+                           device="cpu")
 
 
 def make_batch(seed=0, B=2, T=24, vocab=512, size=56):

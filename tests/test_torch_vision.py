@@ -31,7 +31,7 @@ def models():
     jparams = init_llava_params(jax.random.PRNGKey(1), jcfg)
     tcfg = LlavaConfig.tiny_debug()
     return jcfg, jparams, tcfg, params_from_jax(
-        jax.tree.map(np.asarray, jparams), tcfg)
+        jax.tree.map(np.asarray, jparams), tcfg, device="cpu")
 
 
 def _pixels(seed, B=2, size=56):
