@@ -44,10 +44,14 @@ Phases; any failure exits non-zero, and no phase's exception is caught:
    TTFT, decode tok/s and peak memory per configuration;
 6. paged attention against its plain version at the 7B shapes (H=Hkv=32,
    Dh=128, page 64, 25 pages a row; bf16 and int8 pools; the stacked form
-   at layers 0 and 31; B=1 and B=8; ragged row lengths 0, 63, 64, 65 and a
-   full row; scattered page tables; one GQA case), timed at B=8 with
-   ~700-token rows; the bandwidth probes against their plain versions on a
-   small array, then the calibration run: hbm_read_gb_s over 512 MiB and
+   at layers 0 and 31 with the split paged_splits picks; B=1 and B=8;
+   ragged row lengths 0, 63, 64, 65 and a full row, and one GQA case, both
+   also at n_split 1, 2, 4 and 8 with two launches bit-identical;
+   scattered page tables), timed with the rule's split and at one split in
+   turns (A B B A) at B=8 with ~700-token rows, at B=8 with one live row of
+   700 tokens and at B=1; the bandwidth probes against their plain versions
+   on a small array, hbm_copy over 256 MiB against dst.copy_(src) as a
+   ratio, then the calibration run: hbm_read_gb_s over 512 MiB and
    hbm_copy_gb_s over 256 MiB at 1, 4 and 16 passes a launch (median and
    least-greatest of 7 runs);
 7. the serving slice at full width, debug://7b in bf16 and under load_4bit
@@ -104,9 +108,9 @@ Phases; any failure exits non-zero, and no phase's exception is caught:
    QLoRA over an int8 base; step-1 gradients, two steps' losses and grad
    norms within 1e-3.
 
-With arguments (`python3 chip_smoke.py kernels bwd train small`) only the
-build and the named phases of 3 and 9-11 run, and no result line is
-printed.
+With arguments (`python3 chip_smoke.py kernels paged hbm bwd train small`)
+only the build and the named phases of 3, 6 and 9-11 run, and no result
+line is printed.
 
 Each kernel's record carries its bound: the larger of its bytes (inputs once,
 outputs once) over 3.35 TB/s and its operations over 989 TFLOP/s, the H100
@@ -1003,19 +1007,24 @@ def _paged_work(lens, H, Hkv, Dh, kv_bytes, int8, q) -> dict:
     return bound(moved, 4 * H * Dh * slots)
 
 
+PAGED_CASES = (("b1 700", 1, 32, [700]),
+               ("b8 ragged", 8, 32, [0, 63, 64, 65, 1599, 700, 5, 128]),
+               ("b8 gqa", 8, 8, [0, 63, 64, 65, 1599, 700, 5, 128]),
+               ("b8 700", 8, 32, [700, 663, 712, 689, 731, 702, 695, 708]),
+               ("b8 one live", 8, 32, [700, 0, 0, 0, 0, 0, 0, 0]))
+PAGED_EVERY_SPLIT = ("b8 ragged", "b8 gqa")   # held at n_split 1, 2, 4, 8
+PAGED_TIMED = ("b8 700", "b8 one live", "b1 700")
+
+
 def phase_paged_kernels(dev) -> dict:
     from matryoshka_mm_torch.ops import paged_attention as pa
 
     gen = torch.Generator(device=dev).manual_seed(2)
     L, page, P, Dh, H = 32, 64, 25, 128, 32
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rec = {"err": 0.0, "library_ms": None}
-    full = P * page - 1
-    cases = (("b1", 1, 32, [700]),
-             ("b8 ragged", 8, 32, [0, 63, 64, 65, full, 700, 5, 128]),
-             ("b8 gqa", 8, 8, [0, 63, 64, 65, full, 700, 5, 128]),
-             ("b8 700", 8, 32, [700, 663, 712, 689, 731, 702, 695, 708]))
     for int8 in (False, True):
-        for name, B, Hkv, row_len in cases:
+        for name, B, Hkv, row_len in PAGED_CASES:
             n_pages = 8 * P + 1
             k, v, ks, vs = _paged_pools(gen, dev, L, n_pages, page, Hkv, Dh,
                                         int8)
@@ -1025,37 +1034,60 @@ def phase_paged_kernels(dev) -> dict:
             tables = perm[:B * P].reshape(B, P).to(torch.int32)
             lens = torch.tensor(row_len, device=dev, dtype=torch.int32)
             label = f"paged {'int8' if int8 else 'bf16'} {name}"
+            rule = pa.paged_splits(B, Hkv, P, page, sms)
+
+            def args(l):
+                return (q, k[l], v[l], tables, lens,
+                        None if ks is None else ks[l],
+                        None if vs is None else vs[l])
+
             for layer in (0, L - 1):
                 got = pa.paged_decode_attention_stacked(
                     q, k, v, layer, tables, lens, ks, vs)
-                want = pa.paged_attention_plain(
-                    q, k[layer], v[layer], tables, lens,
-                    None if ks is None else ks[layer],
-                    None if vs is None else vs[layer])
+                want = pa.paged_attention_plain(*args(layer))
+                outs = {f"rule n={rule}": got}
+                if name in PAGED_EVERY_SPLIT:
+                    for n in (1, 2, 4, 8):
+                        outs[f"n={n}"] = pa._launch(*args(layer), n_split=n)
+                        again = pa._launch(*args(layer), n_split=n)
+                        torch.cuda.synchronize()
+                        if not torch.equal(outs[f"n={n}"], again):
+                            fail(f"{label} layer {layer} n_split {n}: two "
+                                 f"launches gave other bits")
                 torch.cuda.synchronize()
-                err = (got.float() - want.float()).abs().max().item()
-                print(f"[{label} layer {layer}] max|out-plain|={err:.3e}")
-                if not torch.allclose(got.float(), want.float(),
-                                      atol=FLASH_TOL, rtol=FLASH_TOL):
-                    fail(f"{label} disagrees with its plain version")
-                rec["err"] = max(rec["err"], err)
-            if name == "b8 700":
-                # each call reads another layer's pool: 92 MB of K and V
-                # a call, so none finds its pages in the 50 MB L2
-                def args(i):
-                    l = i % L
-                    return (q, k[l], v[l], tables, lens,
-                            None if ks is None else ks[l],
-                            None if vs is None else vs[l])
-
+                errs = {key: (o.float() - want.float()).abs().max().item()
+                        for key, o in outs.items()}
+                print(f"[{label} layer {layer}] max|out-plain| "
+                      + "  ".join(f"{key} {e:.3e}" for key, e in errs.items()))
+                for key, o in outs.items():
+                    if not torch.allclose(o.float(), want.float(),
+                                          atol=FLASH_TOL, rtol=FLASH_TOL):
+                        fail(f"{label} ({key}) disagrees with its plain "
+                             f"version")
+                rec["err"] = max(rec["err"], *errs.values())
+            if name in PAGED_TIMED:
+                # each call reads another layer's pool (92 MB of K and V a
+                # call at B = 8), so none finds its pages in the 50 MB L2;
+                # the rule's split and one split in turns (A B B A)
                 ops = [args(i) for i in range(L)]
-                ms = time_ms(pa.paged_decode_attention, ops)
-                pms = time_ms(pa.paged_attention_plain, ops, reps=5)
+                ms = one = 0.0
+                for fn in ("rule", "one", "one", "rule"):
+                    if fn == "rule":
+                        ms += time_ms(pa.paged_decode_attention, ops) / 2
+                    else:
+                        one += time_ms(lambda *a: pa._launch(*a, n_split=1),
+                                       ops) / 2
                 work = _paged_work(lens, H, Hkv, Dh, k.element_size(), int8,
                                    q)
-                if not int8:        # the record's times: the bf16 pools
-                    rec.update(work, ms=ms, plain_ms=pms)
-                _show(label, dict(work, ms=ms, plain_ms=pms))
+                print(f"[{label}] {card_line()}: n_split={rule} kernel "
+                      f"{ms:.4f} ms  at 1 split {one:.4f} ms  bound "
+                      f"{work['bound_ms']:.4f} ms by {work['bound_by']} "
+                      f"({work['bound_ms'] / ms:.0%} of it)")
+                if name == "b8 700":
+                    pms = time_ms(pa.paged_attention_plain, ops, reps=5)
+                    if not int8:        # the record's times: the bf16 pools
+                        rec.update(work, ms=ms, plain_ms=pms)
+                    _show(label, dict(work, ms=ms, plain_ms=pms))
             del k, v, ks, vs
     return {"paged_attention": rec}
 
@@ -1096,6 +1128,8 @@ def phase_hbm(dev) -> tuple:
                            plain_ms=pms)
     rec["hbm_copy"]["library_ms"] = library_ms("copy", [(x, dst)])
     _show("hbm_copy 256 MiB, 1 pass", rec["hbm_copy"])
+    print(f"[hbm_copy 256 MiB, 1 pass] {card_line()}: kernel over library "
+          f"{ms / rec['hbm_copy']['library_ms']:.3f}")
     del x, dst
 
     # ---- the calibration run (a main path of its own) ----
@@ -1486,6 +1520,10 @@ def serve_live_checks(batcher, cfg, label) -> None:
     for e in sorted(kernels, key=lambda e: -dev_us(e))[:6]:
         print(f"[{label}]   {dev_us(e) / 1e3 / chunk:8.4f} "
               f"ms/step  x{e.count // chunk:4d}  {e.key[:90]}")
+    paged = [e for e in kernels if "paged_kernel" in e.key]
+    print(f"[{label}] {card_line()}: paged_kernel "
+          f"{sum(dev_us(e) for e in paged) / 1e3 / chunk:.4f} ms/step over "
+          f"{sum(e.count for e in paged) // chunk} launches a step")
     batcher.shutdown()
 
 
@@ -2176,10 +2214,12 @@ def main(argv=()) -> int:
     card = phase_device()
     phase_build()
     if argv:
-        # a subset for work on one phase: `chip_smoke.py kernels bwd train
-        # small` runs phases 3, 9, 10 and 11 alone and prints no result line
+        # a subset for work on one phase: `chip_smoke.py kernels paged hbm
+        # bwd train small` runs phases 3, 6, 9, 10 and 11 alone and prints
+        # no result line
         for name in argv:
-            {"kernels": phase_kernels, "bwd": phase_bwd_kernels,
+            {"kernels": phase_kernels, "paged": phase_paged_kernels,
+             "hbm": phase_hbm, "bwd": phase_bwd_kernels,
              "train": phase_train, "small": phase_train_small}[name](dev)
         print(f"partial run {argv}: no result")
         return 1

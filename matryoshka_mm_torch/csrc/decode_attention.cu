@@ -25,12 +25,11 @@
 //   accumulator) over a strided share of the split, CH slots per step with
 //   all loads issued before the math; the lane groups' states are merged in
 //   shared memory into the block's;
-// * the n_split blocks of one (kv head, row) form a thread-block cluster:
-//   after a cluster barrier the cluster's rank 0 reads every block's (max,
-//   sum, accumulator) through distributed shared memory, merges them and
-//   writes the output; a second barrier keeps each block's shared memory
-//   alive until rank 0 has read it.  One launch, nothing allocated.  A
-//   split whose slots are all masked has max -inf and weight 0;
+// * the n_split blocks of one (kv head, row) form a thread-block cluster
+//   and merge their states through distributed shared memory
+//   (decode_body.cuh cluster_merge, shared with the paged kernel).  One
+//   launch, nothing allocated.  A split whose slots are all masked has max
+//   -inf and weight 0;
 // * any S: the ragged tail is masked, with no divisibility rule.
 //
 // The int8-KV branch (KV = int8_t, the TPU kernel's kv_int8 path): K and V
@@ -41,8 +40,6 @@
 // its matrix unit; there is no matrix unit here).  A lane reads 8 int8
 // values (8 bytes) of a slot row, so the lane geometry of the bf16 cache
 // holds and the cache stream is half as many bytes.
-#include <cooperative_groups.h>
-
 #include "decode_body.cuh"
 
 namespace {
@@ -84,14 +81,10 @@ decode_kernel(const T* __restrict__ q, const KV* __restrict__ k,
               int64_t v_sb, int64_t v_ss, int64_t v_sh,
               int64_t sc_sb, int64_t sc_ss, int64_t sc_sh,
               int64_t valid_sb, int64_t pos_sb, int window, float scale) {
-  namespace cg = cooperative_groups;
   constexpr bool INT8 = std::is_same<KV, int8_t>::value;
   __shared__ m3::DecodeParts<KV, DH, G> parts;
-  __shared__ float blk_m[G], blk_l[G];
-  __shared__ __align__(16) float blk_acc[G][DH];
 
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = static_cast<int>(cluster.block_rank());
+  const int rank = static_cast<int>(blockIdx.x % n_split);  // in its cluster
   const int hk = blockIdx.x / n_split, b = blockIdx.y;
   DenseSlots<KV> slots;
   slots.kb = k + b * k_sb + hk * k_sh;
@@ -111,40 +104,9 @@ decode_kernel(const T* __restrict__ q, const KV* __restrict__ k,
   m3::decode_walk<T, KV, DH, G>(
       q + b * q_sb + static_cast<int64_t>(hk) * G * q_sh, q_sh, slots,
       s_begin, s_end, scale, parts);
-
-  // this block's state of its split
-  for (int idx = threadIdx.x; idx < G * DH; idx += THREADS) {
-    const int g = idx / DH, d = idx % DH;
-    float mx, lsum, a;
-    m3::merge_parts(parts, g, d, mx, lsum, a);
-    blk_acc[g][d] = a;
-    if (d == 0) {
-      blk_m[g] = mx;
-      blk_l[g] = lsum;
-    }
-  }
-  cluster.sync();   // every block's state is written and visible
-
-  if (rank == 0) {
-    T* out_row =
-        out + static_cast<int64_t>(b) * H * DH + static_cast<int64_t>(hk) * G * DH;
-    for (int idx = threadIdx.x; idx < G * DH; idx += THREADS) {
-      const int g = idx / DH, d = idx % DH;
-      float mx = -INFINITY;
-      for (int r = 0; r < n_split; ++r)
-        mx = fmaxf(mx, *cluster.map_shared_rank(&blk_m[g], r));
-      float lsum = 0.f, a = 0.f;
-      if (mx != -INFINITY) {   // a split with nothing valid weighs 0
-        for (int r = 0; r < n_split; ++r) {
-          const float w = exp2f(*cluster.map_shared_rank(&blk_m[g], r) - mx);
-          lsum = fmaf(*cluster.map_shared_rank(&blk_l[g], r), w, lsum);
-          a = fmaf(*cluster.map_shared_rank(&blk_acc[g][d], r), w, a);
-        }
-      }
-      out_row[idx] = m3::from_float<T>(lsum > 0.f ? a / lsum : 0.f);
-    }
-  }
-  cluster.sync();   // no block leaves while rank 0 may still read it
+  m3::cluster_merge<T, KV, DH, G>(
+      parts, n_split,
+      out + static_cast<int64_t>(b) * H * DH + static_cast<int64_t>(hk) * G * DH);
 }
 
 template <typename T, typename KV, int DH>

@@ -108,6 +108,22 @@ def split_ranges(S: int, n_split: int) -> list:
             for r in range(n_split)]
 
 
+def merge_split_states(ms, ls, accs) -> torch.Tensor:
+    """The splits' states merged as the kernels' cluster merge does: each
+    split's max ``m_r``, sum ``l_r`` and accumulator ``acc_r`` (relative to
+    ``exp(m_r)``; ``m_r = -inf`` for a split with no valid slot) weighted
+    by ``exp(m_r - max_r m_r)``, so an empty split weighs 0; a row with no
+    valid slot at all gives 0.  Returns ``acc / l`` in f32."""
+    zero = torch.zeros((), dtype=torch.float32, device=ms[0].device)
+    mx = torch.stack(ms).amax(dim=0)
+    base = torch.where(mx == float("-inf"), zero, mx)
+    w = [torch.exp(m - base) for m in ms]          # 0 for an empty split
+    l = sum(li * wi for li, wi in zip(ls, w))
+    acc = sum(ai * wi for ai, wi in zip(accs, w))
+    return torch.where(l > 0, acc / torch.where(l > 0, l, torch.ones_like(l)),
+                       zero)
+
+
 def decode_attention_split_plain(q, k, v, kv_valid, kv_positions,
                                  q_positions, *,
                                  sliding_window: Optional[int] = None,
@@ -146,14 +162,7 @@ def decode_attention_split_plain(q, k, v, kv_valid, kv_positions,
         ls.append(p.sum(dim=-1, keepdim=True))
         accs.append(torch.einsum("bkgs,bskd->bkgd", p.to(v.dtype),
                                  v[:, a:e]).float())
-    mx = torch.stack(ms).amax(dim=0)
-    base = torch.where(mx == float("-inf"), zero, mx)
-    w = [torch.exp(m - base) for m in ms]          # 0 for an empty split
-    l = sum(li * wi for li, wi in zip(ls, w))
-    acc = sum(ai * wi for ai, wi in zip(accs, w))
-    out = torch.where(l > 0, acc / torch.where(l > 0, l, torch.ones_like(l)),
-                      zero)
-    return out.reshape(B, H, Dh).to(q.dtype)
+    return merge_split_states(ms, ls, accs).reshape(B, H, Dh).to(q.dtype)
 
 
 @functools.cache

@@ -12,8 +12,12 @@ beside the data sheet's.
   in one launch, and folds the bytes each warp saw into one f32 of a small
   output, so the loads cannot be elided.  The output is defined exactly by
   :func:`hbm_read_plain` (integer sums, exact in any order).
-* :func:`hbm_copy` copies the array with 16-byte loads and stores, ``reps``
-  passes; its plain version is ``x.clone()``.
+* :func:`hbm_copy` copies the array through rings of 16 KB chunks in shared
+  memory with Hopper's bulk asynchronous copies (global -> shared ->
+  global, no register in the path), ``reps`` passes; its plain version is
+  ``x.clone()``.  ``dst.copy_(src)`` of the same bytes is 5% faster on the
+  H100: PyTorch hands it to one of the card's copy engines, a DMA
+  transfer that no kernel on the SMs matched (``csrc/hbm_probe.cu``).
 
 Timing (:func:`hbm_read_gb_s`, :func:`hbm_copy_gb_s`): CUDA events around one
 launch of ``reps`` passes over an array several times the 50 MB L2, repeated
@@ -40,8 +44,9 @@ import torch
 
 from .. import _kernels
 
-THREADS = 256          # of a block, fixed in csrc/hbm_probe.cu
-BLOCKS = 132 * 8       # eight blocks for each of the H100's 132 SMs
+THREADS = 256          # of a read block, fixed in csrc/hbm_probe.cu
+BLOCKS = 132 * 8       # read blocks: eight for each of the H100's 132 SMs
+COPY_BLOCKS = 132 * 3  # copy blocks: three an SM, each a 64 KB ring
 VEC = 16               # bytes of one load
 
 
@@ -113,7 +118,7 @@ def hbm_copy(x: torch.Tensor, reps: int = 1) -> torch.Tensor:
         raise ValueError(f"hbm_copy: no kernel for {x.device}")
     y = torch.empty_like(x)
     err = _kernels.library().m3_hbm_copy(
-        x.data_ptr(), y.data_ptr(), x.numel() // VEC, BLOCKS, reps,
+        x.data_ptr(), y.data_ptr(), x.numel() // VEC, COPY_BLOCKS, reps,
         _kernels.stream_ptr(x.device))
     _kernels.check("m3_hbm_copy", err)
     hbm_copy.launches += 1

@@ -15,13 +15,21 @@ logits and the V scale the probabilities, in f32 (the TPU kernel rounded
 difference is inside the tolerances the tests state).
 
 What bounds it on the H100: bytes, ``2 * seq_len * Hkv * Dh`` pool elements
-per row and step for two FLOPs each.  One block per (kv head, row) serves the
-whole query group, walks only the ``ceil(seq_len / page)`` pages the row
-uses and reads each page id once; the online-softmax body is shared with the
-dense decode kernel (``csrc/decode_body.cuh``).  Table entries past
-``seq_len`` are never read; a used entry outside the pool, which is an index
-error in the plain version, makes that row's output NaN.  Dropped TPU rules: ``page * Hkv % 128``,
-``Dh % 128`` (the kernel takes Dh 64 and 128 and query groups of 1/2/4/8).
+per row and step for two FLOPs each.  The slots of one (kv head, row) are
+split over ``n_split`` blocks of one thread-block cluster (split r walks the
+slots ``[r S / n, (r + 1) S / n)``, ``S = seq_len``; :func:`paged_splits`
+picks ``n_split`` from the launch geometry and the table's capacity, never
+from ``row_len``, which lies on the device), which merge their softmax
+states through distributed shared memory; each block serves the whole query
+group, stages its K and V rows through a ring of tiles in shared memory
+filled with ``cp.async`` so that the next tiles are in flight while one is
+reduced, and reads only the pages of its own range.  The reduction is the
+dense decode kernel's (``csrc/decode_body.cuh``).
+:func:`paged_attention_split_plain` runs the same split and merge in
+PyTorch.  Table entries past ``seq_len`` are never read; a used entry
+outside the pool, which is an index error in the plain version, makes that
+row's output NaN.  Dropped TPU rules: ``page * Hkv % 128``, ``Dh % 128``
+(the kernel takes Dh 64 and 128 and query groups of 1/2/4/8).
 
 Dispatch: a CPU tensor goes to :func:`paged_attention_plain`; a CUDA tensor
 launches the kernel or raises on what it does not take.
@@ -34,6 +42,8 @@ from typing import Optional
 import torch
 
 from .. import _kernels
+from .decode_attention import (H100_SMS, MAX_SPLIT, _sm_count,
+                               merge_split_states)
 
 
 def _scale_view(scale: torch.Tensor, pool: torch.Tensor) -> torch.Tensor:
@@ -75,7 +85,83 @@ def paged_attention_plain(q, k_pages, v_pages, page_tables, row_len,
     return out.reshape(B, H, Dh).to(q.dtype)
 
 
-def _launch(q, k_pages, v_pages, page_tables, row_len, k_scale, v_scale):
+SPLIT_MIN_SLOTS = 128  # slots of the table's capacity a split at the least
+BLOCKS_PER_SM = 4      # blocks of the launch an SM at the most
+
+
+def paged_splits(B: int, Hkv: int, P: int, page_size: int,
+                 sms: int = H100_SMS) -> int:
+    """Blocks over which the kernel splits the slots of one (kv head, row):
+    the largest power of two, at most :data:`MAX_SPLIT` (the portable
+    cluster size), with which the ``B * Hkv * n_split`` blocks stay within
+    :data:`BLOCKS_PER_SM` a SM and every split keeps
+    :data:`SPLIT_MIN_SLOTS` slots of the table's capacity ``P *
+    page_size``.  Shapes alone: the serving step launches the kernel with
+    no host sync, so the rule cannot read ``row_len``, and it takes plain
+    ints only.  It changes the order of the f32 sums, never the masks."""
+    for name, x in (("B", B), ("Hkv", Hkv), ("P", P),
+                    ("page_size", page_size), ("sms", sms)):
+        if not isinstance(x, int) or isinstance(x, bool):
+            raise TypeError(f"paged_splits: {name} must be an int, got "
+                            f"{type(x).__name__}")
+    n = 1
+    while (2 * n <= MAX_SPLIT and B * Hkv * 2 * n <= BLOCKS_PER_SM * sms
+           and P * page_size >= 2 * n * SPLIT_MIN_SLOTS):
+        n *= 2
+    return n
+
+
+def paged_attention_split_plain(q, k_pages, v_pages, page_tables, row_len,
+                                k_scale: Optional[torch.Tensor] = None,
+                                v_scale: Optional[torch.Tensor] = None,
+                                n_split: Optional[int] = None
+                                ) -> torch.Tensor:
+    """The kernel's split and merge in PyTorch: row ``b`` attends ``S_b =
+    min(row_len[b] + 1, P * page)`` slots, split ``r`` takes ``[r S_b / n,
+    (r + 1) S_b / n)`` and keeps its (max, sum, accumulator); the states
+    are merged with weights ``exp(m_r - max_r m_r)``, an empty split
+    weighing 0.  Like the kernel it reads no table entry past ``S_b`` (they
+    may hold anything).  ``n_split`` defaults to :func:`paged_splits`.  For
+    tests."""
+    B, H, Dh = q.shape
+    _, page, Hkv, _ = k_pages.shape
+    G = H // Hkv
+    tables = page_tables.long()
+    P = tables.shape[1]
+    S = P * page
+    n = paged_splits(B, Hkv, P, page) if n_split is None else n_split
+    seq = (row_len.long() + 1).clamp(0, S)                        # (B,)
+    used = torch.arange(P, device=q.device)[None] * page < seq[:, None]
+    tables = torch.where(used, tables, torch.zeros_like(tables))
+    k = k_pages[tables]                          # (B, P, page, Hkv, Dh)
+    v = v_pages[tables]
+    if k_pages.dtype == torch.int8:
+        k = k.float() * _scale_view(k_scale, k_pages)[tables][..., None]
+        v = v.float() * _scale_view(v_scale, v_pages)[tables][..., None]
+    k = k.reshape(B, S, Hkv, Dh)
+    v = v.reshape(B, S, Hkv, Dh)
+    qg = q.float().reshape(B, Hkv, G, Dh)
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k.float()) * (Dh ** -0.5)
+    t = torch.arange(S, device=q.device)[None]
+    zero = torch.zeros((), dtype=torch.float32, device=q.device)
+    ms, ls, accs = [], [], []
+    for r in range(n):
+        lo, hi = r * seq // n, (r + 1) * seq // n
+        inside = (t >= lo[:, None]) & (t < hi[:, None])           # (B, S)
+        part = s.masked_fill(~inside[:, None, None, :], float("-inf"))
+        m = part.amax(dim=-1, keepdim=True)      # -inf for an empty split
+        p = torch.exp(part - torch.where(m == float("-inf"), zero, m))
+        ms.append(m)
+        ls.append(p.sum(dim=-1, keepdim=True))
+        accs.append(torch.einsum("bkgs,bskd->bkgd", p.to(v.dtype),
+                                 v).float())
+    return merge_split_states(ms, ls, accs).reshape(B, H, Dh).to(q.dtype)
+
+
+def _launch(q, k_pages, v_pages, page_tables, row_len, k_scale, v_scale,
+            n_split=None):
+    """The kernel launch; ``n_split`` (1 to 8) overrides
+    :func:`paged_splits` for the tests and the split sweep."""
     B, H, Dh = q.shape
     n_pages, page, Hkv, _ = k_pages.shape
     int8 = k_pages.dtype == torch.int8
@@ -135,13 +221,19 @@ def _launch(q, k_pages, v_pages, page_tables, row_len, k_scale, v_scale):
                              "layout")
         ks_ptr, vs_ptr = scales[0].data_ptr(), scales[1].data_ptr()
         sc_strides = scales[0].stride()[1:]
+    if n_split is None:
+        n_split = paged_splits(B, Hkv, P, page,
+                               _sm_count(q.device.index or 0))
+    if not 1 <= n_split <= MAX_SPLIT:
+        raise ValueError(f"paged_attention: n_split={n_split} is not in "
+                         f"1..{MAX_SPLIT}")
     out = torch.empty((B, H, Dh), dtype=q.dtype, device=q.device)
     err = _kernels.library().m3_paged_attention(
         _kernels.DTYPE_CODES[q.dtype], int(int8), q.data_ptr(),
         k_pages.data_ptr(), v_pages.data_ptr(), ks_ptr, vs_ptr,
         tables.data_ptr(), lens.data_ptr(), out.data_ptr(), B, H, Hkv, P,
-        page, n_pages, Dh, q.stride(0), q.stride(1), k_pages.stride(1),
-        k_pages.stride(2), *sc_strides, tables.stride(0), Dh ** -0.5,
+        page, n_pages, Dh, n_split, q.stride(0), q.stride(1),
+        k_pages.stride(1), k_pages.stride(2), *sc_strides, tables.stride(0), Dh ** -0.5,
         _kernels.stream_ptr(q.device))
     _kernels.check("m3_paged_attention", err)
     paged_decode_attention.launches += 1
@@ -157,8 +249,10 @@ def paged_decode_attention(
     k_scale: Optional[torch.Tensor] = None,  # (n_pages, page, Hkv) f32, int8
     v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """-> (B, H, Dh) attention output in ``q.dtype``.
-    ``paged_decode_attention.launches`` counts kernel launches."""
+    """-> (B, H, Dh) attention output in ``q.dtype``; on the card the
+    slots are split as :func:`paged_splits` says.
+    ``paged_decode_attention.launches`` counts kernel launches, one a
+    call."""
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pages, v_pages, page_tables,
                                      row_len, k_scale, v_scale)

@@ -3,13 +3,17 @@
 NVIDIA GPU, in turns (A, B, B, A), each in a process of its own:
 
     python3 scripts/ab_torch_phases.py OLD_ROOT NEW_ROOT [slice] [train]
+        [kernels] [paged] [serve]
 
 Each root is a directory holding ``chip_smoke.py`` and its
 ``matryoshka_mm_torch/`` (for instance a ``git archive`` of another commit,
 unpacked into a git-ignored directory).  Each process builds that root's
 kernels and runs the named phases (default: ``slice train``: phase 4,
 TTFT per scale and decode tok/s on debug://7b in bf16; phase 10, the 7B
-LoRA train step with its profile).  The lines the phases print that carry
+LoRA train step with its profile; also ``kernels``, phase 3's kernels
+against their plain versions with their times, ``paged``, phase 6's paged
+attention kernel times, and ``serve``, phase 7, the serving slice with the
+profile of one decode round).  The lines the phases print that carry
 a measurement are printed again, prefixed with the run's label and root,
 so that the two versions' numbers stand side by side.  Exits non-zero if a
 run fails.
@@ -21,10 +25,13 @@ import subprocess
 import sys
 from pathlib import Path
 
-PHASES = {"slice": "phase_slice", "train": "phase_train"}
+PHASES = {"slice": "phase_slice", "train": "phase_train",
+          "kernels": "phase_kernels", "paged": "phase_paged_kernels",
+          "serve": "phase_serving"}
 # the lines worth comparing (the phases print more)
 KEEP = ("TTFT", "tok/s", "[train] step", "profile of one step",
-        "device time by kind", "launches", "max_memory")
+        "device time by kind", "launches", "max_memory", "kernel ",
+        "profile of one round", "paged_kernel")
 
 RUN = """
 import sys, torch
@@ -55,7 +62,8 @@ def main(argv) -> int:
             [sys.executable, "-c", RUN.format(root=root, phases=phases)],
             capture_output=True, text=True, cwd=root)
         for line in proc.stdout.splitlines():
-            if line.startswith("[") and any(k in line for k in KEEP):
+            if line.startswith("[") and not line.startswith("[ptxas]") \
+                    and any(k in line for k in KEEP):
                 print(f"{label} {root}: {line}")
         if proc.returncode != 0:
             print(f"{label} {root}: exit {proc.returncode}\n"

@@ -696,15 +696,15 @@ def test_decode_launch_raises_on_a_split_it_does_not_take(dev):
 
 @pytest.mark.parametrize("int8", [False, True])
 def test_paged_kernel_walks_as_the_unsplit_decode_kernel(dev, int8):
-    """The paged kernel keeps one block per (kv head, row) over the shared
-    body: on the same slots (one row's pages gathered into a dense cache,
-    every slot valid) it gives the bits of the dense kernel at n_split =
-    1, whose cluster merge of one block multiplies by exp2(0) = 1."""
+    """At n_split = 1 the paged kernel's ring walk reduces the same tiles
+    with the same step as the dense kernel: on the same slots (one row's
+    pages gathered into a dense cache, every slot valid) it gives the bits
+    of the dense kernel at n_split = 1."""
     q, k, v, ks, vs, tables, lens = _paged_case(
         dev, torch.bfloat16, int8, 1, 32, 8, 128, 16, 14, [200])
-    got = tpaged.paged_decode_attention(
+    got = tpaged._launch(
         q, k[1], v[1], tables, lens, None if ks is None else ks[1],
-        None if vs is None else vs[1])
+        None if vs is None else vs[1], n_split=1)
     S = 201
     pages = tables[0].long()
 
@@ -719,3 +719,117 @@ def test_paged_kernel_walks_as_the_unsplit_decode_kernel(dev, int8):
         0, n_split=1, **kw)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# paged attention: the slots split over a cluster, fed through a ring
+# ---------------------------------------------------------------------------
+
+PAGED_SPLITS = (1, 2, 4, 8)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("Dh", [64, 128])
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+def test_paged_kernel_at_every_split(dev, dtype, int8, Dh, G):
+    """Rows of 0 tokens (seven empty splits at 8), one ending on a page
+    boundary, ragged ones and one filling its table: at every n_split the
+    kernel agrees with the split plain version at that split and with the
+    plain version, two launches give the same bits, one count a call."""
+    Hkv, page, P = 2, 16, 6
+    q, k, v, ks, vs, tables, lens = _paged_case(
+        dev, dtype, int8, 5, Hkv * G, Hkv, Dh, page, P,
+        [0, 2 * page - 1, 37, P * page - 1, 70], seed=G)
+    scales = (None, None) if ks is None else (ks[1], vs[1])
+    args = (q, k[1], v[1], tables, lens, *scales)
+    want = tpaged.paged_attention_plain(*args)
+    tol = _tol(dtype)
+    for n in PAGED_SPLITS:
+        before = tpaged.paged_decode_attention.launches
+        got = tpaged._launch(*args, n_split=n)
+        again = tpaged._launch(*args, n_split=n)
+        assert tpaged.paged_decode_attention.launches == before + 2
+        split = tpaged.paged_attention_split_plain(*args, n_split=n)
+        torch.cuda.synchronize()
+        for ref in (split, want):
+            torch.testing.assert_close(got.float(), ref.float(), atol=tol,
+                                       rtol=tol)
+        assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("n_split", PAGED_SPLITS)
+def test_paged_kernel_never_reads_past_the_row_at_every_split(dev, n_split):
+    """Table entries past ceil(seq_len / page) may be anything, and pages
+    the row does not use may hold NaN, at every split."""
+    q, k, v, _, _, tables, lens = _paged_case(
+        dev, torch.bfloat16, False, 2, 8, 8, 128, 16, 4, [17, 3])
+    want = tpaged._launch(q, k[1], v[1], tables, lens, None, None,
+                          n_split=n_split)
+    used = {int(tables[0, 0]), int(tables[0, 1]), int(tables[1, 0])}
+    k2, v2 = k[1].clone(), v[1].clone()
+    for p in range(k2.shape[0]):
+        if p not in used:
+            k2[p] = float("nan")
+            v2[p] = float("nan")
+    tables2 = tables.clone()
+    tables2[0, 2:] = 10 ** 6
+    tables2[1, 1:] = -5
+    got = tpaged._launch(q, k2, v2, tables2, lens, None, None,
+                         n_split=n_split)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_paged_kernel_poisons_the_row_from_its_last_split(dev, int8):
+    """An out-of-pool id in the last used page, which only the last of 4
+    splits reads, makes the whole row NaN in every head; the other rows
+    keep their bits."""
+    q, k, v, ks, vs, tables, lens = _paged_case(
+        dev, torch.bfloat16, int8, 3, 8, 4, 128, 16, 4, [17, 60, 3])
+    scales = (None, None) if ks is None else (ks[1], vs[1])
+    want = tpaged._launch(q, k[1], v[1], tables, lens, *scales, n_split=4)
+    tables[1, 3] = 10 ** 6                 # row 1 uses pages 0..3
+    got = tpaged._launch(q, k[1], v[1], tables, lens, *scales, n_split=4)
+    torch.cuda.synchronize()
+    assert torch.isnan(got[1]).all()
+    torch.testing.assert_close(got[[0, 2]], want[[0, 2]], atol=0, rtol=0)
+
+
+def test_paged_launch_raises_on_a_split_it_does_not_take(dev):
+    q, k, v, _, _, tables, lens = _paged_case(
+        dev, torch.bfloat16, False, 1, 8, 8, 128, 16, 4, [40])
+    for n in (0, 9):
+        with pytest.raises(ValueError, match="n_split"):
+            tpaged._launch(q, k[1], v[1], tables, lens, None, None,
+                           n_split=n)
+
+
+def test_paged_splits_rule_on_the_card(dev):
+    """The wrapper's default on the card is the rule at the card's SM
+    count, and its result is that of the same call at n_split = 1 within
+    the bf16 tolerance."""
+    q, k, v, _, _, tables, lens = _paged_case(
+        dev, torch.bfloat16, False, 1, 32, 32, 128, 64, 25, [700])
+    n = tpaged.paged_splits(1, 32, 25, 64, tdec._sm_count(dev.index or 0))
+    assert n >= 2
+    got = tpaged.paged_decode_attention(q, k[1], v[1], tables, lens)
+    one = tpaged._launch(q, k[1], v[1], tables, lens, None, None, n_split=1)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), one.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.parametrize("n", [16, 16 * 2049, 3 * 32 * 1024 + 16 * 5,
+                               (1 << 22) + 48])
+@pytest.mark.parametrize("reps", [1, 3])
+def test_hbm_copy_is_a_byte_copy_at_ragged_sizes(dev, n, reps):
+    """Sizes that are no multiple of a block's share, a chunk or a ring
+    stage: the copy equals ``clone`` byte for byte."""
+    g = torch.Generator(device=dev).manual_seed(n)
+    x = torch.randint(-127, 128, (n,), generator=g, device=dev,
+                      dtype=torch.int8)
+    y = thbm.hbm_copy(x, reps)
+    torch.cuda.synchronize()
+    assert torch.equal(y, thbm.hbm_copy_plain(x))
