@@ -150,7 +150,11 @@ SLEEP_CYCLES = 50_000_000  # ~30 ms: the host queues the timed calls meanwhile
 QUANT_SHAPES = {"qkv": (12288, 4096), "o": (4096, 4096),
                 "gateup": (22016, 4096), "down": (4096, 11008),
                 "lm_head": (32000, 4096)}
-QUANT_ROWS = (1, 4, 640)
+QUANT_ROWS = (1, 2, 4, 8, 640)   # rows held against the plain versions
+QUANT_TIMED_ROWS = (1, 4, 8)      # decode rows timed (8: the serving step)
+MLP_ROWS = (1, 4, 8, 32)          # quant_mlp rows held (32: its limit)
+# the quantized products' kernels, by the names a profile gives them
+QUANT_KERNELS = ("quant_gemv_kernel", "quant_mma_kernel")
 # (label, load_pretrained_model options, requests as (batch, numtoks))
 QUANT_RUNS = (
     ("int4", {"load_4bit": True}, ((1, 144), (1, 576), (4, 144))),
@@ -295,6 +299,27 @@ def library_ms(kind: str, operands: list, **kw) -> float:
     raise ValueError(kind)
 
 
+def dev_us(e) -> float:
+    """A profiler event's own device time in microseconds (the attribute's
+    name depends on the version)."""
+    return getattr(e, "self_device_time_total", None) \
+        or getattr(e, "self_cuda_time_total", 0)
+
+
+def profile_kernels(fn) -> list:
+    """The kernel events of one call of ``fn`` under ``torch.profiler``:
+    device-side events only, since the operators that launched them would
+    count the same device time twice."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
 def rotations(*tensors) -> list:
     """``tensors`` and copies of them, together at least ``L2_SWEEP``
     bytes."""
@@ -349,9 +374,9 @@ def phase_build() -> None:
         elif "spill" in line and entry:
             spill = line.strip()
         elif "Used" in line and entry:
-            # _ZN..._cu_<hash><len><name>I<template arguments>E...
-            short = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}\d+", "",
-                           entry)
+            # _ZN[<namespace>]..._cu_<hash><len><name>I<template args>E...
+            short = re.sub(r"^_ZN\w*?_GLOBAL__N__\w+?_cu_[0-9a-f]{8}\d+",
+                           "", entry)
             short = short.split("EEv")[0][:60]
             print(f"[ptxas] {short}: {line.split(':', 1)[1].strip()}; "
                   f"{spill}")
@@ -676,15 +701,37 @@ def _rel_err(got, want) -> tuple:
 
 def phase_quant_kernels(dev) -> dict:
     """int4_matmul / int8_matmul at the 7B projections and quant_mlp at 7B
-    widths against their plain versions.  Each record's ``ms`` /
+    widths against their plain versions, at every row count of
+    QUANT_ROWS / MLP_ROWS; two launches bit-identical at M = 1 and 8; the
+    decode rows of QUANT_TIMED_ROWS timed with their GB/s, their share of
+    the byte bound and ``bf16_linear_ms``, the time of bf16 ``F.linear``
+    (cuBLAS) on the dequantized weight of the same shape: a yardstick of
+    what the quantized bytes buy, not the same function (no library call
+    computes it, so ``library_ms`` stays None).  Each record's ``ms`` /
     ``plain_ms`` is the B=1 decode time of the qkv projection (matmuls) or
     of one layer's MLP (quant_mlp)."""
     from matryoshka_mm_torch.ops import fused_mlp as mlp
     from matryoshka_mm_torch.ops import int4_matmul as mm
     from matryoshka_mm_torch.ops import quant
 
+    linear = torch.nn.functional.linear
     gen = torch.Generator(device=dev).manual_seed(1)
     rec = {}
+
+    def timed(line, r, tag, fn, plain, ops, moved, lin_fn, lin_ops):
+        """Times of the kernel, its plain version and the bf16 yardstick,
+        kept in ``r`` under ``tag`` and appended to ``line``."""
+        ms = time_ms(fn, ops)
+        pms = time_ms(plain, ops, reps=3, warmup=1)
+        lin = time_ms(lin_fn, lin_ops)
+        t_bytes = moved / HBM_BYTES_S * 1e3
+        r[f"ms_{tag}"], r[f"plain_ms_{tag}"] = ms, pms
+        r[f"bf16_linear_ms_{tag}"] = lin
+        return (line + f"  kernel {ms:.4f} ms  plain {pms:.4f} ms  "
+                f"{moved / ms / 1e6:.1f} GB/s, {100 * t_bytes / ms:.0f}% of "
+                f"the byte bound {t_bytes:.4f} ms  bf16_linear_ms {lin:.4f} "
+                f"({lin / ms:.2f}x the kernel's time)")
+
     for bits, name in ((4, "int4_matmul"), (8, "int8_matmul")):
         fn = getattr(mm, name)
         plain = getattr(mm, f"{name}_plain")
@@ -695,28 +742,33 @@ def phase_quant_kernels(dev) -> dict:
         for shape, (N, K) in QUANT_SHAPES.items():
             leaf = quantize(_rand((N, K), gen, dev).mul_(0.02))
             w, sc = leaf[key], leaf["scale"]
+            wdq = quant.dequantize_array(leaf)   # the yardstick's weight
             del leaf
             for M in QUANT_ROWS:
                 x = _rand((M, K), gen, dev)
-                err, rel = _rel_err(fn(x, w, sc), plain(x, w, sc))
+                got = fn(x, w, sc)
+                err, rel = _rel_err(got, plain(x, w, sc))
                 torch.cuda.synchronize()
                 line = (f"[{name} {shape} {N}x{K} M={M}] max|out-plain|="
                         f"{err:.3e} rel {rel:.2e}")
                 if rel > MM_TOL:
                     fail(f"{name} {shape} M={M} disagrees with its plain "
                          f"version")
+                if M in (1, 8):
+                    if not torch.equal(got, fn(x, w, sc)):
+                        fail(f"{name} {shape} M={M}: two launches differ")
+                    line += "  two launches bit-identical"
                 r["err"] = max(r["err"], err)
-                if M != 4:
-                    ops = rotations(x, w, sc)
-                    ms = time_ms(fn, ops)
-                    pms = time_ms(plain, ops, reps=3, warmup=1)
-                    r[f"ms_{shape}_{M}"], r[f"plain_ms_{shape}_{M}"] = ms, pms
+                if M in QUANT_TIMED_ROWS:
+                    moved = nbytes(x, w, sc) + M * N * 2
+                    line = timed(line, r, f"{shape}_{M}", fn, plain,
+                                 rotations(x, w, sc), moved, linear,
+                                 rotations(x, wdq))
                     if (shape, M) == ("qkv", 1):
-                        r.update(bound(nbytes(x, w, sc) + M * N * 2,
-                                       2 * M * N * K), library_ms=None)
-                    line += (f"  kernel {ms:.4f} ms  plain {pms:.4f} ms  "
-                             f"weights {w.numel() / ms / 1e6:.1f} GB/s")
+                        r.update(bound(moved, 2 * M * N * K),
+                                 library_ms=None)
                 print(line)
+            del w, sc, wdq
         r["ms"], r["plain_ms"] = r["ms_qkv_1"], r["plain_ms_qkv_1"]
         _show(f"{name} qkv M=1", r)
 
@@ -732,36 +784,47 @@ def phase_quant_kernels(dev) -> dict:
                   "scale": torch.cat([gate["scale"], up["scale"]])}
         del gate, up
         down = quantize(_rand((D, I), gen, dev).mul_(0.02))
-        for M in (1, 4):
+        gu_dq, dn_dq = (quant.dequantize_array(l) for l in (gateup, down))
+
+        def call(f):
+            return lambda x, gq, gs, dq, ds: f(
+                x, {key: gq, "scale": gs}, {key: dq, "scale": ds}, bits, I)
+
+        def bf16_mlp(x, gu, dn):   # the yardstick: three cuBLAS products
+            g, u = linear(x, gu).chunk(2, dim=-1)
+            return linear(torch.nn.functional.silu(g) * u, dn)
+
+        for M in MLP_ROWS:
             x = _rand((M, D), gen, dev)
-            err, rel = _rel_err(mlp.quant_mlp(x, gateup, down, bits, I),
-                                mlp.quant_mlp_plain(x, gateup, down, bits, I))
+            got = mlp.quant_mlp(x, gateup, down, bits, I)
+            err, rel = _rel_err(got, mlp.quant_mlp_plain(x, gateup, down,
+                                                         bits, I))
             torch.cuda.synchronize()
             line = (f"[quant_mlp int{bits} M={M}] max|out-plain|={err:.3e} "
                     f"rel {rel:.2e}")
             if rel > MLP_TOL:
                 fail(f"quant_mlp int{bits} M={M} disagrees with its plain "
                      f"version")
+            if M in (1, 8):
+                if not torch.equal(got, mlp.quant_mlp(x, gateup, down, bits,
+                                                      I)):
+                    fail(f"quant_mlp int{bits} M={M}: two launches differ")
+                line += "  two launches bit-identical"
             r["err"] = max(r["err"], err)
-            if M == 1:
+            if M in QUANT_TIMED_ROWS:
                 ops = rotations(x, gateup[key], gateup["scale"], down[key],
                                 down["scale"])
-
-                def call(f):
-                    return lambda x, gq, gs, dq, ds: f(
-                        x, {key: gq, "scale": gs}, {key: dq, "scale": ds},
-                        bits, I)
-
-                ms = time_ms(call(mlp.quant_mlp), ops)
-                pms = time_ms(call(mlp.quant_mlp_plain), ops, reps=3,
-                              warmup=1)
-                r[f"ms_int{bits}"], r[f"plain_ms_int{bits}"] = ms, pms
-                if bits == 4:
-                    r.update(bound(nbytes(*ops[0]) + M * D * 2,
-                                   2 * M * 3 * I * D), library_ms=None)
-                line += f"  kernel {ms:.4f} ms  plain {pms:.4f} ms"
+                moved = nbytes(*ops[0]) + M * D * 2
+                line = timed(line, r, f"int{bits}_{M}", call(mlp.quant_mlp),
+                             call(mlp.quant_mlp_plain), ops, moved, bf16_mlp,
+                             rotations(x, gu_dq, dn_dq))
+                if (bits, M) == (4, 1):
+                    r.update(bound(moved, 2 * M * 3 * I * D),
+                             library_ms=None)
+                del ops
             print(line)
-    r["ms"], r["plain_ms"] = r["ms_int4"], r["plain_ms_int4"]
+        del gateup, down, gu_dq, dn_dq
+    r["ms"], r["plain_ms"] = r["ms_int4_1"], r["plain_ms_int4_1"]
     _show("quant_mlp int4 M=1", r)
     return rec
 
@@ -846,6 +909,25 @@ def time_requests(model, inputs, numtoks, label, reps=(3, 2)) -> tuple:
           f"  decode {rate:.2f} tok/s  (prefill slots "
           f"{-(-(PROMPT_LEN - 1 + numtoks) // 64) * 64})")
     return ttft, rate
+
+
+def decode_profile(model, inputs, numtoks, label) -> None:
+    """Device ms a decode step of ``generate``, and the quantized products'
+    ms and launches a step: the kernels of a NEW_TOKENS run less those of a
+    1-token run (the same prefill), under ``torch.profiler``."""
+    sums = []
+    for n in (1, NEW_TOKENS):
+        kernels = profile_kernels(lambda: run(model, inputs, numtoks, n))
+        quant = [e for e in kernels if any(k in e.key for k in QUANT_KERNELS)]
+        sums.append((sum(dev_us(e) for e in kernels),
+                     sum(dev_us(e) for e in quant),
+                     sum(e.count for e in quant)))
+    steps = NEW_TOKENS - 1
+    (dev1, q1, n1), (dev_n, q_n, n_n) = sums
+    print(f"[{label}] {card_line()}: B={inputs[0].shape[0]} numtoks="
+          f"{numtoks} decode profile: device {(dev_n - dev1) / 1e3 / steps:.3f}"
+          f" ms/step, quantized products {(q_n - q1) / 1e3 / steps:.4f} "
+          f"ms/step over {(n_n - n1) // steps} launches a step")
 
 
 def phase_slice(dev) -> dict:
@@ -954,6 +1036,7 @@ def phase_quant_slice(dev) -> dict:
 
         for b, n in requests:
             time_requests(model, inputs[b], n, label)
+            decode_profile(model, inputs[b], n, label)
         print(f"[{label}] max_memory_allocated while serving "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         del model
@@ -1484,8 +1567,6 @@ def serve_live_checks(batcher, cfg, label) -> None:
     live_attention_check(batcher, lcfg, label)
 
     # ---- one decode round under the profiler ----
-    from torch.profiler import ProfilerActivity, profile
-
     def one_round():
         with torch.inference_mode():
             paged_pool_decode(llama, lcfg, batcher.gen_cfg, batcher.chunk,
@@ -1494,19 +1575,9 @@ def serve_live_checks(batcher, cfg, label) -> None:
         torch.cuda.synchronize()
 
     one_round()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        one_round()
+    kernels = profile_kernels(one_round)
     # (the wall time inside the profiler is longer than outside it)
     wall = _wall(one_round) * 1e3
-    def dev_us(e):              # the attribute's name depends on the version
-        return getattr(e, "self_device_time_total", None) \
-            or getattr(e, "self_cuda_time_total", 0)
-
-    # kernel events only: the operators that launched them would count the
-    # same device time twice
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_ms = sum(dev_us(e) for e in kernels) / 1e3
     n_launch = sum(e.count for e in kernels)
     chunk = batcher.chunk
@@ -1520,10 +1591,12 @@ def serve_live_checks(batcher, cfg, label) -> None:
     for e in sorted(kernels, key=lambda e: -dev_us(e))[:6]:
         print(f"[{label}]   {dev_us(e) / 1e3 / chunk:8.4f} "
               f"ms/step  x{e.count // chunk:4d}  {e.key[:90]}")
-    paged = [e for e in kernels if "paged_kernel" in e.key]
-    print(f"[{label}] {card_line()}: paged_kernel "
-          f"{sum(dev_us(e) for e in paged) / 1e3 / chunk:.4f} ms/step over "
-          f"{sum(e.count for e in paged) // chunk} launches a step")
+    for what, names in (("paged_kernel", ("paged_kernel",)),
+                        ("quantized products", QUANT_KERNELS)):
+        mine = [e for e in kernels if any(n in e.key for n in names)]
+        print(f"[{label}] {card_line()}: {what} "
+              f"{sum(dev_us(e) for e in mine) / 1e3 / chunk:.4f} ms/step "
+              f"over {sum(e.count for e in mine) // chunk} launches a step")
     batcher.shutdown()
 
 
@@ -1968,21 +2041,9 @@ def phase_train(dev) -> dict:
         fail(f"train: frozen leaves changed, e.g. {changed[0]}")
 
     # ---- one step under the profiler ----
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        step_fn(state, batch)
-        torch.cuda.synchronize()
+    kernels = profile_kernels(lambda: step_fn(state, batch))
     # (the wall time inside the profiler is longer than outside it)
     wall = counted_step(step_fn, state)[1] * 1e3
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) \
-            or getattr(e, "self_cuda_time_total", 0)
-
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_ms = sum(dev_us(e) for e in kernels) / 1e3
     print(f"[train] {card_line()}: profile of one step: device {dev_ms:.1f} "
           f"ms, wall {wall:.1f} ms, device idle "
@@ -2214,13 +2275,16 @@ def main(argv=()) -> int:
     card = phase_device()
     phase_build()
     if argv:
-        # a subset for work on one phase: `chip_smoke.py kernels paged hbm
-        # bwd train small` runs phases 3, 6, 9, 10 and 11 alone and prints
-        # no result line
+        # a subset for work on one phase: `chip_smoke.py kernels quant
+        # qslice paged hbm serve bwd train small` runs phases 3 (attention
+        # kernels), 3 (quantized products), 5, 6, 7, 9, 10 and 11 alone and
+        # prints no result line
         for name in argv:
-            {"kernels": phase_kernels, "paged": phase_paged_kernels,
-             "hbm": phase_hbm, "bwd": phase_bwd_kernels,
-             "train": phase_train, "small": phase_train_small}[name](dev)
+            {"kernels": phase_kernels, "quant": phase_quant_kernels,
+             "qslice": phase_quant_slice, "paged": phase_paged_kernels,
+             "hbm": phase_hbm, "serve": phase_serving,
+             "bwd": phase_bwd_kernels, "train": phase_train,
+             "small": phase_train_small}[name](dev)
         print(f"partial run {argv}: no result")
         return 1
     rec = phase_kernels(dev)

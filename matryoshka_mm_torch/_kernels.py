@@ -74,11 +74,13 @@ SIGNATURES = {
                                  I, I, I, I, I, I,
                                  LL, LL, LL, LL, LL, LL, LL, LL, LL, LL, LL,
                                  LL, LL, I, F, P],
-    # bits, x, w, scale, out, M, N, K, x row stride, out row stride, stream
-    "m3_quant_matmul": [I, P, P, P, P, I, I, I, LL, LL, P],
+    # bits, x, w, scale, out, M, N, K, x row stride, out row stride,
+    # parts (warps a block of the decode kernel), stream
+    "m3_quant_matmul": [I, P, P, P, P, I, I, I, LL, LL, I, P],
     # bits, x, gateup, gateup scale, down, down scale, h, out, M, D, I,
-    # n_out, x row stride, out row stride, stream
-    "m3_quant_mlp": [I, P, P, P, P, P, P, P, I, I, I, I, LL, LL, P],
+    # n_out, x row stride, out row stride, parts of gate/up and of down,
+    # stream
+    "m3_quant_mlp": [I, P, P, P, P, P, P, P, I, I, I, I, LL, LL, I, I, P],
     # dtype, kv_int8, q, k, v, k_scale, v_scale, tables, row_len, out,
     # B, H, Hkv, P, page_size, n_pages, Dh, n_split, q strides (b, h),
     # pool strides (slot, head), scale strides (slot, head),

@@ -14,8 +14,9 @@
 // nibbles are decoded to signed values directly.
 //
 // Two kernels, chosen by the number of rows:
-// * M <= 8 (decode): quant_gemv.cuh, a byte stream that serves every row
-//   from one read of the weights;
+// * M <= 8 (decode): quant_gemv.cuh, bf16 mma.sync products over weights
+//   dequantized in registers and streamed once through per-warp cp.async
+//   rings, K split over the warps of a block (`parts`, chosen in Python);
 // * M > 8 (prefill, up to 1024 rows on the main path): quant_mma_kernel,
 //   bf16 tensor-core products (WMMA, i.e. mma.sync) over a weight tile
 //   dequantized into shared memory.  int4 and int8 values are exact in
@@ -258,27 +259,28 @@ int launch_mma_rows(const void* x, const void* w, const void* scale,
 
 }  // namespace
 
-// Rows at or below this take the byte-stream kernel.
+// Rows at or below this take the decode kernel of quant_gemv.cuh.
 constexpr int GEMV_MAX_ROWS = 8;
 
 // bits: 4 (w is the (N, K/2) packed matrix) or 8 (w is (N, K)).  x is
 // (M, K) bf16 with row stride x_s, out (M, N) bf16 with row stride out_s,
-// scale (N,) f32.  Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for what it does not take).
+// scale (N,) f32; parts: warps a block of the decode kernel (M <= 8; 1 to
+// 8).  Returns cudaGetLastError() after the launch (cudaErrorInvalidValue
+// for what it does not take).
 extern "C" int m3_quant_matmul(int bits, const void* x, const void* w,
                                const void* scale, void* out, int M, int N,
                                int K, long long x_s, long long out_s,
-                               void* stream) {
+                               int parts, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (M <= 0 || N <= 0 || K <= 0 || (bits == 4 && K % 2))
     return static_cast<int>(cudaErrorInvalidValue);
   if (M <= GEMV_MAX_ROWS) {
     if (bits == 4)
       return m3q::launch_gemv<4, false>(x, w, scale, out, M, N, K, x_s,
-                                        out_s, 0, st);
+                                        out_s, 0, parts, st);
     if (bits == 8)
       return m3q::launch_gemv<8, false>(x, w, scale, out, M, N, K, x_s,
-                                        out_s, 0, st);
+                                        out_s, 0, parts, st);
   } else {
     if (bits == 4)
       return launch_mma_rows<4>(x, w, scale, out, M, N, K, x_s, out_s, st);

@@ -17,9 +17,13 @@ that; it does not round the weights to bf16, so it is not
 ``dequantize_array`` + matmul.
 
 What bounds it on the H100: at decode (M <= 8 rows) bytes, since each
-weight byte feeds at most 16 FMAs; a byte-stream kernel reads every weight
-byte once with 16-byte loads, unpacks nibbles in registers and serves all
-rows from that read.  At prefill (up to 1024 rows on the main path)
+weight byte feeds at most 16 FMAs.  The decode kernel (``csrc/quant_gemv.cuh``)
+runs bf16 ``mma.sync`` products with the weights as the A operand,
+dequantized in registers (mantissa tricks, no integer -> float
+conversions), streams every weight byte once through per-warp ``cp.async``
+rings with an evict-first L2 policy, and splits K over the ``parts`` warps
+of a block (:func:`gemv_parts`, plain ints; :func:`int4_matmul_split_plain`
+is the same blocking of the f32 sums in PyTorch).  At prefill (up to 1024 rows on the main path)
 arithmetic: bf16 tensor-core products (``mma.sync`` through WMMA) over a
 weight tile dequantized into shared memory, exact because int4/int8 values
 are exact in bf16.  Any M, N and (even, for int4) K: the kernels mask their
@@ -36,9 +40,87 @@ from __future__ import annotations
 import torch
 
 from .. import _kernels
+from .decode_attention import H100_SMS, _sm_count
 from .quant import Q4KEY, QKEY, unpack_int4
 
 MAX_FUSED_ROWS = 1024   # the JAX int4_matmul_eligible row limit
+GEMV_MAX_ROWS = 8       # rows at or below which the decode kernel runs
+GEMV_UNITS = 32         # output channels a block (16 gate/up pairs: GLU)
+GEMV_CHUNK = 128        # packed weight bytes of a row a warp takes a step
+GEMV_MAX_PARTS = 8      # warps a block, each a share of the row's chunks
+GEMV_WARPS_PER_SM = 16  # warps of a launch an SM at the most
+
+
+def gemv_parts(N: int, K: int, bits: int, sms: int = H100_SMS,
+               glu: bool = False) -> int:
+    """Warps of a block over which the decode kernel splits K: the largest
+    power of two, at most :data:`GEMV_MAX_PARTS`, with which every warp
+    keeps a chunk of :data:`GEMV_CHUNK` packed bytes a row and the launch's
+    warps stay within :data:`GEMV_WARPS_PER_SM` an SM.  A block owns
+    :data:`GEMV_UNITS` output channels (under ``glu``, half as many gate/up
+    pairs: ``N`` is then the number of pairs).  Plain ints only (a tensor
+    raises), so the decode step never syncs to pick it; it changes the
+    order of the f32 sums only."""
+    for name, v in (("N", N), ("K", K), ("bits", bits), ("sms", sms)):
+        if not isinstance(v, int) or isinstance(v, bool):
+            raise TypeError(f"gemv_parts: {name} must be an int, got "
+                            f"{type(v).__name__}")
+    if not isinstance(glu, bool):
+        raise TypeError(f"gemv_parts: glu must be a bool, got "
+                        f"{type(glu).__name__}")
+    if bits not in (4, 8) or N <= 0 or K <= 0 or sms <= 0:
+        raise ValueError(f"gemv_parts: N={N}, K={K}, bits={bits}, sms={sms}")
+    units = GEMV_UNITS // 2 if glu else GEMV_UNITS
+    blocks = -(-N // units)
+    chunks = -(-(K // 2 if bits == 4 else K) // GEMV_CHUNK)
+    n = 1
+    while (2 * n <= GEMV_MAX_PARTS and 2 * n <= chunks
+           and blocks * 2 * n <= GEMV_WARPS_PER_SM * sms):
+        n *= 2
+    return n
+
+
+def _part_columns(K: int, bits: int, parts: int, part: int) -> torch.Tensor:
+    """The logical columns of K that warp ``part`` of ``parts`` sums: the
+    packed byte chunks ``part, part + parts, ...`` (int4: their low-nibble
+    columns and the same columns + K/2)."""
+    KB = K // 2 if bits == 4 else K
+    cols = torch.arange(KB)
+    cols = cols[(cols // GEMV_CHUNK) % parts == part]
+    return torch.cat([cols, cols + KB]) if bits == 4 else cols
+
+
+def split_sums(x: torch.Tensor, q: torch.Tensor, bits: int,
+               parts: int) -> torch.Tensor:
+    """``f32(bf16(x) @ q^T)`` for an exact integer weight ``q (N, K)``
+    summed as the decode kernel blocks it: one f32 partial a warp over its
+    chunks' columns, the partials added in warp order."""
+    xb = x.to(torch.bfloat16).float()
+    qf = q.float()
+    total = torch.zeros((x.shape[0], q.shape[0]), dtype=torch.float32,
+                        device=x.device)
+    for p in range(parts):
+        cols = _part_columns(q.shape[1], bits, parts, p).to(x.device)
+        total = total + xb[:, cols] @ qf[:, cols].t()
+    return total
+
+
+def int8_matmul_split_plain(x, q, scale, parts=None) -> torch.Tensor:
+    """:func:`int8_matmul_plain` with the decode kernel's blocking of the
+    f32 sums (``parts`` defaults to :func:`gemv_parts`).  For tests."""
+    N, K = q.shape
+    parts = gemv_parts(N, K, 8) if parts is None else parts
+    y = split_sums(x, q, 8, parts)
+    return (y * scale.reshape(1, -1).float()).to(torch.bfloat16)
+
+
+def int4_matmul_split_plain(x, packed, scale, parts=None) -> torch.Tensor:
+    """The same for an int4 leaf."""
+    q = torch.cat(unpack_int4(packed), dim=-1)
+    N, K = q.shape
+    parts = gemv_parts(N, K, 4) if parts is None else parts
+    y = split_sums(x, q, 4, parts)
+    return (y * scale.reshape(1, -1).float()).to(torch.bfloat16)
 
 
 def int8_matmul_plain(x: torch.Tensor, q: torch.Tensor,
@@ -56,7 +138,9 @@ def int4_matmul_plain(x, packed, scale) -> torch.Tensor:
 
 
 def _launch(name: str, bits: int, x: torch.Tensor, w: torch.Tensor,
-            scale: torch.Tensor) -> torch.Tensor:
+            scale: torch.Tensor, parts=None) -> torch.Tensor:
+    """The kernel launch; ``parts`` (1 to 8) overrides :func:`gemv_parts`
+    at M <= 8 for the tests and the sweep."""
     x = x.to(torch.bfloat16)          # the TPU kernel rounds x to bf16 too
     if x.ndim != 2 or w.ndim != 2:
         raise ValueError(f"{name}: x {tuple(x.shape)} and the weight "
@@ -81,9 +165,16 @@ def _launch(name: str, bits: int, x: torch.Tensor, w: torch.Tensor,
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
     if M == 0:
         return out
+    if parts is None:
+        parts = gemv_parts(N, K, bits, _sm_count(x.device.index or 0)) \
+            if M <= GEMV_MAX_ROWS else 1
+    if not 1 <= parts <= GEMV_MAX_PARTS:
+        raise ValueError(f"{name}: parts={parts} is not in 1.."
+                         f"{GEMV_MAX_PARTS}")
     err = _kernels.library().m3_quant_matmul(
         bits, x.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        M, N, K, x.stride(0), out.stride(0), _kernels.stream_ptr(x.device))
+        M, N, K, x.stride(0), out.stride(0), parts,
+        _kernels.stream_ptr(x.device))
     _kernels.check("m3_quant_matmul", err)
     return out
 

@@ -142,7 +142,7 @@ def _quant_leaf(bits, N, K, dev, seed=0):
 @pytest.mark.parametrize("N,K", [(12288, 4096), (4096, 4096), (22016, 4096),
                                  (4096, 11008), (32000, 4096), (100, 200),
                                  (33, 46)])
-@pytest.mark.parametrize("M", [1, 4, 640])
+@pytest.mark.parametrize("M", [1, 2, 3, 4, 5, 8, 640])
 def test_quant_matmul_kernel_matches_plain(dev, bits, N, K, M):
     leaf = _quant_leaf(bits, N, K, dev)
     x = torch.randn((M, K), device=dev, dtype=torch.bfloat16)
@@ -159,10 +159,11 @@ def test_quant_matmul_kernel_matches_plain(dev, bits, N, K, M):
 
 
 @pytest.mark.parametrize("bits", [4, 8])
-def test_quant_matmul_kernel_takes_strided_rows(dev, bits):
+@pytest.mark.parametrize("B", [3, 8])
+def test_quant_matmul_kernel_takes_strided_rows(dev, bits, B):
     """The last position of a (B, L, D) hidden state, as lm_head gets it."""
     leaf = _quant_leaf(bits, 512, 256, dev)
-    h = torch.randn((3, 7, 256), device=dev, dtype=torch.bfloat16)
+    h = torch.randn((B, 7, 256), device=dev, dtype=torch.bfloat16)
     x = h[:, -1, :]
     w = leaf[tq.Q4KEY if bits == 4 else tq.QKEY]
     got = tmm.leaf_matmul(x, leaf)
@@ -173,7 +174,7 @@ def test_quant_matmul_kernel_takes_strided_rows(dev, bits):
 
 
 @pytest.mark.parametrize("bits", [4, 8])
-@pytest.mark.parametrize("M", [1, 4, 20])
+@pytest.mark.parametrize("M", [1, 4, 8, 20, 32])
 @pytest.mark.parametrize("D,I", [(4096, 11008), (256, 520)])
 def test_quant_mlp_kernel_matches_plain(dev, bits, M, D, I):
     key = tq.Q4KEY if bits == 4 else tq.QKEY
@@ -188,6 +189,58 @@ def test_quant_mlp_kernel_matches_plain(dev, bits, M, D, I):
     want = tmlp.quant_mlp_plain(x, gateup, down, bits, I)
     torch.cuda.synchronize()
     assert got.shape == (M, D) and _rel_err(got, want) < 2e-2
+
+
+# the 7B shapes whose K the decode kernel splits over 8 warps (o, down)
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("N,K", [(4096, 4096), (4096, 11008)])
+@pytest.mark.parametrize("M", [1, 8])
+def test_quant_matmul_kernel_is_deterministic(dev, bits, N, K, M):
+    """Two launches give the same bits (the warps' partial sums are added
+    in a fixed order)."""
+    leaf = _quant_leaf(bits, N, K, dev)
+    x = torch.randn((M, K), device=dev, dtype=torch.bfloat16)
+    w = leaf[tq.Q4KEY if bits == 4 else tq.QKEY]
+    fn = tmm.int4_matmul if bits == 4 else tmm.int8_matmul
+    a, b = fn(x, w, leaf["scale"]), fn(x, w, leaf["scale"])
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("parts", [1, 2, 4, 8])
+@pytest.mark.parametrize("N,K,M", [(4096, 11008, 8), (100, 200, 5),
+                                   (33, 46, 1)])
+def test_quant_matmul_kernel_at_every_split(dev, bits, parts, N, K, M):
+    """The decode kernel with K split over 1 to 8 warps against the plain
+    version and its split twin."""
+    leaf = _quant_leaf(bits, N, K, dev)
+    x = torch.randn((M, K), device=dev, dtype=torch.bfloat16)
+    w = leaf[tq.Q4KEY if bits == 4 else tq.QKEY]
+    split = tmm.int4_matmul_split_plain if bits == 4 \
+        else tmm.int8_matmul_split_plain
+    got = tmm._launch("matmul", bits, x, w, leaf["scale"], parts=parts)
+    want = tmm.int8_matmul_plain(x, tq.int_weight(leaf), leaf["scale"])
+    twin = split(x, w, leaf["scale"], parts)
+    torch.cuda.synchronize()
+    assert _rel_err(got, want) <= 1e-2 and _rel_err(got, twin) <= 1e-2
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("M", [1, 8])
+def test_quant_mlp_kernel_is_deterministic(dev, bits, M):
+    key = tq.Q4KEY if bits == 4 else tq.QKEY
+    D, I = 4096, 11008
+    gate, up = _quant_leaf(bits, I, D, dev, 1), _quant_leaf(bits, I, D, dev, 2)
+    gateup = {key: torch.cat([gate[key], up[key]]),
+              "scale": torch.cat([gate["scale"], up["scale"]])}
+    down = _quant_leaf(bits, D, I, dev, 3)
+    x = torch.randn((M, D), device=dev, dtype=torch.bfloat16)
+    a = tmlp.quant_mlp(x, gateup, down, bits, I)
+    b = tmlp.quant_mlp(x, gateup, down, bits, I)
+    want = tmlp.quant_mlp_split_plain(x, gateup, down, bits, I)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and _rel_err(a, want) < 2e-2
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
