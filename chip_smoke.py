@@ -8,7 +8,9 @@ Phases; any failure exits non-zero, and no phase's exception is caught:
 1. device: require CUDA; print the card (nvidia-smi name and power limit),
    torch.version.cuda, nvcc and Triton versions; turn TF32 off;
 2. build: compile csrc/*.cu with nvcc for sm_90a (one nvcc per source, all
-   at once), print ptxas usage and the build time;
+   at once), print ptxas usage (and any wgmma note of ptxas) and the build
+   time, and the prefill kernel's block, ring depth and shared memory at
+   the prefill rows;
 3. kernels against their plain PyTorch versions at the main path's shapes
    in bf16, with max errors and the median time of kernel and plain version
    over CUDA events: prefill flash attention B=1 H=32 Dh=128 Sq=640 against
@@ -24,8 +26,12 @@ Phases; any failure exits non-zero, and no phase's exception is caught:
    version, two launches bit-identical), then its int8-KV branch at B in
    {1, 4}, S in {672, 673}, GQA and window; int4_matmul / int8_matmul at the
    7B projections (qkv 12288x4096, o 4096x4096, gateup 22016x4096, down
-   4096x11008, lm_head 32000x4096) for M in {1, 4, 640}; quant_mlp at 7B
-   widths for M in {1, 4}, int4 and int8;
+   4096x11008, lm_head 32000x4096) for M in {1, 2, 4, 8} (the decode
+   kernel) and {192, 640, 768, 1024} (the prefill kernel), two launches
+   bit-identical at M = 1, 8 and 640, timed at M = 1, 4, 8 (GB/s, share of
+   the byte bound) and 192, 640, 1024 (TFLOP/s, share of the operations
+   bound), each beside bf16 F.linear on the dequantized weight; quant_mlp
+   at 7B widths for M in {1, 4, 8, 32}, int4 and int8;
 4. the bf16 slice at full width: load_pretrained_model("debug://7b")
    (random weights from a seed), five one-image requests with 32 greedy
    tokens at ver=v0_numtoks in {1, 9, 36, 144, 576} and a left-padded B=4
@@ -41,7 +47,9 @@ Phases; any failure exits non-zero, and no phase's exception is caught:
    lm_head through it, one quant_mlp and one decode attention per
    step-layer); one prefill's last-position logits are held against the
    same weights under disable_fused_proj() (cosine >= 0.99, same argmax);
-   TTFT, decode tok/s and peak memory per configuration;
+   TTFT, decode tok/s and peak memory per configuration, and per request a
+   profile of its prefill (device ms, the quantized prefill kernel's ms,
+   launches and share) and of its decode steps;
 6. paged attention against its plain version at the 7B shapes (H=Hkv=32,
    Dh=128, page 64, 25 pages a row; bf16 and int8 pools; the stacked form
    at layers 0 and 31 with the split paged_splits picks; B=1 and B=8;
@@ -150,11 +158,20 @@ SLEEP_CYCLES = 50_000_000  # ~30 ms: the host queues the timed calls meanwhile
 QUANT_SHAPES = {"qkv": (12288, 4096), "o": (4096, 4096),
                 "gateup": (22016, 4096), "down": (4096, 11008),
                 "lm_head": (32000, 4096)}
-QUANT_ROWS = (1, 2, 4, 8, 640)   # rows held against the plain versions
+# rows held against the plain versions
+QUANT_ROWS = (1, 2, 4, 8, 192, 640, 768, 1024)
 QUANT_TIMED_ROWS = (1, 4, 8)      # decode rows timed (8: the serving step)
+# prefill rows timed: a B=1 prefill at scales 144 and 576 (generate.py rounds
+# T - 1 + numtoks up to 64) and a 1024-row serving admission; 768, the B=4
+# batch at 144, is held only
+QUANT_PREFILL_ROWS = (192, 640, 1024)
+QUANT_SAME_BITS_ROWS = (1, 8, 640)   # two launches bit-identical
 MLP_ROWS = (1, 4, 8, 32)          # quant_mlp rows held (32: its limit)
-# the quantized products' kernels, by the names a profile gives them
-QUANT_KERNELS = ("quant_gemv_kernel", "quant_mma_kernel")
+# the quantized products' kernels, by the names a profile gives them: the
+# prefill kernel was quant_mma_kernel before its wgmma design, a name kept so
+# that ab_torch_phases.py --same-script also reads an older package's
+QUANT_PREFILL_KERNELS = ("quant_wgmma_kernel", "quant_mma_kernel")
+QUANT_KERNELS = ("quant_gemv_kernel",) + QUANT_PREFILL_KERNELS
 # (label, load_pretrained_model options, requests as (batch, numtoks))
 QUANT_RUNS = (
     ("int4", {"load_4bit": True}, ((1, 144), (1, 576), (4, 144))),
@@ -383,7 +400,21 @@ def phase_build() -> None:
             entry = None
         elif line.startswith("nvcc build"):
             print(line)
+        elif "wgmma.mma_async" in line:   # ptxas serialized the products
+            print(f"[ptxas] {line.strip()}")
     print(f"[build] {time.perf_counter() - t0:.2f} s")
+    from matryoshka_mm_torch.ops import int4_matmul as mm
+
+    if hasattr(mm, "mma_tile"):   # an older package (ab_torch_phases) has not
+        for bits in (4, 8):
+            tiles = []
+            for M in QUANT_PREFILL_ROWS:
+                for N in (4096, 12288):
+                    (bm, tn, stages), smem = mm.mma_tile(bits, M, N)
+                    tiles.append(f"M={M} N={N}: {bm} x {tn} a block, "
+                                 f"{stages} stages, {smem} B")
+            print(f"[build] prefill kernel int{bits} (shared memory a "
+                  f"block): " + "; ".join(tiles))
 
 
 # ---------------------------------------------------------------------------
@@ -702,14 +733,16 @@ def _rel_err(got, want) -> tuple:
 def phase_quant_kernels(dev) -> dict:
     """int4_matmul / int8_matmul at the 7B projections and quant_mlp at 7B
     widths against their plain versions, at every row count of
-    QUANT_ROWS / MLP_ROWS; two launches bit-identical at M = 1 and 8; the
-    decode rows of QUANT_TIMED_ROWS timed with their GB/s, their share of
-    the byte bound and ``bf16_linear_ms``, the time of bf16 ``F.linear``
-    (cuBLAS) on the dequantized weight of the same shape: a yardstick of
-    what the quantized bytes buy, not the same function (no library call
-    computes it, so ``library_ms`` stays None).  Each record's ``ms`` /
-    ``plain_ms`` is the B=1 decode time of the qkv projection (matmuls) or
-    of one layer's MLP (quant_mlp)."""
+    QUANT_ROWS / MLP_ROWS; two launches bit-identical at the rows of
+    QUANT_SAME_BITS_ROWS (M = 1 and 8 for quant_mlp); the decode rows of
+    QUANT_TIMED_ROWS timed with their GB/s and their share of the byte
+    bound, the prefill rows of QUANT_PREFILL_ROWS with their TFLOP/s and
+    their share of the operations bound, each beside ``bf16_linear_ms``,
+    the time of bf16 ``F.linear`` (cuBLAS) on the dequantized weight of the
+    same shape: a yardstick of what the quantized bytes buy, not the same
+    function (no library call computes it, so ``library_ms`` stays None).
+    Each record's ``ms`` / ``plain_ms`` is the B=1 decode time of the qkv
+    projection (matmuls) or of one layer's MLP (quant_mlp)."""
     from matryoshka_mm_torch.ops import fused_mlp as mlp
     from matryoshka_mm_torch.ops import int4_matmul as mm
     from matryoshka_mm_torch.ops import quant
@@ -718,19 +751,28 @@ def phase_quant_kernels(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(1)
     rec = {}
 
-    def timed(line, r, tag, fn, plain, ops, moved, lin_fn, lin_ops):
+    def timed(line, r, tag, fn, plain, ops, lin_fn, lin_ops, moved=None,
+              flops=None):
         """Times of the kernel, its plain version and the bf16 yardstick,
-        kept in ``r`` under ``tag`` and appended to ``line``."""
+        kept in ``r`` under ``tag`` and appended to ``line`` with the rate
+        against the byte bound (``moved``) or the operations bound
+        (``flops``)."""
         ms = time_ms(fn, ops)
         pms = time_ms(plain, ops, reps=3, warmup=1)
         lin = time_ms(lin_fn, lin_ops)
-        t_bytes = moved / HBM_BYTES_S * 1e3
         r[f"ms_{tag}"], r[f"plain_ms_{tag}"] = ms, pms
         r[f"bf16_linear_ms_{tag}"] = lin
-        return (line + f"  kernel {ms:.4f} ms  plain {pms:.4f} ms  "
-                f"{moved / ms / 1e6:.1f} GB/s, {100 * t_bytes / ms:.0f}% of "
-                f"the byte bound {t_bytes:.4f} ms  bf16_linear_ms {lin:.4f} "
-                f"({lin / ms:.2f}x the kernel's time)")
+        if flops is None:
+            t = moved / HBM_BYTES_S * 1e3
+            rate = (f"{moved / ms / 1e6:.1f} GB/s, {100 * t / ms:.0f}% of "
+                    f"the byte bound {t:.4f} ms")
+        else:
+            t = flops / PEAK_FLOPS * 1e3
+            rate = (f"{flops / ms / 1e9:.1f} TFLOP/s, {100 * t / ms:.0f}% "
+                    f"of the operations bound {t:.4f} ms")
+        return (line + f"  kernel {ms:.4f} ms  plain {pms:.4f} ms  {rate}  "
+                f"bf16_linear_ms {lin:.4f} ({lin / ms:.2f}x the kernel's "
+                f"time)")
 
     for bits, name in ((4, "int4_matmul"), (8, "int8_matmul")):
         fn = getattr(mm, name)
@@ -754,7 +796,7 @@ def phase_quant_kernels(dev) -> dict:
                 if rel > MM_TOL:
                     fail(f"{name} {shape} M={M} disagrees with its plain "
                          f"version")
-                if M in (1, 8):
+                if M in QUANT_SAME_BITS_ROWS:
                     if not torch.equal(got, fn(x, w, sc)):
                         fail(f"{name} {shape} M={M}: two launches differ")
                     line += "  two launches bit-identical"
@@ -762,11 +804,15 @@ def phase_quant_kernels(dev) -> dict:
                 if M in QUANT_TIMED_ROWS:
                     moved = nbytes(x, w, sc) + M * N * 2
                     line = timed(line, r, f"{shape}_{M}", fn, plain,
-                                 rotations(x, w, sc), moved, linear,
-                                 rotations(x, wdq))
+                                 rotations(x, w, sc), linear,
+                                 rotations(x, wdq), moved=moved)
                     if (shape, M) == ("qkv", 1):
                         r.update(bound(moved, 2 * M * N * K),
                                  library_ms=None)
+                elif M in QUANT_PREFILL_ROWS:
+                    line = timed(line, r, f"{shape}_{M}", fn, plain,
+                                 rotations(x, w, sc), linear,
+                                 rotations(x, wdq), flops=2 * M * N * K)
                 print(line)
             del w, sc, wdq
         r["ms"], r["plain_ms"] = r["ms_qkv_1"], r["plain_ms_qkv_1"]
@@ -816,8 +862,8 @@ def phase_quant_kernels(dev) -> dict:
                                 down["scale"])
                 moved = nbytes(*ops[0]) + M * D * 2
                 line = timed(line, r, f"int{bits}_{M}", call(mlp.quant_mlp),
-                             call(mlp.quant_mlp_plain), ops, moved, bf16_mlp,
-                             rotations(x, gu_dq, dn_dq))
+                             call(mlp.quant_mlp_plain), ops, bf16_mlp,
+                             rotations(x, gu_dq, dn_dq), moved=moved)
                 if (bits, M) == (4, 1):
                     r.update(bound(moved, 2 * M * 3 * I * D),
                              library_ms=None)
@@ -914,7 +960,9 @@ def time_requests(model, inputs, numtoks, label, reps=(3, 2)) -> tuple:
 def decode_profile(model, inputs, numtoks, label) -> None:
     """Device ms a decode step of ``generate``, and the quantized products'
     ms and launches a step: the kernels of a NEW_TOKENS run less those of a
-    1-token run (the same prefill), under ``torch.profiler``."""
+    1-token run (the same prefill), under ``torch.profiler``.  The 1-token
+    run is the prefill (vision tower included): its device ms and the
+    quantized prefill kernel's ms, launches and share of it."""
     sums = []
     for n in (1, NEW_TOKENS):
         kernels = profile_kernels(lambda: run(model, inputs, numtoks, n))
@@ -922,6 +970,15 @@ def decode_profile(model, inputs, numtoks, label) -> None:
         sums.append((sum(dev_us(e) for e in kernels),
                      sum(dev_us(e) for e in quant),
                      sum(e.count for e in quant)))
+        if n == 1:
+            tile = [e for e in kernels
+                    if any(k in e.key for k in QUANT_PREFILL_KERNELS)]
+            tile_us = sum(dev_us(e) for e in tile)
+            print(f"[{label}] {card_line()}: B={inputs[0].shape[0]} numtoks="
+                  f"{numtoks} prefill profile: device {sums[0][0] / 1e3:.3f}"
+                  f" ms, quantized prefill kernel {tile_us / 1e3:.3f} ms over "
+                  f"{sum(e.count for e in tile)} launches "
+                  f"({100 * tile_us / sums[0][0]:.1f}% of the device time)")
     steps = NEW_TOKENS - 1
     (dev1, q1, n1), (dev_n, q_n, n_n) = sums
     print(f"[{label}] {card_line()}: B={inputs[0].shape[0]} numtoks="

@@ -77,6 +77,12 @@ SIGNATURES = {
     # bits, x, w, scale, out, M, N, K, x row stride, out row stride,
     # parts (warps a block of the decode kernel), stream
     "m3_quant_matmul": [I, P, P, P, P, I, I, I, LL, LL, I, P],
+    # the same at M > 8 at a given configuration: ..., out row stride,
+    # rows a block, channels a block, ring stages, stream
+    "m3_quant_mma": [I, P, P, P, P, I, I, I, LL, LL, I, I, I, P],
+    # bits, M, N, the three ints of the configuration (out) -> bytes of
+    # shared memory
+    "m3_quant_mma_tile": [I, I, I, ctypes.POINTER(I)],
     # bits, x, gateup, gateup scale, down, down scale, h, out, M, D, I,
     # n_out, x row stride, out row stride, parts of gate/up and of down,
     # stream

@@ -32,11 +32,12 @@
 // tiles here carry 8 values (16 bytes) of padding a row, so eight
 // consecutive rows start 4 banks apart and a fetch is conflict free.
 //
-// What remains for a later design: wgmma (a warpgroup's asynchronous
-// 64-row product reading B straight from shared memory) fed by TMA needs
-// tensor maps encoded on the host (cuTensorMapEncodeTiled) and
-// shared-memory descriptors, and is the only way past the rate that
-// mma.sync reaches: there every warp fetches its own copy of B.
+// What remains for a later design of the attention kernels: wgmma (a
+// warpgroup's asynchronous 64-row product reading B straight from shared
+// memory) fed by TMA, as quant_matmul.cu's prefill kernel does with tensor
+// maps encoded on the host (cuTensorMapEncodeTiled) and shared-memory
+// descriptors; it is the only way past the rate that mma.sync reaches:
+// there every warp fetches its own copy of B.
 #pragma once
 
 #include "common.cuh"

@@ -21,12 +21,21 @@ weight byte feeds at most 16 FMAs.  The decode kernel (``csrc/quant_gemv.cuh``)
 runs bf16 ``mma.sync`` products with the weights as the A operand,
 dequantized in registers (mantissa tricks, no integer -> float
 conversions), streams every weight byte once through per-warp ``cp.async``
-rings with an evict-first L2 policy, and splits K over the ``parts`` warps
-of a block (:func:`gemv_parts`, plain ints; :func:`int4_matmul_split_plain`
-is the same blocking of the f32 sums in PyTorch).  At prefill (up to 1024 rows on the main path)
-arithmetic: bf16 tensor-core products (``mma.sync`` through WMMA) over a
-weight tile dequantized into shared memory, exact because int4/int8 values
-are exact in bf16.  Any M, N and (even, for int4) K: the kernels mask their
+rings (no L2 cache policy: ``cp.async`` with one faulted on the card), and
+splits K over the ``parts`` warps of a block (:func:`gemv_parts`, plain
+ints; :func:`int4_matmul_split_plain` is the same blocking of the f32 sums
+in PyTorch).  At prefill (M > 8, up to 1024 rows on the main path)
+operations, 2 M a weight value: the prefill kernel
+(``csrc/quant_matmul.cu`` ``quant_wgmma_kernel``) runs Hopper's
+asynchronous ``wgmma`` products with both operands in swizzled shared
+tiles (the activations and the dequantized weights), streams the
+activations and the raw weight bytes through a four-stage ring filled by
+tensor copies (TMA; ``cp.async`` where rows are not 16-byte aligned) and
+dequantizes the next step's weights while the tensor cores multiply this
+step's; exact, because int4/int8 values are exact in bf16.  Its block
+(64 x 128 or 128 x 256 outputs) comes from M and N in the launcher
+(:func:`mma_tile` reports it; ``_launch(..., tile=)`` fixes it for tests
+and the sweep).  Any M, N and (even, for int4) K: the kernels mask their
 ragged edges, so the TPU tile padding and block-divisor rules are gone.
 
 Dispatch: a CPU tensor goes to the plain version; a CUDA tensor launches
@@ -36,6 +45,8 @@ by ``models/llama.py`` ``proj``, as the JAX ``fused_int4_proj`` does.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -137,10 +148,21 @@ def int4_matmul_plain(x, packed, scale) -> torch.Tensor:
                              scale)
 
 
+def mma_tile(bits: int, M: int, N: int) -> tuple:
+    """``((rows, channels, ring stages) of a block, shared bytes)``: the
+    prefill kernel's configuration at M > 8 rows and N channels, as its
+    launcher picks it.  Builds and loads the kernel library."""
+    tile = (ctypes.c_int * 3)()
+    smem = _kernels.library().m3_quant_mma_tile(bits, M, N, tile)
+    return tuple(tile), smem
+
+
 def _launch(name: str, bits: int, x: torch.Tensor, w: torch.Tensor,
-            scale: torch.Tensor, parts=None) -> torch.Tensor:
+            scale: torch.Tensor, parts=None, tile=None) -> torch.Tensor:
     """The kernel launch; ``parts`` (1 to 8) overrides :func:`gemv_parts`
-    at M <= 8 for the tests and the sweep."""
+    at M <= 8, ``tile`` = (rows, channels, ring stages) of a block, the
+    prefill kernel's configuration at M > 8 (one that
+    ``csrc/quant_matmul.cu`` builds), for the tests and the sweeps."""
     x = x.to(torch.bfloat16)          # the TPU kernel rounds x to bf16 too
     if x.ndim != 2 or w.ndim != 2:
         raise ValueError(f"{name}: x {tuple(x.shape)} and the weight "
@@ -171,6 +193,15 @@ def _launch(name: str, bits: int, x: torch.Tensor, w: torch.Tensor,
     if not 1 <= parts <= GEMV_MAX_PARTS:
         raise ValueError(f"{name}: parts={parts} is not in 1.."
                          f"{GEMV_MAX_PARTS}")
+    if tile is not None:
+        if M <= GEMV_MAX_ROWS:
+            raise ValueError(f"{name}: tile= is for M > {GEMV_MAX_ROWS}")
+        err = _kernels.library().m3_quant_mma(
+            bits, x.data_ptr(), w.data_ptr(), scale.data_ptr(),
+            out.data_ptr(), M, N, K, x.stride(0), out.stride(0), *tile,
+            _kernels.stream_ptr(x.device))
+        _kernels.check("m3_quant_mma", err)
+        return out
     err = _kernels.library().m3_quant_matmul(
         bits, x.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(),
         M, N, K, x.stride(0), out.stride(0), parts,

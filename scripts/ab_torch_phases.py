@@ -12,9 +12,10 @@ kernels and runs the named phases (default: ``slice train``: phase 4,
 TTFT per scale and decode tok/s on debug://7b in bf16; phase 10, the 7B
 LoRA train step with its profile; also ``kernels``, phase 3's attention
 kernels against their plain versions with their times, ``quant``, phase
-3's quantized products with their times, shares of the byte bound and bf16
-yardsticks, ``qslice``, phase 5, the quantized loads through ``generate``
-with their decode profiles, ``paged``, phase 6's paged attention kernel
+3's quantized products with their times, shares of the byte or operations
+bound and bf16 yardsticks, ``qslice``, phase 5, the quantized loads
+through ``generate`` with their prefill and decode profiles, ``paged``,
+phase 6's paged attention kernel
 times, and ``serve``, phase 7, the serving slice with the profile of one
 decode round).  With ``--same-script`` both runs take their phases from
 NEW_ROOT's ``chip_smoke.py`` and only the package (kernels included) from
@@ -38,7 +39,8 @@ PHASES = {"slice": "phase_slice", "train": "phase_train",
 # the lines worth comparing (the phases print more)
 KEEP = ("TTFT", "tok/s", "[train] step", "profile of one step",
         "device time by kind", "launches", "max_memory", "kernel ",
-        "profile of one round", "paged_kernel", "quantized products")
+        "profile of one round", "paged_kernel", "quantized products",
+        "prefill profile")
 
 RUN = """
 import importlib.util, sys, torch

@@ -137,12 +137,15 @@ def _quant_leaf(bits, N, K, dev, seed=0):
 
 # the 7B projections: qkv, o, gateup, down (K/2 = 5504 is no power-of-two
 # multiple), lm_head; then ragged shapes that take the masked edges and the
-# scalar byte loop
+# scalar byte loop (K = 4100: no whole 64-k step, K/2 no multiple of 16).
+# M up to 8 takes the decode kernel, above it the prefill kernel: around
+# its 64-row tiles, the main path's prefill rows and a 1024-row admission
 @pytest.mark.parametrize("bits", [4, 8])
 @pytest.mark.parametrize("N,K", [(12288, 4096), (4096, 4096), (22016, 4096),
                                  (4096, 11008), (32000, 4096), (100, 200),
-                                 (33, 46)])
-@pytest.mark.parametrize("M", [1, 2, 3, 4, 5, 8, 640])
+                                 (33, 46), (4096, 4100)])
+@pytest.mark.parametrize("M", [1, 2, 3, 4, 5, 8, 9, 63, 64, 65, 127, 129,
+                               640, 768, 1024])
 def test_quant_matmul_kernel_matches_plain(dev, bits, N, K, M):
     leaf = _quant_leaf(bits, N, K, dev)
     x = torch.randn((M, K), device=dev, dtype=torch.bfloat16)
@@ -159,7 +162,7 @@ def test_quant_matmul_kernel_matches_plain(dev, bits, N, K, M):
 
 
 @pytest.mark.parametrize("bits", [4, 8])
-@pytest.mark.parametrize("B", [3, 8])
+@pytest.mark.parametrize("B", [3, 8, 200])
 def test_quant_matmul_kernel_takes_strided_rows(dev, bits, B):
     """The last position of a (B, L, D) hidden state, as lm_head gets it."""
     leaf = _quant_leaf(bits, 512, 256, dev)
@@ -191,13 +194,14 @@ def test_quant_mlp_kernel_matches_plain(dev, bits, M, D, I):
     assert got.shape == (M, D) and _rel_err(got, want) < 2e-2
 
 
-# the 7B shapes whose K the decode kernel splits over 8 warps (o, down)
+# the 7B shapes whose K the decode kernel splits over 8 warps (o, down),
+# and gate/up; M = 640 is a prefill through the prefill kernel
 @pytest.mark.parametrize("bits", [4, 8])
-@pytest.mark.parametrize("N,K", [(4096, 4096), (4096, 11008)])
-@pytest.mark.parametrize("M", [1, 8])
+@pytest.mark.parametrize("N,K", [(4096, 4096), (4096, 11008), (22016, 4096)])
+@pytest.mark.parametrize("M", [1, 8, 640])
 def test_quant_matmul_kernel_is_deterministic(dev, bits, N, K, M):
-    """Two launches give the same bits (the warps' partial sums are added
-    in a fixed order)."""
+    """Two launches give the same bits (the decode kernel's warp partial
+    sums are added in a fixed order; the prefill kernel has no K split)."""
     leaf = _quant_leaf(bits, N, K, dev)
     x = torch.randn((M, K), device=dev, dtype=torch.bfloat16)
     w = leaf[tq.Q4KEY if bits == 4 else tq.QKEY]
@@ -224,6 +228,66 @@ def test_quant_matmul_kernel_at_every_split(dev, bits, parts, N, K, M):
     twin = split(x, w, leaf["scale"], parts)
     torch.cuda.synchronize()
     assert _rel_err(got, want) <= 1e-2 and _rel_err(got, twin) <= 1e-2
+
+
+# every configuration csrc/quant_matmul.cu builds for the prefill kernel:
+# (rows, channels, ring stages) of a block
+MMA_TILES = [(64, 128, 4), (128, 256, 4)]
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("tile", MMA_TILES)
+@pytest.mark.parametrize("N,K,M", [(4096, 11008, 640), (4096, 4100, 65),
+                                   (100, 200, 129), (33, 46, 9)])
+def test_quant_mma_kernel_at_every_tile(dev, bits, tile, N, K, M):
+    """The prefill kernel at each configuration against the plain
+    version, and bit-identical to the configuration the launcher picks:
+    the tile decides which block sums an output, not the order of its
+    sum."""
+    leaf = _quant_leaf(bits, N, K, dev)
+    x = torch.randn((M, K), device=dev, dtype=torch.bfloat16)
+    w = leaf[tq.Q4KEY if bits == 4 else tq.QKEY]
+    got = tmm._launch("matmul", bits, x, w, leaf["scale"], tile=tile)
+    picked = tmm._launch("matmul", bits, x, w, leaf["scale"])
+    want = tmm.int8_matmul_plain(x, tq.int_weight(leaf), leaf["scale"])
+    torch.cuda.synchronize()
+    assert _rel_err(got, want) <= 1e-2
+    assert torch.equal(got, picked)
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("extra", [1, 8])
+@pytest.mark.parametrize("M", [130, 640])
+def test_quant_mma_kernel_takes_any_row_pitch(dev, bits, extra, M):
+    """Rows `extra` values longer than K: tensor copies of the activations
+    where the rows stay 16-byte aligned (8), cp.async with masked element
+    loads where they do not (1)."""
+    N, K = 4096, 4096
+    leaf = _quant_leaf(bits, N, K, dev)
+    x = torch.randn((M, K + extra), device=dev, dtype=torch.bfloat16)[:, :K]
+    w = leaf[tq.Q4KEY if bits == 4 else tq.QKEY]
+    fn = tmm.int4_matmul if bits == 4 else tmm.int8_matmul
+    got = fn(x, w, leaf["scale"])
+    want = tmm.int8_matmul_plain(x, tq.int_weight(leaf), leaf["scale"])
+    torch.cuda.synchronize()
+    assert x.stride(0) == K + extra and _rel_err(got, want) <= 1e-2
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("tile", MMA_TILES)
+def test_quant_mma_kernel_reads_the_weights_in_order(dev, bits, tile):
+    """x = the identity: out[m, n] = bf16(W[n, m] * scale[n]) exactly, so a
+    swizzle or k order that does not match the one the wgmma descriptors
+    name shows as a permutation, not as noise."""
+    N, K = 256, 256
+    leaf = _quant_leaf(bits, N, K, dev)
+    x = torch.eye(K, device=dev, dtype=torch.bfloat16)
+    w = leaf[tq.Q4KEY if bits == 4 else tq.QKEY]
+    got = tmm._launch("matmul", bits, x, w, leaf["scale"], tile=tile)
+    want = (tq.int_weight(leaf).float().t()
+            * leaf["scale"].reshape(1, -1)).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("bits", [4, 8])
@@ -280,6 +344,12 @@ def test_quant_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         tmm.int4_matmul(x, leaf["qint4"].float(), leaf["scale"])
     with pytest.raises(ValueError, match="quant_mlp"):
         tmlp.quant_mlp(x, leaf, leaf, 4, 64)
+    with pytest.raises(ValueError, match="tile="):
+        tmm._launch("matmul", 4, x, leaf["qint4"], leaf["scale"],
+                    tile=(64, 128, 4))
+    with pytest.raises(RuntimeError, match="m3_quant_mma"):
+        tmm._launch("matmul", 4, torch.randn((16, 128), device=dev),
+                    leaf["qint4"], leaf["scale"], tile=(32, 128, 2))
     with pytest.raises(ValueError, match="int8 cache"):
         kq = torch.zeros((1, 8, 2, 128), dtype=torch.int8, device=dev)
         tdec.flash_decode_attention(
