@@ -35,21 +35,34 @@ Phases; any failure exits non-zero, and no phase's exception is caught:
 4. the bf16 slice at full width: load_pretrained_model("debug://7b")
    (random weights from a seed), five one-image requests with 32 greedy
    tokens at ver=v0_numtoks in {1, 9, 36, 144, 576} and a left-padded B=4
-   batch at 144; the launch counters must show 32 flash launches per
-   prefill and 32 decode launches per decode step; one prefill's
-   last-position logits are held against attn_impl="reference" (cosine
-   >= 0.99); TTFT per scale, decode tok/s at B=1 and B=4, peak memory;
+   batch at 144, each decode a captured CUDA graph (generate's default on
+   the card); the launch counters must show 32 flash launches per prefill
+   and 32 decode launches per decode step, replays included, and each
+   request one capture and a replay for every decode step but its warm-up;
+   one prefill's last-position logits are held against
+   attn_impl="reference" (cosine >= 0.99); the captured decode's tokens and
+   last logits are bit-identical to decode_chunk's from the same cache
+   (capture ms printed); TTFT per scale, decode tok/s at B=1 and B=4, peak
+   memory; then at B=1 and B=4 (scale 144) decode tok/s of the eager loop
+   and the graph in turns E G G E, and each mode's profile: device ms,
+   kernels and Python launch calls a step (runtime launch events of a
+   32-token run less a 1-token run, 8 tokens for the eager loop, which
+   launches the same every step), the device's idle share, and the
+   graph's wall ms a replayed step (a run less its warm-up and capture);
 5. the quantized slice at full width: debug://7b under load_4bit (scales
    144 and 576 at B=1, 144 at a left-padded B=4), load_8bit (144, B=1) and
    load_4bit with kv_cache_dtype="int8" (144, B=4); the launch counters
    must equal the counts of 32 layers (per prefill qkv, o, gateup, down
    and lm_head through the matmul kernel, per decode step qkv, o and
    lm_head through it, one quant_mlp and one decode attention per
-   step-layer); one prefill's last-position logits are held against the
-   same weights under disable_fused_proj() (cosine >= 0.99, same argmax);
-   TTFT, decode tok/s and peak memory per configuration, and per request a
+   step-layer), replays of the captured decode included; one prefill's
+   last-position logits are held against the same weights under
+   disable_fused_proj() (cosine >= 0.99, same argmax); per load the
+   captured decode bit-identical to decode_chunk on one request; TTFT,
+   decode tok/s and peak memory per configuration, and per request a
    profile of its prefill (device ms, the quantized prefill kernel's ms,
-   launches and share) and of its decode steps;
+   launches and share) and of its decode steps; and phase 4's eager /
+   graph turns and profiles at B=1 and B=4;
 6. paged attention against its plain version at the 7B shapes (H=Hkv=32,
    Dh=128, page 64, 25 pages a row; bf16 and int8 pools; the stacked form
    at layers 0 and 31 with the split paged_splits picks; B=1 and B=8;
@@ -66,10 +79,13 @@ Phases; any failure exits non-zero, and no phase's exception is caught:
    with kv_cache_dtype="int8": ContinuousBatcher(backend="paged",
    max_batch=8, prefill_len=1024, max_new_tokens=128, page_size=64,
    chunk=8) answers 12 requests (8 as a burst, 4 joining late) at scales
-   9 / 144 / 576 with 32-64 new tokens each.  Every stream must end with
+   9 / 144 / 576 with 32-64 new tokens each, every decode round a replay
+   of the round captured during warmup().  Every stream must end with
    its budget and no BatchError; the launch counts of every kernel on the
    path must be exact (paged attention: decode steps x 32); admissions must
-   have been grouped; every page must be back on the free list.  Then 8
+   have been grouped; every page must be back on the free list.  The same
+   traffic then goes through eager rounds (cuda_graph=False) with the same
+   gates, for the comparison.  Then 8
    long requests are stopped in mid-decode and one decode step on that live
    pool is taken with use_kernel=True and use_kernel=False: in float32
    (weights and pool cast up) the logits' cosine is >= 0.999 and the argmax
@@ -79,7 +95,10 @@ Phases; any failure exits non-zero, and no phase's exception is caught:
    does, and the argmax is the same wherever the top two logits lie farther
    apart than the two paths' logits; three layers' attention over the live
    pool is held against float32 attention.  One decode round is profiled
-   (device ms per step, idle share, top kernels).
+   (device ms per step, idle share, top kernels).  One round is replayed on
+   the live pool and run eagerly from the same state on a copy of it: the
+   tokens, the state and the pool bytes must be equal; a replayed round is
+   profiled too (the profiler must see its kernels).
    On the bf16 model one short run each with prefix_cache=True (a repeated
    prompt hits its three cached pages), speculative_k=4 (the verify steps
    add up) and a constraint_regex (the output full-matches); phase 8 holds
@@ -89,7 +108,8 @@ Phases; any failure exits non-zero, and no phase's exception is caught:
 8. a small model (Dh=128, float32) on the card against the same weights on
    the CPU (plain versions): same greedy tokens from generate and from the
    batcher with the paged and with the dense backend, the paged one also
-   with prefix_cache=True (hit == miss) and speculative_k=4.
+   with prefix_cache=True (hit == miss) and speculative_k=4; on the card
+   generate and both batchers must have replayed captured graphs.
 
 9. the flash-attention backward kernels (dQ, dK/dV; tensor cores in bf16,
    f32 FMAs in float32) against their plain versions: the training shapes
@@ -116,9 +136,9 @@ Phases; any failure exits non-zero, and no phase's exception is caught:
    QLoRA over an int8 base; step-1 gradients, two steps' losses and grad
    norms within 1e-3.
 
-With arguments (`python3 chip_smoke.py kernels paged hbm bwd train small`)
-only the build and the named phases of 3, 6 and 9-11 run, and no result
-line is printed.
+With arguments (`python3 chip_smoke.py kernels quant slice qslice paged hbm
+serve smallinfer bwd train small`) only the build and the named phases run,
+and no result line is printed.
 
 Each kernel's record carries its bound: the larger of its bytes (inputs once,
 outputs once) over 3.35 TB/s and its operations over 989 TFLOP/s, the H100
@@ -179,9 +199,16 @@ QUANT_RUNS = (
     ("int4+kv8", {"load_4bit": True, "kv_cache_dtype": "int8"},
      ((4, 144),)),
 )
+PROFILE_MARGIN_S = 0.02   # a profiler window's margin on either side
+# the runtime calls that launch work from the host, as the profiler names
+# them: cudaLaunchKernel and its Ex / ExC forms, the lower-level
+# cuLaunchKernel, and a captured graph's launch
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
+                "cuGraphLaunch")
 SCALES = (1, 9, 36, 144, 576)
 BATCH_SCALE = 144     # the scale of the left-padded B=4 batch
 NEW_TOKENS = 32
+EAGER_PROFILE_TOKENS = 8   # the eager loop's decode profile: 7 steps
 PROMPT_LEN = 40
 HBM_BYTES_S = 3.35e12    # H100 SXM data sheet: device memory rate
 PEAK_FLOPS = 989e12      # and the dense bf16 rate of the tensor cores
@@ -323,18 +350,37 @@ def dev_us(e) -> float:
         or getattr(e, "self_cuda_time_total", 0)
 
 
-def profile_kernels(fn) -> list:
-    """The kernel events of one call of ``fn`` under ``torch.profiler``:
-    device-side events only, since the operators that launched them would
-    count the same device time twice."""
+def profile_events(fn) -> tuple:
+    """``(kernel events, launch calls)`` of one call of ``fn`` under
+    ``torch.profiler``: device-side events only, since the operators that
+    launched them would count the same device time twice; and the runtime
+    calls that launched work from the host (``LAUNCH_CALLS``: a kernel each,
+    or a whole captured graph)."""
     from torch.profiler import ProfilerActivity, profile
 
+    # the profiler places the card's timestamps on the host's clock with an
+    # offset that moves by a few ms and drops kernels that land outside the
+    # window: keep it open a margin on each side
+    # (scripts/diag_profiler_window.py)
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_MARGIN_S)
         fn()
         torch.cuda.synchronize()
-    return [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+        time.sleep(PROFILE_MARGIN_S)
+    events = prof.key_averages()
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    calls = sum(e.count for e in events
+                if e.device_type != torch.autograd.DeviceType.CUDA
+                and e.key.startswith(LAUNCH_CALLS))
+    return kernels, calls
+
+
+def profile_kernels(fn) -> list:
+    """The kernel events of one call of ``fn`` under ``torch.profiler``."""
+    return profile_events(fn)[0]
 
 
 def rotations(*tensors) -> list:
@@ -903,12 +949,15 @@ def make_inputs(cfg) -> dict:
     return {1: (ids1, px1, None), 4: (ids4, px4, mask4)}
 
 
-def run(model, inputs, numtoks, new_tokens):
+def run(model, inputs, numtoks, new_tokens, cuda_graph=True):
+    """One ``generate`` request; its decode replays a captured step unless
+    ``cuda_graph=False`` asks for the eager loop."""
     ids, px, mask = inputs
     out = model.generate(ids, images=px, attention_mask=mask,
                          matryoshka_vis_token_scale=f"ver=v0_numtoks="
                                                     f"{numtoks}",
-                         max_new_tokens=new_tokens, eos_token_id=-1)
+                         max_new_tokens=new_tokens, eos_token_id=-1,
+                         cuda_graph=cuda_graph)
     torch.cuda.synchronize()
     if out.shape != (ids.shape[0], new_tokens) or out.min() < 0 \
             or out.max() >= model.cfg.llama.vocab_size:
@@ -957,20 +1006,41 @@ def time_requests(model, inputs, numtoks, label, reps=(3, 2)) -> tuple:
     return ttft, rate
 
 
-def decode_profile(model, inputs, numtoks, label) -> None:
+def decode_profile(model, inputs, numtoks, label, cuda_graph=True,
+                   prefill=True, top=0, decode=True, base=None) -> tuple:
     """Device ms a decode step of ``generate``, and the quantized products'
     ms and launches a step: the kernels of a NEW_TOKENS run less those of a
-    1-token run (the same prefill), under ``torch.profiler``.  The 1-token
-    run is the prefill (vision tower included): its device ms and the
-    quantized prefill kernel's ms, launches and share of it."""
-    sums = []
-    for n in (1, NEW_TOKENS):
-        kernels = profile_kernels(lambda: run(model, inputs, numtoks, n))
+    1-token run (the same prefill), under ``torch.profiler``; kernels and
+    Python launch calls (``LAUNCH_CALLS``) a step the same way; a check
+    that the profiler sees the kernels of the decode.  The eager loop is
+    profiled over EAGER_PROFILE_TOKENS instead: it launches the same
+    kernels every step, and its profile of ~1,700 launches a step is slow
+    to process.  With ``prefill``, the 1-token run's prefill (vision tower
+    included): its device ms and the quantized prefill kernel's ms,
+    launches and share of it.  With ``top``, the ``top`` kernels of a
+    decode step by device time.  Without ``decode``, the prefill alone.
+    ``base`` is the 1-token run's profile of an earlier call on the same
+    request, which both modes share (each profile takes seconds to
+    process).  Returns ``(device ms a decode step or None, the 1-token
+    run's profile)``."""
+    sums, calls, counts, by_name = [], [], [], []
+    if base is not None:
+        for acc, x in zip((sums, calls, counts, by_name), base):
+            acc.append(x)
+    last = NEW_TOKENS if cuda_graph else EAGER_PROFILE_TOKENS
+    for n in (1, last)[:1 + decode]:
+        if n == 1 and base is not None:
+            continue
+        kernels, n_calls = profile_events(
+            lambda: run(model, inputs, numtoks, n, cuda_graph))
         quant = [e for e in kernels if any(k in e.key for k in QUANT_KERNELS)]
         sums.append((sum(dev_us(e) for e in kernels),
                      sum(dev_us(e) for e in quant),
                      sum(e.count for e in quant)))
-        if n == 1:
+        calls.append(n_calls)
+        counts.append(sum(e.count for e in kernels))
+        by_name.append({e.key: (dev_us(e), e.count) for e in kernels})
+        if n == 1 and prefill:
             tile = [e for e in kernels
                     if any(k in e.key for k in QUANT_PREFILL_KERNELS)]
             tile_us = sum(dev_us(e) for e in tile)
@@ -979,12 +1049,147 @@ def decode_profile(model, inputs, numtoks, label) -> None:
                   f" ms, quantized prefill kernel {tile_us / 1e3:.3f} ms over "
                   f"{sum(e.count for e in tile)} launches "
                   f"({100 * tile_us / sums[0][0]:.1f}% of the device time)")
-    steps = NEW_TOKENS - 1
-    (dev1, q1, n1), (dev_n, q_n, n_n) = sums
+    base = (sums[0], calls[0], counts[0], by_name[0])
+    if not decode:
+        return None, base
+    steps = last - 1
+    (dev1, q1, n1), (dev_n, q_n, n_n) = sums[0], sums[-1]
+    mode = "graph" if cuda_graph else "eager"
     print(f"[{label}] {card_line()}: B={inputs[0].shape[0]} numtoks="
-          f"{numtoks} decode profile: device {(dev_n - dev1) / 1e3 / steps:.3f}"
-          f" ms/step, quantized products {(q_n - q1) / 1e3 / steps:.4f} "
-          f"ms/step over {(n_n - n1) // steps} launches a step")
+          f"{numtoks} decode profile ({mode}, a {last}-token run less a "
+          f"1-token run): device "
+          f"{(dev_n - dev1) / 1e3 / steps:.3f} ms/step, quantized products "
+          f"{(q_n - q1) / 1e3 / steps:.4f} ms/step over {(n_n - n1) // steps} "
+          f"launches a step; {(counts[-1] - counts[0]) / steps:.1f} kernels "
+          f"and {(calls[-1] - calls[0]) / steps:.2f} Python launch calls a "
+          f"step")
+    if counts[-1] - counts[0] <= 0:
+        fail(f"{label}: the profiler shows no kernel of the decode "
+             f"({mode})")
+    step = {k: (us - by_name[0].get(k, (0, 0))[0],
+                n - by_name[0].get(k, (0, 0))[1])
+            for k, (us, n) in by_name[-1].items()}
+    for k, (us, n) in sorted(step.items(), key=lambda kv: -kv[1][0])[:top]:
+        print(f"[{label}]   {us / 1e3 / steps:8.4f} ms/step  "
+              f"x{n / steps:6.1f}  {k[:90]}")
+    return (dev_n - dev1) / 1e3 / steps, base
+
+
+def decode_bits(model, inputs, numtoks, label) -> None:
+    """The captured decode against ``decode_chunk`` on the card, from one
+    prefill's cache and a copy of it: the NEW_TOKENS - 1 steps' tokens and
+    the last step's logits must be bit-identical (the same kernels in the
+    same order).  Prints the capture's ms and the warm-up step's."""
+    from matryoshka_mm_torch.generate import (DecodeGraph, GenerationConfig,
+                                              _prefill_dispatch,
+                                              _select_token, decode_chunk)
+    from matryoshka_mm_torch.models.llama import KVCache
+
+    ids, px, mask = inputs
+    dev = model.params["llama"]["norm"].device
+    steps = NEW_TOKENS - 1
+    gen = GenerationConfig(max_new_tokens=NEW_TOKENS, decode_chunk=steps,
+                           eos_token_id=-1)
+    with torch.inference_mode():
+        logits, cache_a, lengths = _prefill_dispatch(
+            model.params, model.cfg,
+            torch.as_tensor(ids, dtype=torch.int64, device=dev),
+            torch.as_tensor(px, device=dev), mask, numtoks, gen)
+        first = _select_token(logits, gen, None)
+        cache_b = KVCache(*(None if t is None else t.clone() for t in (
+            cache_a.k, cache_a.v, cache_a.valid, cache_a.positions,
+            cache_a.write_idx, cache_a.k_scale, cache_a.v_scale)),
+            host_idx=cache_a.host_idx)
+        finished = torch.zeros_like(first, dtype=torch.bool)
+        _, _, _, toks, last = decode_chunk(
+            model.params, model.cfg, gen, cache_a, first, lengths, finished,
+            steps, return_logits=True)
+        graph = DecodeGraph(model.params, model.cfg, gen, cache_b, first,
+                            lengths, finished)
+        got = graph.run(steps)
+        torch.cuda.synchronize()
+    same = bool(torch.equal(got, toks) and torch.equal(graph.logits, last))
+    print(f"[{label}] {card_line()}: B={ids.shape[0]} numtoks={numtoks} "
+          f"captured decode vs decode_chunk over {steps} steps: tokens and "
+          f"last logits bit-identical {same}; capture "
+          f"{graph.graph.capture_ms:.1f} ms, warm-up step "
+          f"{graph.graph.warmup_ms:.1f} ms")
+    if not same:
+        fail(f"{label}: the captured decode's tokens or logits differ from "
+             f"decode_chunk's")
+
+
+def decode_ab(model, inputs, label, numtoks=BATCH_SCALE) -> None:
+    """Decode tok/s of the eager loop (E) and the captured graph (G) in turns
+    E G G E at B=1 and B=4, each run a ``generate`` of NEW_TOKENS tokens
+    less the median 1-token run (so a graph run pays its warm-up step and
+    capture); the wall ms a step, and for the graph also the replays alone
+    (a run less its warm-up step and capture, over the steps replayed); the
+    capture's and the warm-up step's ms; then at B=1 each mode's decode
+    profile (the graph's top kernels) and device idle
+    share (1 - device ms / wall ms a step)."""
+    from matryoshka_mm_torch.utils.cuda_graph import CapturedStep
+
+    steps = NEW_TOKENS - 1
+    for batch in (1, 4):
+        x = inputs[batch]
+        ttft = statistics.median(_wall(lambda: run(model, x, numtoks, 1))
+                                 for _ in range(2))
+        walls = {False: [], True: []}
+        capture, warmup = [], []
+        for graph in (False, True, True, False):
+            cap0, warm0 = CapturedStep.capture_s, CapturedStep.warmup_s
+            walls[graph].append(_wall(lambda: run(model, x, numtoks,
+                                                  NEW_TOKENS, graph)) - ttft)
+            if graph:
+                capture.append(CapturedStep.capture_s - cap0)
+                warmup.append(CapturedStep.warmup_s - warm0)
+        replay_ms = statistics.median(
+            w - c - u for w, c, u in zip(walls[True], capture, warmup)) \
+            * 1e3 / (steps - 1)
+        rates = {g: [batch * steps / w for w in ws] for g, ws in walls.items()}
+        wall_ms = {g: statistics.median(ws) * 1e3 / steps
+                   for g, ws in walls.items()}
+        print(f"[{label}] {card_line()}: B={batch} numtoks={numtoks} decode "
+              f"tok/s in turns E G G E: eager {rates[False][0]:.2f}, graph "
+              f"{rates[True][0]:.2f}, graph {rates[True][1]:.2f}, eager "
+              f"{rates[False][1]:.2f}; wall ms a step eager "
+              f"{wall_ms[False]:.3f}, graph {wall_ms[True]:.3f} (replays "
+              f"alone {replay_ms:.3f}); capture "
+              f"{statistics.median(capture) * 1e3:.1f} ms, warm-up step "
+              f"{statistics.median(warmup) * 1e3:.1f} ms a request")
+        if batch != 1:
+            continue
+        base = None
+        for graph in (False, True):
+            dev_ms, base = decode_profile(
+                model, x, numtoks, label, graph, prefill=False,
+                top=8 if graph else 0, base=base)
+            alone = (f"; replays alone: device idle "
+                     f"{max(0.0, 1 - dev_ms / replay_ms):.3f}" if graph
+                     else "")
+            print(f"[{label}] {card_line()}: B={batch} numtoks={numtoks} "
+                  f"{'graph' if graph else 'eager'}: wall "
+                  f"{wall_ms[graph]:.3f} ms/step, device {dev_ms:.3f} "
+                  f"ms/step, device idle "
+                  f"{max(0.0, 1 - dev_ms / wall_ms[graph]):.3f}{alone}")
+
+
+def graph_tally() -> tuple:
+    from matryoshka_mm_torch.utils.cuda_graph import CapturedStep
+
+    return CapturedStep.captures, CapturedStep.replays
+
+
+def check_graphs(label, before, captures, replays) -> None:
+    """The run since ``before = graph_tally()`` captured and replayed as
+    many graphs as its decode steps need."""
+    got = tuple(a - b for a, b in zip(graph_tally(), before))
+    print(f"[{label}] CUDA graphs captured {got[0]}, replayed {got[1]}; "
+          f"expected {captures}, {replays}")
+    if got != (captures, replays):
+        fail(f"{label}: the decode did not replay its captured graphs as "
+             f"expected")
 
 
 def phase_slice(dev) -> dict:
@@ -1006,6 +1211,7 @@ def phase_slice(dev) -> dict:
     requests = [(1, n) for n in SCALES] + [(4, BATCH_SCALE)]
     flash_attention_lse.launches = 0
     flash_decode_attention.launches = 0
+    tally = graph_tally()
     outs = [run(model, inputs[b], n, NEW_TOKENS) for b, n in requests]
     launches = {"flash_attention": flash_attention_lse.launches,
                 "decode_attention": flash_decode_attention.launches}
@@ -1014,6 +1220,9 @@ def phase_slice(dev) -> dict:
     print(f"[slice] launches {launches} expected {want}")
     if launches != want:
         fail("the main path did not go through the kernels as expected")
+    # each request: a warm-up step, a capture, a replay for every other step
+    check_graphs("slice", tally, len(requests),
+                 len(requests) * (NEW_TOKENS - 2))
     print(f"[slice] B=1 tokens at {BATCH_SCALE}: "
           f"{outs[SCALES.index(BATCH_SCALE)][0, :12].tolist()}")
 
@@ -1023,10 +1232,13 @@ def phase_slice(dev) -> dict:
         prefill_logits(model, cfg.with_attn_impl("reference"), inputs[1],
                        BATCH_SCALE), "slice", need_same_top=False)
 
+    decode_bits(model, inputs[1], BATCH_SCALE, "slice")
+
     # ---- timings (after the counted run, which warmed everything up) ----
     for n in SCALES:
         time_requests(model, inputs[1], n, "slice", reps=(2, 1))
     time_requests(model, inputs[4], BATCH_SCALE, "slice", reps=(2, 1))
+    decode_ab(model, inputs, "slice")
     print(f"[slice] max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return {"launches": launches}
@@ -1067,6 +1279,7 @@ def phase_quant_slice(dev) -> dict:
         # ---- the counted main-path run ----
         for fn in counters.values():
             fn.launches = 0
+        tally = graph_tally()
         for b, n in requests:
             run(model, inputs[b], n, NEW_TOKENS)
         launches = {k: fn.launches for k, fn in counters.items()}
@@ -1083,6 +1296,9 @@ def phase_quant_slice(dev) -> dict:
                  f"expected")
         for k in total:
             total[k] += launches[k]
+        check_graphs(label, tally, len(requests),
+                     len(requests) * (NEW_TOKENS - 2))
+        decode_bits(model, inputs[requests[0][0]], requests[0][1], label)
 
         # ---- the kernels against dequantize-and-multiply, one prefill ----
         b, n = requests[0]
@@ -1093,7 +1309,10 @@ def phase_quant_slice(dev) -> dict:
 
         for b, n in requests:
             time_requests(model, inputs[b], n, label)
-            decode_profile(model, inputs[b], n, label)
+            # decode_ab profiles the decode at B=1 and BATCH_SCALE
+            decode_profile(model, inputs[b], n, label,
+                           decode=(b, n) != (1, BATCH_SCALE))
+        decode_ab(model, inputs, label)
         print(f"[{label}] max_memory_allocated while serving "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         del model
@@ -1367,6 +1586,7 @@ def serve_traffic(batcher, cfg, burst, late, label) -> dict:
     batcher.occupancy = {"rounds": 0, "active_rows": 0}
     batcher.admit_stats = {"solo": 0, "grouped": 0}
     batcher.events = []
+    tally = graph_tally()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     batcher._hold_admission = True          # the burst lands as one batch
@@ -1409,6 +1629,9 @@ def serve_traffic(batcher, cfg, burst, late, label) -> dict:
     if steps <= 0 or launches != want:
         fail(f"{label}: the serving path did not go through the kernels as "
              f"expected")
+    # the warm-up captured the round: every counted round is a replay
+    check_graphs(label, tally, 0,
+                 steps // batcher.chunk if batcher.cuda_graph else 0)
     print(f"[{label}] admissions {batcher.admit_stats}")
     if batcher.admit_stats["grouped"] < len(burst):
         fail(f"{label}: the burst was not admitted in groups")
@@ -1427,8 +1650,10 @@ def serve_traffic(batcher, cfg, burst, late, label) -> dict:
                                 batcher.paged.k_scale, batcher.paged.v_scale)
                     if t is not None))
     total_toks = sum(len(o) for o in outs)
-    print(f"[{label}] {card_line()}: {len(outs)} requests, {total_toks} "
-          f"tokens in {wall:.3f} s: {total_toks / wall:.2f} tok/s over the "
+    mode = "graph" if batcher.cuda_graph else "eager"
+    print(f"[{label}] {card_line()}: {mode} rounds: {len(outs)} requests, "
+          f"{total_toks} tokens in {wall:.3f} s: {total_toks / wall:.2f} "
+          f"tok/s over the "
           f"batch (prefills included); median {step_ms:.2f} ms a decode step "
           f"between the ends of consecutive rounds; TTFT p50 "
           f"{statistics.median(ttft) * 1e3:.1f} ms max {ttft[-1] * 1e3:.1f} "
@@ -1631,20 +1856,8 @@ def serve_live_checks(batcher, cfg, label) -> None:
                               use_kernel=True, generator=batcher._generator)
         torch.cuda.synchronize()
 
-    one_round()
-    kernels = profile_kernels(one_round)
-    # (the wall time inside the profiler is longer than outside it)
-    wall = _wall(one_round) * 1e3
-    dev_ms = sum(dev_us(e) for e in kernels) / 1e3
-    n_launch = sum(e.count for e in kernels)
+    kernels = round_profile(one_round, batcher, rows, label, "eager")
     chunk = batcher.chunk
-    print(f"[{label}] {card_line()}: profile of one round ({chunk} steps, "
-          f"{rows} live rows of 8): device {dev_ms / chunk:.3f} ms/step, wall "
-          f"{wall / chunk:.3f} ms/step, device idle "
-          f"{max(0.0, 1 - dev_ms / wall):.3f}, {n_launch // chunk} kernels "
-          f"a step")
-    if dev_ms <= 0:
-        print(f"[{label}] the profiler showed no device time")
     for e in sorted(kernels, key=lambda e: -dev_us(e))[:6]:
         print(f"[{label}]   {dev_us(e) / 1e3 / chunk:8.4f} "
               f"ms/step  x{e.count // chunk:4d}  {e.key[:90]}")
@@ -1654,7 +1867,83 @@ def serve_live_checks(batcher, cfg, label) -> None:
         print(f"[{label}] {card_line()}: {what} "
               f"{sum(dev_us(e) for e in mine) / 1e3 / chunk:.4f} ms/step "
               f"over {sum(e.count for e in mine) // chunk} launches a step")
+    captured_round_check(batcher, label)
+
+    def graph_round():
+        with torch.inference_mode():
+            batcher._round_graph(batcher._state())
+        torch.cuda.synchronize()
+
+    kernels = round_profile(graph_round, batcher, rows, label, "graph")
+    if not kernels:
+        fail(f"{label}: the profiler shows no kernel of a replayed round")
     batcher.shutdown()
+
+
+def round_profile(fn, batcher, rows, label, mode) -> list:
+    """One decode round (``fn``) under the profiler: device ms a step,
+    wall ms a step (host clock, outside the profiler), the device's idle
+    share, kernels and Python launch calls a step.  Returns the kernel
+    events."""
+    fn()
+    kernels, calls = profile_events(fn)
+    # (the wall time inside the profiler is longer than outside it)
+    wall = statistics.median(_wall(fn) for _ in range(3)) * 1e3
+    dev_ms = sum(dev_us(e) for e in kernels) / 1e3
+    n_launch = sum(e.count for e in kernels)
+    chunk = batcher.chunk
+    print(f"[{label}] {card_line()}: profile of one {mode} round ({chunk} "
+          f"steps, {rows} live rows of 8): device {dev_ms / chunk:.3f} "
+          f"ms/step, wall {wall / chunk:.3f} ms/step, device idle "
+          f"{max(0.0, 1 - dev_ms / wall):.3f}, {n_launch / chunk:.1f} kernels "
+          f"and {calls / chunk:.2f} Python launch calls a step")
+    if dev_ms <= 0:
+        print(f"[{label}] the profiler showed no device time")
+    return kernels
+
+
+def captured_round_check(batcher, label) -> None:
+    """One round on the live pool through the batcher's captured graph (a
+    replay), and the same round run eagerly by ``paged_pool_decode`` from
+    the same state on a copy of the pool: the tokens, the new state and the
+    pool bytes must be equal."""
+    from matryoshka_mm_torch.serve.paged_cache import (CapturedRound,
+                                                       PagedKVCache,
+                                                       paged_pool_decode)
+    from matryoshka_mm_torch.utils.cuda_graph import CapturedStep
+
+    graph = batcher._round_graph
+    if graph is None:
+        fail(f"{label}: the batcher never captured its round")
+    paged = batcher.paged
+    with torch.inference_mode():
+        state = batcher._state()
+        copy = PagedKVCache(*(None if t is None else t.clone() for t in (
+            paged.k, paged.v, paged.k_scale, paged.v_scale)))
+        replays = CapturedStep.replays
+        got_state, got = graph(state)
+        want_state, want = paged_pool_decode(
+            batcher.params["llama"], batcher.cfg.llama, batcher.gen_cfg,
+            batcher.chunk, copy, batcher.tables, state,
+            use_kernel=batcher.use_kernel, generator=batcher._generator)
+        torch.cuda.synchronize()
+    same_toks = bool(torch.equal(got, want)) and all(
+        torch.equal(a, b) for a, b in zip(CapturedRound._fields(got_state),
+                                          CapturedRound._fields(want_state)))
+    same_pool = all(
+        (a is None and b is None) or bool(torch.equal(a, b))
+        for a, b in ((paged.k, copy.k), (paged.v, copy.v),
+                     (paged.k_scale, copy.k_scale),
+                     (paged.v_scale, copy.v_scale)))
+    live = int(state.active.sum())
+    print(f"[{label}] {card_line()}: a replayed round on the live pool "
+          f"({live} live rows) against paged_pool_decode from the same "
+          f"state: tokens and state equal {same_toks}, pool bytes equal "
+          f"{same_pool}; tokens {got[state.active][:2].tolist()}")
+    if CapturedStep.replays != replays + 1 or not (same_toks and same_pool):
+        fail(f"{label}: the captured round differs from the eager round")
+    del copy
+    torch.cuda.empty_cache()
 
 
 def _short_run(model, label, requests, gen=None, **kw):
@@ -1750,9 +2039,19 @@ def phase_serving(dev) -> dict:
         for k, n in counted.items():
             launches[k] = launches.get(k, 0) + n
         serve_live_checks(batcher, cfg, label)
+        del batcher
+        torch.cuda.empty_cache()
+        # the same traffic through eager rounds, for the comparison
+        eager = ContinuousBatcher(model.params, cfg, gen_cfg=gen_cfg,
+                                  cuda_graph=False, **SERVE_KW)
+        try:
+            eager.warmup(numtoks=144)
+            serve_traffic(eager, cfg, SERVE_BURST, SERVE_LATE, label)
+        finally:
+            eager.shutdown()
         if not options:
             serve_options(model, cfg)
-        del model, batcher
+        del model, eager
     return launches
 
 # ---------------------------------------------------------------------------
@@ -2235,9 +2534,12 @@ def phase_small(dev) -> None:
     px = rng.standard_normal((2, 3, 56, 56)).astype(np.float32)
     gen_cfg = GenerationConfig(max_new_tokens=10, decode_chunk=4,
                                eos_token_id=-1)
+    tally = graph_tally()
     got = generate(params_dev, cfg, ids, px, attention_mask=mask,
                    matryoshka_vis_token_scale="ver=v0_numtoks=4",
                    gen_cfg=gen_cfg)
+    # 9 decode steps: a warm-up step, a capture, 8 replays
+    check_graphs("small", tally, 1, 8)
     want = generate(params_cpu, cfg, ids, px, attention_mask=mask,
                     matryoshka_vis_token_scale="ver=v0_numtoks=4",
                     gen_cfg=gen_cfg)
@@ -2258,7 +2560,7 @@ def phase_small(dev) -> None:
             b = ContinuousBatcher(params, cfg, max_batch=2, prefill_len=64,
                                   max_new_tokens=16, gen_cfg=gen_cfg, chunk=4,
                                   backend=backend, **kw)
-            before = counter.launches
+            before, tally = counter.launches, graph_tally()
             try:
                 b._hold_admission = True
                 reqs = [b.submit(ids[i:i + 1, 3 * i:], px[i:i + 1], numtoks=4,
@@ -2277,6 +2579,13 @@ def phase_small(dev) -> None:
                 fail(f"small model: the {backend} batcher on the {name} "
                      f"launched its decode kernel "
                      f"{counter.launches - before} times")
+            captured, replayed = (a - b for a, b in zip(graph_tally(), tally))
+            print(f"[small] {backend} batcher {name}: CUDA graphs captured "
+                  f"{captured}, replayed {replayed}")
+            if (captured, replayed > 0) != ((1, True) if name == "card"
+                                            else (0, False)):
+                fail(f"small model: the {backend} batcher on the {name} did "
+                     f"not replay a captured round")
     if any(out != got.tolist() for out in served.values()):
         fail("small model: a batcher's tokens on the card differ from the "
              "CPU's or from generate's")
@@ -2318,6 +2627,14 @@ def _to(tree, dev):
     return tree.to(dev)
 
 
+def timed(phase, dev):
+    """Run one phase; print its wall seconds."""
+    t0 = time.perf_counter()
+    out = phase(dev)
+    print(f"[time] {phase.__name__} {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main(argv=()) -> int:
     if not (REPO / "matryoshka_mm_torch" / "csrc").is_dir():
         print("chip_smoke: the matryoshka_mm_torch package is not beside "
@@ -2332,35 +2649,37 @@ def main(argv=()) -> int:
     card = phase_device()
     phase_build()
     if argv:
-        # a subset for work on one phase: `chip_smoke.py kernels quant
-        # qslice paged hbm serve bwd train small` runs phases 3 (attention
-        # kernels), 3 (quantized products), 5, 6, 7, 9, 10 and 11 alone and
-        # prints no result line
+        # a subset for work on one phase: `chip_smoke.py kernels quant slice
+        # qslice paged hbm serve smallinfer bwd train small` runs phases 3
+        # (attention kernels), 3 (quantized products), 4, 5, 6, 7, 8, 9, 10
+        # and 11 alone and prints no result line
         for name in argv:
-            {"kernels": phase_kernels, "quant": phase_quant_kernels,
+            phases = {"kernels": phase_kernels, "quant": phase_quant_kernels,
+             "slice": phase_slice, "smallinfer": phase_small,
              "qslice": phase_quant_slice, "paged": phase_paged_kernels,
              "hbm": phase_hbm, "serve": phase_serving,
              "bwd": phase_bwd_kernels, "train": phase_train,
-             "small": phase_train_small}[name](dev)
+             "small": phase_train_small}
+            timed(phases[name], dev)
         print(f"partial run {argv}: no result")
         return 1
-    rec = phase_kernels(dev)
-    rec.update(phase_quant_kernels(dev))
-    launches = phase_slice(dev)["launches"]
-    quant_launches = phase_quant_slice(dev)
+    rec = timed(phase_kernels, dev)
+    rec.update(timed(phase_quant_kernels, dev))
+    launches = timed(phase_slice, dev)["launches"]
+    quant_launches = timed(phase_quant_slice, dev)
     for k, n in quant_launches.items():
         launches[k] = launches.get(k, 0) + n
-    rec.update(phase_paged_kernels(dev))
-    hbm_rec, hbm_launches, read_gb_s = phase_hbm(dev)
+    rec.update(timed(phase_paged_kernels, dev))
+    hbm_rec, hbm_launches, read_gb_s = timed(phase_hbm, dev)
     rec.update(hbm_rec)
     launches.update(hbm_launches)
-    for k, n in phase_serving(dev).items():
+    for k, n in timed(phase_serving, dev).items():
         launches[k] = launches.get(k, 0) + n
-    phase_small(dev)
-    rec.update(phase_bwd_kernels(dev))
-    for k, n in phase_train(dev).items():
+    timed(phase_small, dev)
+    rec.update(timed(phase_bwd_kernels, dev))
+    for k, n in timed(phase_train, dev).items():
         launches[k] = launches.get(k, 0) + n
-    phase_train_small(dev)
+    timed(phase_train_small, dev)
     if [m for m in sys.modules
             if m.split(".")[0] in ("jax", "matryoshka_mm_tpu")]:
         fail("jax or the JAX package was imported")

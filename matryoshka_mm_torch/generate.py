@@ -8,7 +8,11 @@ text-only paths of ``matryoshka_mm_tpu/generate.py``.
   the new slot is valid only for unfinished rows (``attn_valid=~finished``),
   finished rows emit ``pad_token_id``, and EOS / stopping criteria are
   checked on the host once per chunk.  Output shapes equal the JAX
-  function's.
+  function's.  On a CUDA device the decode step is a captured CUDA graph
+  (:class:`DecodeGraph`, the counterpart of the JAX package's jitted
+  chunk): captured once a ``generate`` call, replayed once a step.
+  :func:`decode_chunk` is the plain version, the Python loop of the same
+  step; the CPU takes it, and so does ``generate(..., cuda_graph=False)``.
 * Token choice: greedy argmax, or temperature / top-p sampling drawn from a
   ``torch.Generator``.
 
@@ -32,6 +36,7 @@ from .config import LlavaConfig
 from .models.llama import (KVCache, embed_tokens, init_kv_cache,
                            llama_forward, lm_head)
 from .models.llava import prepare_multimodal
+from .utils.cuda_graph import CapturedStep
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,47 +140,146 @@ def _select_token(logits: torch.Tensor, gen_cfg: GenerationConfig,
         cutoff = sorted_logits.gather(-1, cutoff_idx)
         logits = logits.masked_fill(logits < cutoff, float("-inf"))
     probs = torch.softmax(logits, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0] \
-        .to(torch.int32)
+    # torch.multinomial's own draw of one sample, written out (an
+    # exponential race: the same tokens from the same generator state),
+    # which keeps multinomial's checks of the distribution out of a
+    # captured step
+    race = torch.empty_like(probs).exponential_(1, generator=generator)
+    return (probs / race).argmax(dim=-1).to(torch.int32)
+
+
+def _decode_step(params: dict, cfg: LlavaConfig, gen_cfg: GenerationConfig,
+                 cache: KVCache, token: torch.Tensor, lengths: torch.Tensor,
+                 finished: torch.Tensor,
+                 generator: Optional[torch.Generator]):
+    """One decode step -> ``(token, lengths, finished, logits (B, V) f32)``;
+    the cache advances in place."""
+    embeds = embed_tokens(params["llama"], token[:, None])
+    hidden, _ = llama_forward(
+        params["llama"], cfg.llama, embeds, position_ids=lengths[:, None],
+        attn_valid=~finished[:, None], cache=cache)
+    logits = lm_head(params["llama"], hidden[:, 0:1, :])[:, 0]
+    nxt = _select_token(logits, gen_cfg, generator)
+    nxt = torch.where(finished, gen_cfg.pad_token_id, nxt)
+    return (nxt, lengths + 1, finished | (nxt == gen_cfg.eos_token_id),
+            logits)
 
 
 @torch.inference_mode()
 def decode_chunk(params: dict, cfg: LlavaConfig, gen_cfg: GenerationConfig,
                  cache: KVCache, token: torch.Tensor, lengths: torch.Tensor,
                  finished: torch.Tensor, steps: int,
-                 generator: Optional[torch.Generator] = None):
-    """Run ``steps`` decode steps on the device with no host sync.
-    ``lengths`` is each row's next position.  Returns
-    ``(token, lengths, finished, tokens (B, steps))``; the cache advances
-    in place."""
+                 generator: Optional[torch.Generator] = None,
+                 return_logits: bool = False):
+    """Run ``steps`` decode steps on the device with no host sync: the
+    plain version of :class:`DecodeGraph`.  ``lengths`` is each row's next
+    position.  Returns ``(token, lengths, finished, tokens (B, steps))``,
+    and the last step's logits ``(B, V)`` after them with
+    ``return_logits``; the cache advances in place."""
     toks = []
     for _ in range(steps):
-        embeds = embed_tokens(params["llama"], token[:, None])
-        hidden, cache = llama_forward(
-            params["llama"], cfg.llama, embeds,
-            position_ids=lengths[:, None], attn_valid=~finished[:, None],
-            cache=cache)
-        logits = lm_head(params["llama"], hidden[:, 0:1, :])[:, 0]
-        nxt = _select_token(logits, gen_cfg, generator)
-        nxt = torch.where(finished, gen_cfg.pad_token_id, nxt)
-        finished = finished | (nxt == gen_cfg.eos_token_id)
-        lengths = lengths + 1
-        token = nxt
-        toks.append(nxt)
-    return token, lengths, finished, torch.stack(toks, dim=1)
+        token, lengths, finished, logits = _decode_step(
+            params, cfg, gen_cfg, cache, token, lengths, finished, generator)
+        toks.append(token)
+    out = (token, lengths, finished, torch.stack(toks, dim=1))
+    return out + (logits,) if return_logits else out
+
+
+class DecodeGraph:
+    """The decode step of one ``generate`` call as a captured CUDA graph:
+    the counterpart of the JAX package's jitted decode chunk
+    (``matryoshka_mm_tpu/generate.py:152``).
+
+    The step is :func:`_decode_step` over static buffers it advances in
+    place (``token``, ``lengths``, ``finished``; ``logits`` holds the last
+    step's, ``toks`` the chunk's tokens at column ``col``, a device index)
+    and over the KV cache, whose write slot is a device scalar.
+    :meth:`run` warms the step up and captures it at its first call (the
+    warm-up is the chunk's first step), then replays it once a step; the
+    cache's host count follows.  :meth:`step` is the same step run eagerly,
+    which works on any device."""
+
+    def __init__(self, params: dict, cfg: LlavaConfig,
+                 gen_cfg: GenerationConfig, cache: KVCache,
+                 token: torch.Tensor, lengths: torch.Tensor,
+                 finished: torch.Tensor,
+                 generator: Optional[torch.Generator] = None):
+        B, dev = token.shape[0], token.device
+        self._args = (params, cfg, gen_cfg, cache)
+        self.cache = cache
+        self.generator = generator
+        self.token = token.clone()
+        self.lengths = lengths.clone()
+        self.finished = finished.clone()
+        self.logits = torch.zeros((B, cfg.llama.vocab_size),
+                                  dtype=torch.float32, device=dev)
+        self.toks = torch.zeros((B, gen_cfg.decode_chunk), dtype=torch.int32,
+                                device=dev)
+        self.col = torch.zeros((1,), dtype=torch.int64, device=dev)
+        self.graph: Optional[CapturedStep] = None
+
+    @torch.inference_mode()
+    def step(self) -> None:
+        """One decode step, the buffers advanced in place."""
+        token, lengths, finished, logits = _decode_step(
+            *self._args, self.token, self.lengths, self.finished,
+            self.generator)
+        self.toks.index_copy_(1, self.col, token[:, None])
+        self.col.add_(1)
+        self.token.copy_(token)
+        self.lengths.copy_(lengths)
+        self.finished.copy_(finished)
+        self.logits.copy_(logits)
+
+    def _rewind(self) -> None:
+        # recording the step runs its Python again, the cache's host count
+        # with it, for a step that does not run then
+        self.cache.host_idx -= 1
+
+    @torch.inference_mode()
+    def run(self, steps: int) -> torch.Tensor:
+        """``steps`` decode steps on the card with no host sync -> the
+        chunk's tokens ``(B, steps)``, a view of ``toks`` that the next
+        call overwrites."""
+        cache = self.cache
+        if not 1 <= steps <= self.toks.shape[1]:
+            raise ValueError(f"DecodeGraph: {steps} steps, a chunk holds 1 "
+                             f"to {self.toks.shape[1]}")
+        if cache.host_idx + steps > cache.valid.shape[1]:
+            raise ValueError(f"KV cache full: {cache.host_idx} + {steps} > "
+                             f"{cache.valid.shape[1]}")
+        self.col.zero_()
+        done = 0
+        if self.graph is None:
+            self.graph = CapturedStep(self.step, self.token.device,
+                                      generator=self.generator,
+                                      rewind=self._rewind)
+            done = 1
+        for _ in range(steps - done):
+            self.graph.replay()
+            cache.host_idx += 1
+        return self.toks[:, :steps]
 
 
 def _decode_loop(params, cfg, gen_cfg: GenerationConfig, cache, first,
-                 lengths, generator, stopping_criteria) -> np.ndarray:
+                 lengths, generator, stopping_criteria,
+                 cuda_graph: bool) -> np.ndarray:
     finished = first == gen_cfg.eos_token_id
     out_tokens = [first.cpu().numpy()[:, None]]
     steps_done = 1
     token = first
+    graph = DecodeGraph(params, cfg, gen_cfg, cache, first, lengths,
+                        finished, generator) \
+        if cuda_graph and first.device.type == "cuda" \
+        and gen_cfg.max_new_tokens > 1 else None
     while steps_done < gen_cfg.max_new_tokens:
         nsteps = min(gen_cfg.decode_chunk, gen_cfg.max_new_tokens - steps_done)
-        token, lengths, finished, toks = decode_chunk(
-            params, cfg, gen_cfg, cache, token, lengths, finished, nsteps,
-            generator)
+        if graph is None:
+            token, lengths, finished, toks = decode_chunk(
+                params, cfg, gen_cfg, cache, token, lengths, finished,
+                nsteps, generator)
+        else:
+            toks, finished = graph.run(nsteps), graph.finished
         steps_done += nsteps
         out_tokens.append(toks.cpu().numpy())     # one sync per chunk
         if bool(finished.all()):
@@ -228,12 +332,16 @@ def generate(
     gen_cfg: GenerationConfig = GenerationConfig(),
     stopping_criteria=None,
     generator: Optional[torch.Generator] = None,
+    cuda_graph: bool = True,
 ) -> np.ndarray:
     """Generate token ids; returns the (B, <= max_new_tokens) generated
     suffixes as int32 numpy.  ``matryoshka_vis_token_scale`` is
     ``ver=v0_numtoks=N`` for a fixed scale, or None for the full grid.
     Sampling draws from ``generator`` (a new one seeded with 0 on the
-    model's device when None)."""
+    model's device when None).  On a CUDA device the decode replays a
+    captured step (:class:`DecodeGraph`) unless ``cuda_graph=False`` asks
+    for the eager loop (:func:`decode_chunk`); the CPU always takes the
+    eager loop."""
     device = _params_device(params)
     input_ids = torch.as_tensor(np.asarray(input_ids, np.int64),
                                 device=device)
@@ -260,4 +368,4 @@ def generate(
         gen_cfg)
     first = _select_token(logits, gen_cfg, generator)
     return _decode_loop(params, cfg, gen_cfg, cache, first, lengths,
-                        generator, stopping_criteria)
+                        generator, stopping_criteria, cuda_graph)

@@ -38,7 +38,8 @@ class LlavaModel:
                  max_new_tokens=128, temperature=0.0, top_p=1.0,
                  do_sample=False, eos_token_id=2, pad_token_id=0,
                  stopping_criteria=None, use_cache=True, num_beams=1,
-                 speculative=False, generator=None, decode_chunk=32, **kw):
+                 speculative=False, generator=None, decode_chunk=32,
+                 cuda_graph=True, **kw):
         from ..generate import GenerationConfig, generate
 
         if num_beams != 1:
@@ -59,7 +60,7 @@ class LlavaModel:
                         attention_mask=attention_mask,
                         matryoshka_vis_token_scale=scale, gen_cfg=gen_cfg,
                         stopping_criteria=stopping_criteria,
-                        generator=generator)
+                        generator=generator, cuda_graph=cuda_graph)
 
 
 class _ConfigView:

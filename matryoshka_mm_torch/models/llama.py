@@ -16,7 +16,13 @@ The KV cache keeps the JAX layout ``(L, B, S_max, n_kv, Dh)`` with absolute
 positions per slot, so left-padded prefill and decode share one path.
 **Cache writes update the cache tensors in place**: ``llama_forward``
 returns the same :class:`KVCache` object, advanced, and a caller that wants
-the old state must copy it first.  With ``kv_cache_dtype="int8"`` the slots
+the old state must copy it first.  The write slot is a device ``int32``
+scalar, as the JAX ``write_idx``: the K/V, scale, ``valid`` and
+``positions`` writes go through ``index_copy_`` at ``write_idx + arange(S)``,
+so a decode step holds no host integer for its slot and can be captured in
+a CUDA graph (``generate.py``).  The host keeps its own count of the same
+slot (``host_idx``) for the "KV cache full" check; nothing reads the device
+scalar back.  With ``kv_cache_dtype="int8"`` the slots
 are stored int8 with f32 per-(slot, kv head) scales ``(L, B, S_max, n_kv)``
 (the bytes of the JAX flat ``(L, B, S_max * n_kv)``, whose flat form exists
 only for the TPU compiler).
@@ -41,7 +47,7 @@ decoder layer is recomputed in the backward (``torch.utils.checkpoint``);
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -59,15 +65,35 @@ from ..ops.quant import (Q4KEY, _quantize_kv_slots, dequantize_array,
 
 @dataclasses.dataclass
 class KVCache:
-    """Fixed-capacity KV buffers for all layers, updated in place."""
+    """Fixed-capacity KV buffers for all layers, updated in place.
+
+    ``write_idx`` may be given as an int; it is kept as a () int32 tensor on
+    the cache's device, and ``host_idx`` as the host's count of the same
+    slot.  :meth:`set_write_idx` sets both."""
 
     k: torch.Tensor          # (n_layers, B, S_max, n_kv, Dh)
     v: torch.Tensor          # (n_layers, B, S_max, n_kv, Dh)
     valid: torch.Tensor      # (B, S_max) bool: filled and attendable slots
     positions: torch.Tensor  # (B, S_max) int32: absolute position per slot
-    write_idx: int = 0       # next slot to fill
+    write_idx: Union[int, torch.Tensor] = 0   # () int32: next slot to fill
     k_scale: Optional[torch.Tensor] = None   # (n_layers, B, S_max, n_kv) f32
     v_scale: Optional[torch.Tensor] = None   # int8 caches only
+    host_idx: Optional[int] = None           # the host's count of write_idx
+
+    def __post_init__(self):
+        if isinstance(self.write_idx, torch.Tensor):
+            if self.host_idx is None:
+                raise ValueError("KVCache: a device write_idx needs its "
+                                 "host_idx")
+            return
+        self.host_idx = int(self.write_idx)
+        self.write_idx = torch.full((), self.host_idx, dtype=torch.int32,
+                                    device=self.k.device)
+
+    def set_write_idx(self, n: int) -> None:
+        """Point the next write at slot ``n``, on the device and the host."""
+        self.write_idx.fill_(n)
+        self.host_idx = int(n)
 
 
 def init_kv_cache(cfg: LlamaConfig, batch: int, capacity: int, *,
@@ -189,12 +215,13 @@ def lm_head(params: dict, hidden: torch.Tensor) -> torch.Tensor:
 def _layer_forward(lp: dict, hidden: torch.Tensor, *, cfg: LlamaConfig,
                    cos, sin, q_positions, kv_valid,
                    cache: Optional[KVCache], layer_idx: int,
+                   slots: Optional[torch.Tensor] = None,
                    q_index_offset: int = 0,
                    flash_residuals: Optional[FlashResiduals] = None
                    ) -> torch.Tensor:
     """One decoder layer.  With a cache, the S new K/V slots are written in
-    place at ``cache.write_idx`` of layer ``layer_idx`` and attention reads
-    that layer's whole cache."""
+    place at the device indices ``slots`` (S,) of layer ``layer_idx`` and
+    attention reads that layer's whole cache."""
     B, S, _ = hidden.shape
     H, Hkv, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     a, m = lp["self_attn"], lp["mlp"]
@@ -218,16 +245,15 @@ def _layer_forward(lp: dict, hidden: torch.Tensor, *, cfg: LlamaConfig,
                         sliding_window=window, impl=cfg.attn_impl,
                         flash_residuals=flash_residuals)
     else:
-        w = cache.write_idx
         ck, cv = cache.k[layer_idx], cache.v[layer_idx]   # (B, S_max, Hkv, Dh)
         cks = cvs = None
         if cache.k_scale is not None:
             # int8 slots with per-(slot, head) scales
             cks, cvs = cache.k_scale[layer_idx], cache.v_scale[layer_idx]
-            ck[:, w:w + S], cks[:, w:w + S] = _quantize_kv_slots(
-                k.transpose(1, 2))
-            cv[:, w:w + S], cvs[:, w:w + S] = _quantize_kv_slots(
-                v.transpose(1, 2))
+            for c, cs, x in ((ck, cks, k), (cv, cvs, v)):
+                xq, xs = _quantize_kv_slots(x.transpose(1, 2))
+                c.index_copy_(1, slots, xq)
+                cs.index_copy_(1, slots, xs)
             if not (S == 1 and cfg.attn_impl == "auto"
                     and q.device.type == "cuda"):
                 # prefill, and the CPU: this layer's cache dequantized to
@@ -236,8 +262,8 @@ def _layer_forward(lp: dict, hidden: torch.Tensor, *, cfg: LlamaConfig,
                 cv = (cv.float() * cvs[..., None]).to(hidden.dtype)
                 cks = cvs = None
         else:
-            ck[:, w:w + S] = k.transpose(1, 2)
-            cv[:, w:w + S] = v.transpose(1, 2)
+            ck.index_copy_(1, slots, k.transpose(1, 2).to(ck.dtype))
+            cv.index_copy_(1, slots, v.transpose(1, 2).to(cv.dtype))
         if S == 1 and cfg.attn_impl == "auto":
             out = flash_decode_attention(
                 q[:, :, 0], ck, cv, cache.valid, cache.positions,
@@ -286,9 +312,9 @@ def llama_forward(
     """Run the decoder stack; returns ``(hidden_states, cache)``.
 
     Without a cache: causal self-attention over the S tokens.  With a
-    cache: the S tokens are appended at ``cache.write_idx`` (in place) and
-    attend over the whole cache; prefill (S > 1) and decode (S == 1) share
-    this path."""
+    cache: the S tokens are appended at ``cache.write_idx`` (in place, a
+    device index) and attend over the whole cache; prefill (S > 1) and
+    decode (S == 1) share this path."""
     if cfg.arch != "llama":
         raise NotImplementedError(
             f"arch={cfg.arch!r}: only 'llama' is ported (Mistral and MPT: "
@@ -299,13 +325,15 @@ def llama_forward(
                                 device=inputs_embeds.device)
     cos, sin = rope_cos_sin(position_ids, cfg.head_dim, cfg.rope_theta)
 
+    slots = None
     if cache is not None:
-        w = cache.write_idx
+        w = cache.host_idx
         if w + S > cache.valid.shape[1]:
             raise ValueError(f"KV cache full: {w} + {S} > "
                              f"{cache.valid.shape[1]}")
-        cache.valid[:, w:w + S] = attn_valid
-        cache.positions[:, w:w + S] = position_ids.to(torch.int32)
+        slots = cache.write_idx + torch.arange(S, device=cache.valid.device)
+        cache.valid.index_copy_(1, slots, attn_valid.to(torch.bool))
+        cache.positions.index_copy_(1, slots, position_ids.to(torch.int32))
         kv_valid = None
     else:
         kv_valid = attn_valid
@@ -317,7 +345,7 @@ def llama_forward(
         def layer(h, lp=lp, i=i, res=FlashResiduals() if keep_flash else None):
             return _layer_forward(
                 lp, h, cfg=cfg, cos=cos, sin=sin, q_positions=position_ids,
-                kv_valid=kv_valid, cache=cache, layer_idx=i,
+                kv_valid=kv_valid, cache=cache, layer_idx=i, slots=slots,
                 q_index_offset=q_index_offset, flash_residuals=res)
 
         # no random op in a layer, so the recompute needs no RNG state
@@ -325,5 +353,6 @@ def llama_forward(
                             preserve_rng_state=False) if remat \
             else layer(hidden)
     if cache is not None:
-        cache.write_idx += S
+        cache.write_idx.add_(S)
+        cache.host_idx += S
     return rms_norm(hidden, params["norm"], cfg.rms_norm_eps), cache

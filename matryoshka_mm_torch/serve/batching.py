@@ -24,6 +24,16 @@ time here, so what the JAX package did to bound its number of traces
 carried over; pools and row state live in tensors updated in place on the
 scheduler thread.
 
+On a CUDA device each decode round, paged or dense, replays a captured CUDA
+graph of its ``chunk`` steps (``paged_cache.CapturedRound``, captured at the
+first round on the scheduler thread): one launch a round instead of some
+2,000 a step.  ``paged_pool_decode`` and :func:`dense_pool_decode` are the
+plain versions; the CPU takes them, and so does ``cuda_graph=False``.  Two
+kinds of round stay on the eager loop in this port, chosen by mode: the
+speculative verify (``speculative_k``: a ``(B, k + 1)`` block on the gather
+path, with host-proposed drafts) and a round with a ``constraint_regex`` row
+live (its DFA tables change as patterns are installed).
+
 The paged scheduler is pipelined: round ``k + 1`` is enqueued before round
 ``k``'s tokens are fetched.  CUDA launches are asynchronous already; what
 the loop adds is that each round's results are copied to pinned host buffers
@@ -39,6 +49,7 @@ than ``arch="llama"``.
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import queue
 import threading
@@ -58,10 +69,10 @@ from ..generate import (GenerationConfig, _params_device, _round_up,
                         _select_token, prefill_image, prefill_text)
 from ..models.llama import (KVCache, embed_tokens, init_kv_cache,
                             llama_forward, lm_head)
-from .paged_cache import (PageAllocator, PoolState, _resolve_use_kernel,
-                          import_prefill, import_prefill_group,
-                          init_paged_cache, paged_pool_decode,
-                          paged_spec_verify)
+from .paged_cache import (CapturedRound, PageAllocator, PoolState,
+                          _resolve_use_kernel, import_prefill,
+                          import_prefill_group, init_paged_cache,
+                          paged_pool_decode, paged_spec_verify)
 
 
 class BatchError(RuntimeError):
@@ -115,6 +126,38 @@ class _Request:
     pending: bool = False
 
 
+@torch.inference_mode()
+def dense_pool_decode(params: dict, cfg, gen_cfg, steps: int, pool: KVCache,
+                      state: PoolState,
+                      generator: Optional[torch.Generator] = None):
+    """``steps`` batched decode steps over a dense pool whose rows share one
+    write slot -> ``(state, toks (B, steps))``: the dense round, in the
+    form of ``paged_pool_decode``.  Inactive rows are masked and emit
+    ``-1``; the pool advances in place, the state is returned new."""
+    token, lengths, budget, active = (state.tokens, state.lengths,
+                                      state.budget, state.active)
+    toks = []
+    for _ in range(steps):
+        embeds = embed_tokens(params, token[:, None])
+        hidden, _ = llama_forward(
+            params, cfg, embeds, position_ids=lengths[:, None],
+            attn_valid=active[:, None], cache=pool)
+        logits = lm_head(params, hidden[:, 0:1, :])[:, 0]
+        nxt = _select_token(logits, gen_cfg, generator)
+        # -1 marks "no token" for rows inactive this step — out of band, so
+        # a genuinely sampled pad_token_id still reaches the client and the
+        # host history stays in sync with the cache
+        toks.append(torch.where(active, nxt, torch.full_like(nxt, -1)))
+        nxt = torch.where(active, nxt,
+                          torch.full_like(nxt, gen_cfg.pad_token_id))
+        budget = torch.where(active, budget - 1, budget)
+        active = active & (nxt != gen_cfg.eos_token_id) & (budget > 0)
+        lengths = lengths + 1
+        token = nxt
+    return (PoolState(token, lengths, budget, active, state.fsm_state),
+            torch.stack(toks, dim=1))
+
+
 def _ngram_propose(ids, k: int, ngram: int):
     """Prompt-lookup draft: continue the most recent earlier occurrence of
     the trailing n-gram; pad by repeating when the match runs short."""
@@ -153,7 +196,8 @@ class ContinuousBatcher:
                  prefix_cache: bool = False, adapters: Optional[dict] = None,
                  speculative_k: int = 0, spec_ngram: int = 3,
                  fsm_vocab: Optional[list] = None, max_fsm_states: int = 64,
-                 n_pages: Optional[int] = None, pipeline_rounds: bool = True):
+                 n_pages: Optional[int] = None, pipeline_rounds: bool = True,
+                 cuda_graph: bool = True):
         if adapters:
             raise NotImplementedError(
                 "multi-LoRA serving (adapters=) is not ported yet: it needs "
@@ -174,6 +218,9 @@ class ContinuousBatcher:
         # A/B lever for the pipelined decode loop; only the paged
         # non-speculative scheduler pipelines
         self.pipeline_rounds = pipeline_rounds
+        # decode rounds replay a captured graph on a CUDA device
+        self.cuda_graph = cuda_graph and dev.type == "cuda"
+        self._round_graph: Optional[CapturedRound] = None
         self.L = _round_up(prefill_len, 64)
         self.capacity = self.L + max_new_tokens
         self.gen_cfg = gen_cfg or GenerationConfig(decode_chunk=chunk)
@@ -331,8 +378,18 @@ class ContinuousBatcher:
                              device=self.device)
         # decode tokens go behind the prefill region, which every row's
         # left-padded prompt fills
-        pool.write_idx = self.L
+        pool.set_write_idx(self.L)
         return pool
+
+    def _reset_dense_pool(self):
+        """Empty the dense pool in place, as a new one: a captured round
+        stays bound to its tensors."""
+        pool = self.pool
+        for t in (pool.k, pool.v, pool.valid, pool.positions, pool.k_scale,
+                  pool.v_scale):
+            if t is not None:
+                t.zero_()
+        pool.set_write_idx(self.L)
 
     # ---- client API ----
     def _vis_tokens(self, numtoks: Optional[int]) -> int:
@@ -491,7 +548,8 @@ class ContinuousBatcher:
                 f"end within {timeout} s; its device state is kept")
         # a shut-down batcher object that stays referenced must not pin
         # the model and the multi-GB pools
-        for attr in ("params", "paged", "pool", "fsm_allow", "fsm_trans"):
+        for attr in ("params", "paged", "pool", "fsm_allow", "fsm_trans",
+                     "_round_graph"):
             if hasattr(self, attr):
                 setattr(self, attr, None)
 
@@ -656,9 +714,15 @@ class ContinuousBatcher:
 
     def _sync_tables(self):
         """Refresh the device page-table mirror at most once per decode
-        dispatch (allocator mutations only mark it dirty)."""
+        dispatch (allocator mutations only mark it dirty).  The table is
+        copied INTO the one device tensor a captured round reads; on a CUDA
+        device from a pinned copy, asynchronously, so the round in flight
+        is not waited for."""
         if self._tables_dirty:
-            self.tables = self._upload(self.alloc.tables)
+            host = torch.from_numpy(self.alloc.tables)
+            if self.device.type == "cuda":
+                host = host.pin_memory()
+            self.tables.copy_(host, non_blocking=True)
             self._tables_dirty = False
 
     def _finish_admit(self, req: _Request, slot: int, first, length: int):
@@ -1119,44 +1183,42 @@ class ContinuousBatcher:
         self.budget, self.active = state.budget, state.active
         self.fsm_state = state.fsm_state
 
-    def _paged_round(self) -> torch.Tensor:
+    def _round_fn(self):
+        """The plain round of this backend over its pool, all but the
+        state bound."""
+        llama, lcfg = self.params["llama"], self.cfg.llama
+        if self.backend == "paged":
+            return functools.partial(
+                paged_pool_decode, llama, lcfg, self.gen_cfg, self.chunk,
+                self.paged, self.tables, use_kernel=self.use_kernel,
+                generator=self._generator)
+        return functools.partial(dense_pool_decode, llama, lcfg,
+                                 self.gen_cfg, self.chunk, self.pool,
+                                 generator=self._generator)
+
+    def _decode_round(self) -> torch.Tensor:
+        """Advance all pool rows ``chunk`` tokens; inactive rows are
+        masked.  On the card the captured round replays, except while a
+        constrained row is live: that round runs eagerly with the DFA
+        tables."""
         self.decode_steps += self.chunk
-        state, toks = paged_pool_decode(
-            self.params["llama"], self.cfg.llama, self.gen_cfg, self.chunk,
-            self.paged, self.tables, self._state(),
-            use_kernel=self.use_kernel, generator=self._generator,
-            fsm_allow=self.fsm_allow, fsm_trans=self.fsm_trans)
+        constrained = self.fsm_allow is not None and any(
+            r is not None and r.constraint is not None for r in self.slots)
+        if self.cuda_graph and not constrained:
+            if self._round_graph is None:
+                self._round_graph = CapturedRound(
+                    self._round_fn(), self.max_batch, self.chunk,
+                    self.device, generator=self._generator,
+                    cache=None if self.backend == "paged" else self.pool)
+            state, toks = self._round_graph(self._state())
+        elif self.backend == "paged":
+            state, toks = self._round_fn()(
+                self._state(), fsm_allow=self.fsm_allow,
+                fsm_trans=self.fsm_trans)
+        else:
+            state, toks = self._round_fn()(self._state())
         self._set_state(state)
         return toks
-
-    def _dense_round(self) -> torch.Tensor:
-        """Advance all pool rows ``chunk`` tokens; inactive rows are
-        masked."""
-        self.decode_steps += self.chunk
-        llama, gen_cfg = self.params["llama"], self.gen_cfg
-        token, lengths, budget, active = (self.tokens, self.lengths,
-                                          self.budget, self.active)
-        toks = []
-        for _ in range(self.chunk):
-            embeds = embed_tokens(llama, token[:, None])
-            hidden, _ = llama_forward(
-                llama, self.cfg.llama, embeds, position_ids=lengths[:, None],
-                attn_valid=active[:, None], cache=self.pool)
-            logits = lm_head(llama, hidden[:, 0:1, :])[:, 0]
-            nxt = _select_token(logits, gen_cfg, self._generator)
-            # -1 marks "no token" for rows inactive this step — out of
-            # band, so a genuinely sampled pad_token_id still reaches the
-            # client and the host history stays in sync with the cache
-            toks.append(torch.where(active, nxt, torch.full_like(nxt, -1)))
-            nxt = torch.where(active, nxt,
-                              torch.full_like(nxt, gen_cfg.pad_token_id))
-            budget = torch.where(active, budget - 1, budget)
-            active = active & (nxt != gen_cfg.eos_token_id) & (budget > 0)
-            lengths = lengths + 1
-            token = nxt
-        self.tokens, self.lengths = token, lengths
-        self.budget, self.active = budget, active
-        return torch.stack(toks, dim=1)
 
     def _host_copy(self, t: torch.Tensor) -> torch.Tensor:
         """A copy of ``t`` that later in-place updates of the row state
@@ -1208,7 +1270,7 @@ class ContinuousBatcher:
                     self._sync_tables()
                     t_round = time.perf_counter()
                     echo = self.tokens
-                    toks = self._paged_round()
+                    toks = self._decode_round()
                     new_inflight = self._snapshot(toks, echo, t_round)
                 if inflight is not None:
                     self._process_round(inflight)
@@ -1240,14 +1302,15 @@ class ContinuousBatcher:
                     self.decode_steps += 1
                     self.spec_stats["tokens_emitted"] += int(n_emit.sum())
                 else:
-                    toks = self._paged_round()
+                    toks = self._decode_round()
             else:
                 # write_idx advances pool-wide each chunk; the write region
-                # bounds the tokens decoded between resets
-                if self.pool.write_idx + self.chunk > self.capacity:
+                # bounds the tokens decoded between resets (the host's count
+                # of it is read, never the device scalar)
+                if self.pool.host_idx + self.chunk > self.capacity:
                     self._retire_all("capacity exhausted")
                     continue
-                toks = self._dense_round()
+                toks = self._decode_round()
             self._process_round(self._snapshot(toks, None, t_round))
 
     def _process_round(self, rnd: _Round):
@@ -1324,4 +1387,4 @@ class ContinuousBatcher:
                 self._retry.append(cont)
         self.active = torch.zeros_like(self.active)
         # reset the pool for a fresh write region
-        self.pool = self._new_dense_pool()
+        self._reset_dense_pool()

@@ -22,6 +22,10 @@ positions onto pages through a per-row page table.
   the plain attention.
 * :func:`import_prefill` / :func:`import_prefill_group` /
   :func:`import_dense_cache` scatter a prefill's dense cache into pages.
+* :class:`CapturedRound`: a decode round (``paged_pool_decode``, or the
+  batcher's dense round) as a captured CUDA graph over static row state,
+  the counterpart of the JAX package's jitted pool decode; the batcher
+  replays it on the card.  ``paged_pool_decode`` stays the plain version.
 
 **Inactive rows write to the trash page.**  The JAX package pushed their
 scatter index out of bounds and let XLA drop the write; an out-of-range
@@ -33,7 +37,7 @@ row whose table was recycled therefore cannot clobber a live row.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,6 +48,7 @@ from ..models.llama import (KVCache, _mlp, apply_rope, embed_tokens, lm_head,
 from ..ops.attention import attention_reference
 from ..ops.paged_attention import paged_decode_attention
 from ..ops.quant import _quantize_kv_slots
+from ..utils.cuda_graph import CapturedStep
 
 
 @dataclasses.dataclass
@@ -424,6 +429,71 @@ def paged_pool_decode(params: dict, cfg: LlamaConfig, gen_cfg, steps: int,
         token = nxt
     return (PoolState(token, row_len, budget, active, fstate),
             torch.stack(toks, dim=1))
+
+
+class CapturedRound:
+    """A decode round as a captured CUDA graph: ``round_fn(state) ->
+    (state, toks)``, for instance :func:`paged_pool_decode` with everything
+    but the state bound, over static buffers of the row state (``tokens``,
+    ``lengths``, ``budget``, ``active``) and of the round's tokens.
+
+    A call copies the state it is given into the static buffers, replays the
+    round, and returns copies of the results: like ``paged_pool_decode`` it
+    returns a new state and never writes into the tensors of the one it was
+    given (the batcher's pipelined loop reads the previous token vector
+    after the next round is enqueued).  What ``round_fn`` binds, the pools
+    and the page table, is read and written in place: the caller copies a
+    new page table INTO the bound one.  The first call warms the round up
+    and captures it; its warm-up is that call's round.  ``cache``, a dense
+    pool whose write slot advances ``steps`` a round, has its host count
+    kept.  ``fsm_state`` passes through: a round with a constrained row
+    takes the eager ``paged_pool_decode`` with its tables."""
+
+    def __init__(self, round_fn: Callable, batch: int, steps: int,
+                 device, *, generator: Optional[torch.Generator] = None,
+                 cache: Optional[KVCache] = None):
+        self.round_fn, self.steps, self.cache = round_fn, steps, cache
+        self.device, self.generator = torch.device(device), generator
+
+        def zeros(dtype):
+            return torch.zeros((batch,), dtype=dtype, device=device)
+
+        self.state = PoolState(zeros(torch.int32), zeros(torch.int32),
+                               zeros(torch.int32), zeros(torch.bool))
+        self.toks = torch.full((batch, steps), -1, dtype=torch.int32,
+                               device=device)
+        self.graph: Optional[CapturedStep] = None
+
+    @torch.inference_mode()
+    def step(self) -> None:
+        """The round over the static buffers, its results copied back."""
+        state, toks = self.round_fn(self.state)
+        for dst, src in zip(self._fields(self.state), self._fields(state)):
+            dst.copy_(src)
+        self.toks.copy_(toks)
+
+    @staticmethod
+    def _fields(state: PoolState) -> tuple:
+        return state.tokens, state.lengths, state.budget, state.active
+
+    def _rewind(self) -> None:
+        if self.cache is not None:
+            self.cache.host_idx -= self.steps
+
+    @torch.inference_mode()
+    def __call__(self, state: PoolState) -> Tuple[PoolState, torch.Tensor]:
+        for dst, src in zip(self._fields(self.state), self._fields(state)):
+            dst.copy_(src)
+        if self.graph is None:
+            self.graph = CapturedStep(self.step, self.device,
+                                      generator=self.generator,
+                                      rewind=self._rewind)
+        else:
+            self.graph.replay()
+            if self.cache is not None:
+                self.cache.host_idx += self.steps
+        new = [t.clone() for t in self._fields(self.state)]
+        return PoolState(*new, state.fsm_state), self.toks.clone()
 
 
 @torch.inference_mode()

@@ -217,7 +217,7 @@ def suffix_prefill(params: dict, cfg: LlavaConfig, k_sel: torch.Tensor,
     cache.v[:, 0, :n_prefix] = v_sel.to(dtype)
     cache.valid[:, :n_prefix] = True
     cache.positions[:, :n_prefix] = torch.arange(n_prefix, device=dev)
-    cache.write_idx = n_prefix
+    cache.set_write_idx(n_prefix)
     embeds = embed_tokens(params["llama"], suffix_ids)          # (1, s_suf, D)
     pos = n_prefix + torch.arange(s_suf, device=dev)[None]
     hidden, cache = llama_forward(

@@ -631,12 +631,32 @@ def test_flash_backward_tile_edges(dev, name, dtype):
             assert torch.all(g[0, :, :pad] == 0)
 
 
+def _kernel_names(fn, part: str) -> list:
+    """The names holding ``part`` of the kernels one call of ``fn`` ran, from
+    a ``torch.profiler`` window that opens on a synchronized device and
+    stays open 50 ms on each side of the call.  The profiler places the
+    card's timestamps on the host's clock with an offset that moves by up
+    to a few ms, and drops a kernel that lands outside the window: a window
+    held open only for the call lost its one kernel in 10 of 300 tries,
+    one with 50 ms on each side in none of 300
+    (``scripts/diag_profiler_window.py``)."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+    return sorted(e.key for e in prof.key_averages() if part in e.key)
+
+
 def test_flash_backward_design_follows_the_dtype_alone(dev):
     """bfloat16 operands launch the tensor-core kernels, float32 operands
     the f32-FMA kernels: one launch each a call, told apart by the kernel
     names in a profile."""
-    from torch.profiler import ProfilerActivity, profile
-
     names = {}
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v, do, valid = _bwd_case(dev, dtype, 128, 1, 4, 4, 130, 130, 7)
@@ -644,14 +664,12 @@ def test_flash_backward_design_follows_the_dtype_alone(dev):
         tflash.flash_attention_bwd(q, k, v, valid, out, lse, do)    # build
         counts = (tflash.flash_attention_bwd_dq.launches,
                   tflash.flash_attention_bwd_dkv.launches)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            tflash.flash_attention_bwd(q, k, v, valid, out, lse, do)
-            torch.cuda.synchronize()
+        names[dtype] = _kernel_names(
+            lambda: tflash.flash_attention_bwd(q, k, v, valid, out, lse, do),
+            "flash_bwd")
         assert (tflash.flash_attention_bwd_dq.launches,
                 tflash.flash_attention_bwd_dkv.launches) == \
             (counts[0] + 1, counts[1] + 1)
-        names[dtype] = sorted(e.key for e in prof.key_averages()
-                              if "flash_bwd" in e.key)
     assert len(names[torch.bfloat16]) == len(names[torch.float32]) == 2
     assert all("_mma_kernel" in n for n in names[torch.bfloat16])
     assert not any("_mma_kernel" in n for n in names[torch.float32])
@@ -727,19 +745,15 @@ def test_flash_forward_design_follows_the_dtype_alone(dev):
     """bfloat16 operands launch the tensor-core kernel, float32 operands
     the f32-FMA kernel: one launch a call, told apart by the kernel names
     in a profile."""
-    from torch.profiler import ProfilerActivity, profile
-
     names = {}
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v, _, valid = _bwd_case(dev, dtype, 128, 1, 4, 4, 130, 130, 7)
         tflash.flash_attention_lse(q, k, v, kv_valid=valid)         # build
         count = tflash.flash_attention_lse.launches
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            tflash.flash_attention_lse(q, k, v, kv_valid=valid)
-            torch.cuda.synchronize()
+        names[dtype] = _kernel_names(
+            lambda: tflash.flash_attention_lse(q, k, v, kv_valid=valid),
+            "flash_fwd")
         assert tflash.flash_attention_lse.launches == count + 1
-        names[dtype] = sorted(e.key for e in prof.key_averages()
-                              if "flash_fwd" in e.key)
     assert len(names[torch.bfloat16]) == len(names[torch.float32]) == 1
     assert "flash_fwd_mma_kernel" in names[torch.bfloat16][0]
     assert "_mma_kernel" not in names[torch.float32][0]
@@ -956,3 +970,292 @@ def test_hbm_copy_is_a_byte_copy_at_ragged_sizes(dev, n, reps):
     y = thbm.hbm_copy(x, reps)
     torch.cuda.synchronize()
     assert torch.equal(y, thbm.hbm_copy_plain(x))
+
+
+# ---------------------------------------------------------------------------
+# the captured decode: CUDA graphs of generate's step and the serving rounds
+# ---------------------------------------------------------------------------
+
+# (llama dtype, quantized bits, KV cache dtype) of the small model
+CAPTURE_CASES = {"f32": ("float32", 0, ""), "bf16": ("bfloat16", 0, ""),
+                 "int4_kv8": ("bfloat16", 4, "int8")}
+
+
+def _small_model(dev, dtype, bits, kv):
+    """A 4-layer model with the 7B head dim (Dh = 128), random from a
+    seed, on the card."""
+    import dataclasses
+
+    from matryoshka_mm_torch.config import LlavaConfig
+    from matryoshka_mm_torch.models.convert import init_params
+
+    base = LlavaConfig.tiny_debug()
+    cfg = dataclasses.replace(base, llama=dataclasses.replace(
+        base.llama, hidden_size=256, num_attention_heads=2,
+        num_key_value_heads=2, intermediate_size=512, dtype=dtype,
+        kv_cache_dtype=kv))
+    params = init_params(cfg, dev, seed=3)
+    if bits:
+        tq.quantize_llama_params(params, bits)
+    return cfg, params
+
+
+def _small_prompt():
+    import numpy as np
+
+    rng = np.random.default_rng(1)
+    ids = rng.integers(100, 500, (2, 12)).astype(np.int32)
+    ids[:, 4] = -200
+    ids[1, :3] = 0
+    px = rng.standard_normal((2, 3, 56, 56)).astype(np.float32)
+    return ids, px, ids != 0
+
+
+def _counts():
+    from matryoshka_mm_torch.utils.cuda_graph import launch_counters
+
+    return [fn.launches for fn in launch_counters()]
+
+
+@pytest.mark.parametrize("case", sorted(CAPTURE_CASES))
+def test_captured_generate_gives_the_eager_tokens_and_counts(dev, case):
+    """generate replays its captured step by default: the eager loop's
+    tokens, every launch counter moved by as much, one warm-up step and a
+    replay for every other decode step."""
+    import numpy as np
+
+    from matryoshka_mm_torch.generate import GenerationConfig, generate
+    from matryoshka_mm_torch.utils.cuda_graph import CapturedStep
+
+    cfg, params = _small_model(dev, *CAPTURE_CASES[case])
+    ids, px, mask = _small_prompt()
+    gen = GenerationConfig(max_new_tokens=11, decode_chunk=4,
+                           eos_token_id=-1)
+    runs = {}
+    for graph in (False, True):
+        before, replays = _counts(), CapturedStep.replays
+        out = generate(params, cfg, ids, px, attention_mask=mask,
+                       matryoshka_vis_token_scale="ver=v0_numtoks=4",
+                       gen_cfg=gen, cuda_graph=graph)
+        runs[graph] = (out, [a - b for a, b in zip(_counts(), before)],
+                       CapturedStep.replays - replays)
+    assert np.array_equal(runs[True][0], runs[False][0])
+    assert runs[True][1] == runs[False][1]
+    assert runs[False][2] == 0 and runs[True][2] == 9
+
+
+@pytest.mark.parametrize("case", sorted(CAPTURE_CASES))
+def test_decode_graph_gives_the_bits_of_decode_chunk(dev, case):
+    """From two copies of one prefill: the captured step's tokens, last
+    logits and cache bytes equal decode_chunk's."""
+    from matryoshka_mm_torch.generate import (DecodeGraph, GenerationConfig,
+                                              _prefill_dispatch,
+                                              _select_token, decode_chunk)
+
+    cfg, params = _small_model(dev, *CAPTURE_CASES[case])
+    ids, px, mask = _small_prompt()
+    gen = GenerationConfig(max_new_tokens=8, decode_chunk=7,
+                           eos_token_id=-1)
+
+    def prefill():
+        logits, cache, lengths = _prefill_dispatch(
+            params, cfg, torch.as_tensor(ids, dtype=torch.int64,
+                                         device=dev),
+            torch.as_tensor(px, device=dev), mask, 4, gen)
+        return cache, _select_token(logits, gen, None), lengths
+
+    with torch.inference_mode():
+        cache_a, first, lengths = prefill()
+        cache_b, _, _ = prefill()
+        finished = torch.zeros_like(first, dtype=torch.bool)
+        _, _, _, toks, logits = decode_chunk(
+            params, cfg, gen, cache_a, first, lengths, finished, 7,
+            return_logits=True)
+        graph = DecodeGraph(params, cfg, gen, cache_b, first, lengths,
+                            finished)
+        got = graph.run(7)
+        torch.cuda.synchronize()
+    assert torch.equal(got, toks) and torch.equal(graph.logits, logits)
+    for name in ("k", "v", "valid", "positions", "write_idx", "k_scale",
+                 "v_scale"):
+        a, b = getattr(cache_a, name), getattr(cache_b, name)
+        assert (a is None and b is None) or torch.equal(a, b), name
+    assert cache_a.host_idx == cache_b.host_idx
+
+
+def test_captured_sampling_is_seeded(dev):
+    """Temperature / top-p sampling inside the graph draws from the
+    generator registered with it: the same seed, the same tokens."""
+    from matryoshka_mm_torch.generate import GenerationConfig, generate
+
+    cfg, params = _small_model(dev, *CAPTURE_CASES["bf16"])
+    ids, px, mask = _small_prompt()
+    gen = GenerationConfig(max_new_tokens=10, decode_chunk=4, do_sample=True,
+                           temperature=0.8, top_p=0.9, eos_token_id=-1)
+
+    def run(seed):
+        return generate(params, cfg, ids, px, attention_mask=mask,
+                        matryoshka_vis_token_scale="ver=v0_numtoks=4",
+                        gen_cfg=gen,
+                        generator=torch.Generator(device=dev).manual_seed(
+                            seed))
+
+    a, b = run(7), run(7)
+    assert (a == b).all() and a.shape == (2, 10)
+    assert a.min() >= 0 and a.max() < cfg.llama.vocab_size
+
+
+@pytest.mark.parametrize("backend", ["paged", "dense"])
+def test_captured_round_gives_the_eager_round(dev, backend):
+    """Two rounds of the plain pool decode against two calls of the
+    captured round (the first warms up and captures, the second replays)
+    from copies of one pool: the same tokens, state and pool bytes, and the
+    same launch counts."""
+    import functools
+
+    import numpy as np
+
+    from matryoshka_mm_torch.generate import GenerationConfig, prefill_text
+    from matryoshka_mm_torch.serve.batching import dense_pool_decode
+    from matryoshka_mm_torch.serve.paged_cache import (
+        CapturedRound, PoolState, import_prefill_group, init_paged_cache,
+        paged_pool_decode)
+
+    cfg, params = _small_model(dev, *CAPTURE_CASES["bf16"])
+    lc, chunk, B, page = cfg.llama, 4, 3, 16
+    gen = GenerationConfig(max_new_tokens=16, decode_chunk=chunk,
+                           eos_token_id=-1)
+    g = torch.Generator(device=dev).manual_seed(2)
+    ids = torch.randint(5, lc.vocab_size, (B, 32), generator=g, device=dev)
+    mask = torch.ones((B, 32), dtype=torch.bool, device=dev)
+    mask[1, :9] = False
+
+    def pool():
+        _, dense, _ = prefill_text(params, cfg, ids, mask, 32 + 2 * chunk)
+        if backend == "dense":
+            return dense, None
+        paged = init_paged_cache(lc, 1 + 3 * B, page, device=dev)
+        tables = np.arange(1, 1 + 3 * B, dtype=np.int32).reshape(B, 3)
+        import_prefill_group(paged, dense, [0, 9, 0], tables, page)
+        return paged, torch.as_tensor(tables, device=dev)
+
+    def round_fn(p, tables):
+        if backend == "dense":
+            return functools.partial(dense_pool_decode, params["llama"], lc,
+                                     gen, chunk, p)
+        return functools.partial(paged_pool_decode, params["llama"], lc, gen,
+                                 chunk, p, tables, use_kernel=True)
+
+    lens = [32, 23, 32] if backend == "paged" else [32] * 3
+
+    def t(x, dtype):
+        return torch.tensor(x, dtype=dtype, device=dev)
+
+    state = PoolState(t([7, 8, 0], torch.int32), t(lens, torch.int32),
+                      t([16, 3, 0], torch.int32),
+                      t([True, True, False], torch.bool))
+    with torch.inference_mode():
+        pool_a, tables_a = pool()
+        pool_b, tables_b = pool()
+        before = _counts()
+        eager = round_fn(pool_a, tables_a)
+        s1, t1 = eager(state)
+        s2, t2 = eager(s1)
+        eager_counts = [a - b for a, b in zip(_counts(), before)]
+        before = _counts()
+        captured = CapturedRound(round_fn(pool_b, tables_b), B, chunk, dev,
+                                 cache=pool_b if backend == "dense" else None)
+        c1, u1 = captured(state)
+        c2, u2 = captured(c1)
+        graph_counts = [a - b for a, b in zip(_counts(), before)]
+        torch.cuda.synchronize()
+    assert torch.equal(u1, t1) and torch.equal(u2, t2)
+    for a, b in ((c1, s1), (c2, s2)):
+        for x, y in zip(CapturedRound._fields(a), CapturedRound._fields(b)):
+            assert torch.equal(x, y.to(x.dtype))
+    assert graph_counts == eager_counts and any(eager_counts)
+    for name in ("k", "v", "k_scale", "v_scale"):
+        a, b = getattr(pool_a, name), getattr(pool_b, name)
+        assert (a is None and b is None) or torch.equal(a, b), name
+    if backend == "dense":
+        assert pool_a.host_idx == pool_b.host_idx == 32 + 2 * chunk
+        assert torch.equal(pool_a.write_idx, pool_b.write_idx)
+
+
+@pytest.mark.parametrize("backend", ["paged", "dense"])
+def test_captured_batcher_gives_the_eager_streams(dev, backend):
+    """The batcher replays a captured round by default: the streams of
+    cuda_graph=False, and exact decode-attention counts (a layer a decode
+    step) either way."""
+    import numpy as np
+
+    from matryoshka_mm_torch.generate import GenerationConfig
+    from matryoshka_mm_torch.ops.decode_attention import \
+        flash_decode_attention
+    from matryoshka_mm_torch.ops.paged_attention import \
+        paged_decode_attention
+    from matryoshka_mm_torch.serve.batching import ContinuousBatcher
+    from matryoshka_mm_torch.utils.cuda_graph import CapturedStep
+
+    cfg, params = _small_model(dev, *CAPTURE_CASES["bf16"])
+    ids, px, _ = _small_prompt()
+    gen = GenerationConfig(max_new_tokens=16, decode_chunk=4,
+                           eos_token_id=-1)
+    counter = paged_decode_attention if backend == "paged" \
+        else flash_decode_attention
+    kw = dict(page_size=16) if backend == "paged" else {}
+    streams = {}
+    for graph in (False, True):
+        b = ContinuousBatcher(params, cfg, max_batch=2, prefill_len=64,
+                              max_new_tokens=16, gen_cfg=gen, chunk=4,
+                              backend=backend, cuda_graph=graph, **kw)
+        before, replays = counter.launches, CapturedStep.replays
+        try:
+            b._hold_admission = True
+            reqs = [b.submit(ids[i:i + 1, 3 * i:], px[i:i + 1], numtoks=4,
+                             max_new_tokens=10 + i) for i in range(2)]
+            b._hold_admission = False
+            streams[graph] = [np.concatenate(list(b.stream(r))).tolist()
+                              for r in reqs]
+        finally:
+            b.shutdown()
+        assert counter.launches - before == \
+            b.decode_steps * cfg.llama.num_hidden_layers
+        assert (CapturedStep.replays > replays) == graph
+    assert streams[True] == streams[False]
+    assert [len(s) for s in streams[True]] == [10, 11]
+
+
+def test_captured_batcher_sampling_is_seeded(dev):
+    """Sampled rounds replay with the batcher's generator registered with
+    the graph, which the eager prefills draw from too: two batchers (each
+    seeded 0) give the same streams, in the vocabulary."""
+    import numpy as np
+
+    from matryoshka_mm_torch.generate import GenerationConfig
+    from matryoshka_mm_torch.serve.batching import ContinuousBatcher
+    from matryoshka_mm_torch.utils.cuda_graph import CapturedStep
+
+    cfg, params = _small_model(dev, *CAPTURE_CASES["bf16"])
+    ids, px, _ = _small_prompt()
+    gen = GenerationConfig(max_new_tokens=16, decode_chunk=4, do_sample=True,
+                           temperature=0.8, top_p=0.9, eos_token_id=-1)
+    streams = []
+    for _ in range(2):
+        b = ContinuousBatcher(params, cfg, max_batch=2, prefill_len=64,
+                              max_new_tokens=16, gen_cfg=gen, chunk=4,
+                              backend="paged", page_size=16)
+        replays = CapturedStep.replays
+        try:
+            b._hold_admission = True
+            reqs = [b.submit(ids[i:i + 1, 3 * i:], px[i:i + 1], numtoks=4,
+                             max_new_tokens=12) for i in range(2)]
+            b._hold_admission = False
+            streams.append([np.concatenate(list(b.stream(r))).tolist()
+                            for r in reqs])
+        finally:
+            b.shutdown()
+        assert CapturedStep.replays > replays
+    assert streams[0] == streams[1]
+    assert all(len(s) == 12 and 0 <= min(s) and max(s) < cfg.llama.vocab_size
+               for s in streams[0])
