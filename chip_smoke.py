@@ -134,11 +134,30 @@ Phases; any failure exits non-zero, and no phase's exception is caught:
 11. small-model train steps (float32, Dh=128), the card (kernels) against
    the CPU (plain versions): an M3-MoE config with full fine-tuning and
    QLoRA over an int8 base; step-1 gradients, two steps' losses and grad
-   norms within 1e-3.
+   norms within 1e-3;
+12. checkpoints on disk at full width: debug://7b with a dense router
+   (debug://tiny-moe's router kind at 7B widths) written in the liuhaotian
+   layout, bf16 safetensors shards of at most 5 GB and a config.json with
+   the M3 `config` dict and the `mm_*` keys, to a temporary directory (bytes
+   and seconds printed), then read back by load_pretrained_model with the
+   page cache dropped first: in bf16 every leaf bit-identical and the
+   config equal, 32 greedy tokens at scale 144 and the prefill's last
+   logits bit-identical to the in-memory model's, the launch counters
+   exact; gating_probs on the card against the CPU within 1e-3 in float32
+   (the bf16 difference printed) and gateprobargmax decoding as the fixed
+   scale it picks; under load_4bit every decoder leaf bit-identical to
+   debug://7b + load_4bit, the tokens equal and the counters at phase 5's
+   counts; a seeded bf16 LoRA adapter (r=128, alpha=256, every LM
+   projection) over the directory, the merged leaves bit-identical to a
+   float32 merge done here; train._build_params from the directory
+   bit-identical to debug://7b + add_lora.  Printed with the card's name
+   and power limit: load seconds and GB/s, device memory added at the peak
+   and held, the host's RSS before and at its peak, TTFT and decode tok/s
+   of the loaded models.  The directory is removed at the end.
 
 With arguments (`python3 chip_smoke.py kernels quant slice qslice paged hbm
-serve smallinfer bwd train small`) only the build and the named phases run,
-and no result line is printed.
+serve smallinfer bwd train small ckpt`) only the build and the named phases
+run, and no result line is printed.
 
 Each kernel's record carries its bound: the larger of its bytes (inputs once,
 outputs once) over 3.35 TB/s and its operations over 989 TFLOP/s, the H100
@@ -153,7 +172,9 @@ device JSON.  Needs no network and no package beyond torch and numpy.
 from __future__ import annotations
 
 import functools
+import gc
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -2619,6 +2640,411 @@ def phase_small(dev) -> None:
              "greedy tokens")
 
 
+# ---------------------------------------------------------------------------
+# phase 12: checkpoints on disk at full width
+# ---------------------------------------------------------------------------
+
+CKPT_SHARD_BYTES = 5 * 10**9      # the largest shard, as HF writes them
+CKPT_MOE = "t=dense_ft=cls_obj=weightedlm"    # debug://tiny-moe's router
+CKPT_LORA = {"r": 128, "lora_alpha": 256}
+CKPT_GATE_TOL = 1e-3
+CKPT_SCALES = "ver=v0_numtoks=[1,9,36,144,576]"
+TOWER = "model.vision_tower.vision_tower.vision_model."
+
+
+def hf_state_dict(params, cfg) -> dict:
+    """The port's parameters under liuhaotian's LLaVA keys (views on the
+    card; the patch embedding back as the conv kernel)."""
+    lm, vis = params["llama"], params["vision_tower"]
+    sd = {"model.embed_tokens.weight": lm["embed_tokens"],
+          "model.norm.weight": lm["norm"], "lm_head.weight": lm["lm_head"]}
+    for i, layer in enumerate(lm["layers"]):
+        for k in ("input_layernorm", "post_attention_layernorm"):
+            sd[f"model.layers.{i}.{k}.weight"] = layer[k]
+        for group in ("self_attn", "mlp"):
+            for k, w in layer[group].items():
+                sd[f"model.layers.{i}.{group}.{k}.weight"] = w
+    P, D = cfg.vision.patch_size, cfg.vision.hidden_size
+    sd[TOWER + "embeddings.class_embedding"] = vis["class_embedding"]
+    sd[TOWER + "embeddings.patch_embedding.weight"] = \
+        vis["patch_embedding"].T.reshape(D, 3, P, P)
+    sd[TOWER + "embeddings.position_embedding.weight"] = \
+        vis["position_embedding"]
+    nested = {"pre_layrnorm": vis["pre_layrnorm"],
+              "post_layernorm": vis["post_layernorm"],
+              "model.router": params.get("router", {})}
+    for i, layer in enumerate(vis["layers"]):
+        nested[f"encoder.layers.{i}"] = layer
+    for j, layer in enumerate(params["mm_projector"]["layers"]):
+        nested[f"model.mm_projector.{2 * j}"] = layer
+    from matryoshka_mm_torch.train.optimizer import named_leaves
+
+    for stem, tree in nested.items():
+        prefix = "" if stem.startswith("model.") else TOWER
+        for path, t in named_leaves(tree):
+            sd[f"{prefix}{stem}.{path.replace('/', '.')}"] = t
+    return sd
+
+
+def write_safetensors(tensors: dict, path: Path) -> int:
+    """One safetensors file (the format's header, then each tensor's bytes
+    read back from the card in turn); returns the bytes written."""
+    kinds = {torch.bfloat16: "BF16", torch.float32: "F32"}
+    header, pos = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": kinds[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [pos, pos + n]}
+        pos += n
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little") + raw)
+        for t in tensors.values():
+            f.write(t.contiguous().cpu().view(torch.uint8).numpy().data)
+    return 8 + len(raw) + pos
+
+
+def write_llava_dir(params, cfg, path: Path) -> int:
+    """``params`` as a liuhaotian-layout directory: bf16 safetensors shards
+    of at most CKPT_SHARD_BYTES and a config.json with the M3 ``config``
+    dict and the ``mm_*`` keys; returns the bytes written."""
+    shards, size = [{}], 0
+    for name, t in hf_state_dict(params, cfg).items():
+        n = t.numel() * t.element_size()
+        if shards[-1] and size + n > CKPT_SHARD_BYTES:
+            shards.append({})
+            size = 0
+        shards[-1][name] = t
+        size += n
+    written = sum(write_safetensors(
+        shard, path / f"model-{i + 1:05d}-of-{len(shards):05d}.safetensors")
+        for i, shard in enumerate(shards))
+    lc, p = cfg.llama, cfg.preset
+    (path / "config.json").write_text(json.dumps({
+        "architectures": ["LlavaLlamaForCausalLM"],
+        "model_type": "llava_llama", "torch_dtype": "bfloat16",
+        **{k: getattr(lc, k) for k in (
+            "vocab_size", "hidden_size", "intermediate_size",
+            "num_hidden_layers", "num_attention_heads",
+            "num_key_value_heads", "max_position_embeddings", "rms_norm_eps",
+            "rope_theta")},
+        "mm_vision_tower": "openai/clip-vit-large-patch14-336",
+        "mm_hidden_size": cfg.mm_hidden_size,
+        "mm_projector_type": cfg.mm_projector_type,
+        "mm_vision_select_layer": cfg.vision.select_layer,
+        "mm_vision_select_feature": cfg.vision.select_feature,
+        "mm_patch_merge_type": cfg.mm_patch_merge_type,
+        "image_aspect_ratio": cfg.image_aspect_ratio,
+        "tokenizer_model_max_length": cfg.tokenizer_model_max_length,
+        "config": {"use_alternative": p.use_alternative,
+                   "projection_type": p.projection_type,
+                   "matryoshka_vis_token_scale": p.matryoshka_vis_token_scale,
+                   "moe": p.moe, "projector_loc": p.projector_loc,
+                   "lm_loss_type": p.lm_loss_type}}))
+    return written
+
+
+class PeakRss:
+    """The host's peak resident set while the block runs, sampled from
+    /proc/self/statm every 5 ms (the process's own peak, VmHWM, also holds
+    the phases before)."""
+
+    def __enter__(self):
+        self.peak, self._stop = 0, threading.Event()
+        self._thread = threading.Thread(target=self._sample)
+        self._thread.start()
+        return self
+
+    @staticmethod
+    def now() -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+    def _sample(self):
+        while True:
+            self.peak = max(self.peak, self.now())
+            if self._stop.wait(0.005):
+                return
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+
+def drop_page_cache(*dirs) -> None:
+    """Ask the kernel to drop the files' pages from the page cache, so that
+    a load reads them from the disk (posix_fadvise; no privilege needed)."""
+    for f in (f for d in dirs for f in d.iterdir() if f.is_file()):
+        fd = os.open(f, os.O_RDONLY)
+        try:
+            os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+        finally:
+            os.close(fd)
+
+
+def _same_leaves(got, want) -> list:
+    """Paths whose tensors differ in dtype, shape or any bit."""
+    from matryoshka_mm_torch.train.optimizer import named_leaves
+
+    got, want = dict(named_leaves(got)), dict(named_leaves(want))
+    if set(got) != set(want):
+        return sorted(set(got) ^ set(want))
+    return [p for p in want if not (got[p].dtype == want[p].dtype
+                                    and torch.equal(got[p], want[p]))]
+
+
+def timed_load(label, path, dev, **kw):
+    """load_pretrained_model on ``path``, timed; prints seconds, GB/s of the
+    files, the device memory it added at its peak and the host's peak
+    resident set."""
+    from matryoshka_mm_torch.models.builder import load_pretrained_model
+
+    rss_before = PeakRss.now()
+    dirs = {Path(path), Path(kw.get("model_base") or path)}
+    files = sum(f.stat().st_size for d in dirs for f in d.iterdir()
+                if f.suffix in (".safetensors", ".bin"))
+    drop_page_cache(*dirs)
+    gc.collect()                  # a dropped model's graphs free it late
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with PeakRss() as rss:
+        out = load_pretrained_model(str(path), device=str(dev), **kw)
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    print(f"[ckpt] {card_line()}: {label}: loaded {files / 1e9:.2f} GB in "
+          f"{secs:.2f} s ({files / 1e9 / secs:.2f} GB/s); device memory "
+          f"+{(torch.cuda.max_memory_allocated() - before) / 2**30:.2f} GiB "
+          f"at its peak (page cache dropped first), "
+          f"+{(torch.cuda.memory_allocated() - before) / 2**30:.2f} GiB held;"
+          f" host RSS {rss_before / 2**30:.2f} GiB before, "
+          f"{rss.peak / 2**30:.2f} GiB at its peak; tokenizer "
+          f"{type(out[0]).__name__}")
+    return out
+
+
+def counted_request(model, inputs, numtoks, counters) -> tuple:
+    """One request of the main path with the launch counters set to 0 just
+    before it and read just after."""
+    for fn in counters.values():
+        fn.launches = 0
+    out = run(model, inputs, numtoks, NEW_TOKENS)
+    return out, {k: fn.launches for k, fn in counters.items()}
+
+
+def phase_ckpt(dev) -> dict:
+    """debug://7b (with a dense router) written to disk in the liuhaotian
+    layout and read back: bf16, load_4bit, LoRA over it, train's
+    _build_params, the router's gating_probs.  Returns the launch counts of
+    the loaded models' counted requests."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from matryoshka_mm_torch.config import LlavaConfig
+    from matryoshka_mm_torch.generate import gating_probs
+    from matryoshka_mm_torch.models.builder import load_pretrained_model
+    from matryoshka_mm_torch.models.router import init_dense_gating_params
+    from matryoshka_mm_torch.ops import fused_mlp, int4_matmul
+    from matryoshka_mm_torch.ops.decode_attention import flash_decode_attention
+    from matryoshka_mm_torch.ops.flash_attention import flash_attention_lse
+    from matryoshka_mm_torch.train import train as ttrain
+    from matryoshka_mm_torch.train.optimizer import named_leaves
+
+    counters = {"int4_matmul": int4_matmul.int4_matmul,
+                "quant_mlp": fused_mlp.quant_mlp,
+                "decode_attention": flash_decode_attention,
+                "flash_attention": flash_attention_lse}
+    torch.cuda.empty_cache()
+    _, ref, _, _ = load_pretrained_model("debug://7b", device=str(dev))
+    cfg = LlavaConfig.llava_v15_7b_m3(moe=CKPT_MOE)
+    ref.cfg = cfg
+    ref.params["router"] = init_dense_gating_params(
+        torch.Generator(device=dev).manual_seed(0), cfg.mm_hidden_size,
+        len(cfg.tokscale_list), dtype=torch.bfloat16, device=dev)
+    L = cfg.llama.num_hidden_layers
+    inputs = make_inputs(cfg)
+    path = Path(tempfile.mkdtemp(prefix="m3_ckpt_"))
+    total = dict.fromkeys(counters, 0)
+    try:
+        free = shutil.disk_usage(path).free
+        t0 = time.perf_counter()
+        written = write_llava_dir(ref.params, cfg, path)
+        os.sync()
+        secs = time.perf_counter() - t0
+        print(f"[ckpt] {card_line()}: wrote {written / 1e9:.2f} GB in "
+              f"{len(list(path.glob('*.safetensors')))} bf16 safetensors "
+              f"shards in {secs:.2f} s ({written / 1e9 / secs:.2f} GB/s, "
+              f"synced) to {path}, of {free / 1e9:.1f} GB free")
+
+        # ---- bf16: every leaf, the prefill logits and 32 tokens ----
+        tok, model, _, ctx = timed_load("bf16", path, dev)
+        bad = _same_leaves(model.params, ref.params)
+        print(f"[ckpt] bf16 load: {len(list(named_leaves(model.params)))} "
+              f"leaves, {len(bad)} differ; config equal "
+              f"{model.cfg == cfg}; context_len {ctx}")
+        if bad or model.cfg != cfg:
+            fail(f"ckpt: the bf16 load is not debug://7b: {bad[:4]}")
+        want = run(ref, inputs[1], BATCH_SCALE, NEW_TOKENS)
+        got, launches = counted_request(model, inputs[1], BATCH_SCALE,
+                                        counters)
+        same_logits = torch.equal(
+            prefill_logits(model, cfg, inputs[1], BATCH_SCALE),
+            prefill_logits(ref, cfg, inputs[1], BATCH_SCALE))
+        expect = dict.fromkeys(counters, 0)
+        expect.update(flash_attention=L,
+                      decode_attention=(NEW_TOKENS - 1) * L)
+        print(f"[ckpt] bf16 load: {NEW_TOKENS} tokens at {BATCH_SCALE} "
+              f"equal {np.array_equal(got, want)}, prefill logits "
+              f"bit-identical {same_logits}; launches {launches} expected "
+              f"{expect}")
+        if not (np.array_equal(got, want) and same_logits) \
+                or launches != expect:
+            fail("ckpt: the loaded model does not answer as debug://7b")
+        for k in total:
+            total[k] += launches[k]
+        time_requests(model, inputs[1], BATCH_SCALE, "ckpt bf16",
+                      reps=(2, 1))
+
+        # ---- the router: gating_probs on the card against the CPU, in
+        # float32 (the bf16 tower rounds otherwise on the two: printed) ----
+        px = np.concatenate([inputs[1][1], inputs[4][1][:1]])
+        gate = {k: model.params[k] for k in ("vision_tower", "router")}
+        f32 = dataclasses.replace(cfg, vision=dataclasses.replace(
+            cfg.vision, dtype="float32"))
+        on_card = gating_probs(model.params, cfg, px).cpu()
+        bf16_err = float((on_card - gating_probs(_to(gate, "cpu"), cfg,
+                                                 px)).abs().max())
+        gate32 = ttrain._cast_floats(gate, torch.float32)
+        card32 = gating_probs(gate32, f32, px).cpu()
+        err = float((card32 - gating_probs(_to(gate32, "cpu"), f32,
+                                           px)).abs().max())
+        print(f"[ckpt] gating_probs (bf16) {on_card.tolist()}; float32 "
+              f"weights, card against CPU: within {err:.2e} (tolerance "
+              f"{CKPT_GATE_TOL}); bf16, card against CPU: {bf16_err:.2e}; "
+              f"bf16 against float32 on the card: "
+              f"{float((on_card - card32).abs().max()):.2e}")
+        if not err <= CKPT_GATE_TOL:
+            fail("ckpt: gating_probs on the card leave the CPU's")
+        del gate32
+        pick = cfg.tokscale_list[int(on_card[0].argmax())]
+        gated = run(model, inputs[1], "gateprobargmax", NEW_TOKENS)
+        fixed = run(model, inputs[1], pick, NEW_TOKENS)
+        print(f"[ckpt] gateprobargmax picked {pick}: tokens equal the "
+              f"fixed scale's {np.array_equal(gated, fixed)}")
+        if not np.array_equal(gated, fixed):
+            fail("ckpt: gateprobargmax did not decode at the router's pick")
+        del model
+
+        # ---- load_4bit: every quantized leaf and 32 tokens ----
+        _, model, _, _ = timed_load("load_4bit", path, dev, load_4bit=True)
+        _, ref4, _, _ = load_pretrained_model("debug://7b", device=str(dev),
+                                              load_4bit=True)
+        bad = _same_leaves(model.params["llama"], ref4.params["llama"])
+        want = run(ref4, inputs[1], BATCH_SCALE, NEW_TOKENS)
+        del ref4
+        got, launches = counted_request(model, inputs[1], BATCH_SCALE,
+                                        counters)
+        steps = NEW_TOKENS - 1
+        expect = {"int4_matmul": (4 * L + 1) + steps * (2 * L + 1),
+                  "quant_mlp": steps * L, "decode_attention": steps * L,
+                  "flash_attention": L}
+        print(f"[ckpt] load_4bit: {len(bad)} decoder leaves differ from "
+              f"debug://7b + load_4bit; tokens equal "
+              f"{np.array_equal(got, want)}; launches {launches} expected "
+              f"{expect}")
+        if bad or not np.array_equal(got, want) or launches != expect:
+            fail("ckpt: the load_4bit load is not debug://7b + load_4bit")
+        for k in total:
+            total[k] += launches[k]
+        time_requests(model, inputs[1], BATCH_SCALE, "ckpt load_4bit",
+                      reps=(2, 1))
+        del model
+
+        # ---- LoRA over the directory ----
+        lora = path / "lora"
+        lora.mkdir()
+        targets = [(f"model.layers.{i}.{g}.{k}", w)
+                   for i, layer in enumerate(ref.params["llama"]["layers"])
+                   for g in ("self_attn", "mlp")
+                   for k, w in layer[g].items()]
+        gen = torch.Generator(device=dev).manual_seed(3)
+        r = CKPT_LORA["r"]
+        adapter = {}
+        for stem, w in targets:
+            adapter[f"base_model.model.{stem}.lora_A.weight"] = torch.randn(
+                r, w.shape[1], generator=gen, device=dev).mul_(0.01).to(
+                torch.bfloat16)
+            adapter[f"base_model.model.{stem}.lora_B.weight"] = torch.randn(
+                w.shape[0], r, generator=gen, device=dev).mul_(0.01).to(
+                torch.bfloat16)
+        n_adapter = sum(t.numel() for t in adapter.values())
+        torch.save({k: v.cpu() for k, v in adapter.items()},
+                   lora / "adapter_model.bin")
+        (lora / "adapter_config.json").write_text(json.dumps(
+            {**CKPT_LORA, "target_modules": sorted(
+                {s.rsplit(".", 1)[1] for s, _ in targets})}))
+        shutil.copy(path / "config.json", lora / "config.json")
+        print(f"[ckpt] LoRA adapter: {n_adapter / 1e6:.1f} M parameters "
+              f"(r={r}) over {len(targets)} projections")
+        _, model, _, _ = timed_load("LoRA over the directory", lora, dev,
+                                    model_base=str(path))
+        scaling = CKPT_LORA["lora_alpha"] / r
+        merged = dict(named_leaves(model.params["llama"]))
+        bad = []
+        for stem, w in targets:
+            a = adapter[f"base_model.model.{stem}.lora_A.weight"]
+            b = adapter[f"base_model.model.{stem}.lora_B.weight"]
+            want_w = (w.float() + scaling * (b.float() @ a.float())).to(
+                torch.bfloat16)
+            leaf = stem[len("model."):].replace(".", "/")
+            if not torch.equal(merged.pop(leaf), want_w):
+                bad.append(leaf)
+        ref_rest = {p: t for p, t in named_leaves(ref.params["llama"])
+                    if p in merged}
+        bad += _same_leaves(merged, ref_rest)
+        bad += _same_leaves({k: v for k, v in model.params.items()
+                             if k != "llama"},
+                            {k: v for k, v in ref.params.items()
+                             if k != "llama"})
+        print(f"[ckpt] LoRA: {len(targets)} merged leaves against the "
+              f"float32 merge here, the rest against debug://7b: "
+              f"{len(bad)} differ")
+        if bad:
+            fail(f"ckpt: the LoRA load differs: {bad[:4]}")
+        del model, adapter
+
+        # ---- train._build_params from the directory ----
+        margs, dargs, targs = ttrain.parse_args_into_dataclasses(
+            (ttrain.ModelArguments, ttrain.DataArguments,
+             ttrain.TrainingArguments),
+            ["--model_name_or_path", str(path), "--lora_enable", "True",
+             "--lora_r", "128", "--lora_alpha", "256", "--bits", "0",
+             "--matryoshka_vis_token_scale", CKPT_SCALES])
+        tcfg = ttrain.build_llava_config(margs, targs, dargs)
+        t0 = time.perf_counter()
+        params, tcfg = ttrain._build_params(margs, targs, tcfg, dev)
+        torch.cuda.synchronize()
+        from matryoshka_mm_torch.ops.lora import add_lora
+
+        want_p = add_lora(ref.params, torch.Generator(device=dev).manual_seed(
+            targs.seed + 1), r=targs.lora_r, alpha=float(targs.lora_alpha))
+        bad = _same_leaves(params, want_p)
+        print(f"[ckpt] train._build_params from the directory in "
+              f"{time.perf_counter() - t0:.2f} s: "
+              f"{len(list(named_leaves(params)))} leaves, {len(bad)} differ "
+              f"from debug://7b + add_lora; remat {tcfg.llama.remat}, "
+              f"scales {tcfg.tokscale_list}")
+        if bad or not tcfg.llama.remat or tcfg.tokscale_list != list(SCALES):
+            fail(f"ckpt: _build_params differs from debug://7b: {bad[:4]}")
+        del params, want_p
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    return total
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
@@ -2650,16 +3076,16 @@ def main(argv=()) -> int:
     phase_build()
     if argv:
         # a subset for work on one phase: `chip_smoke.py kernels quant slice
-        # qslice paged hbm serve smallinfer bwd train small` runs phases 3
-        # (attention kernels), 3 (quantized products), 4, 5, 6, 7, 8, 9, 10
-        # and 11 alone and prints no result line
+        # qslice paged hbm serve smallinfer bwd train small ckpt` runs
+        # phases 3 (attention kernels), 3 (quantized products), 4, 5, 6, 7,
+        # 8, 9, 10, 11 and 12 alone and prints no result line
         for name in argv:
             phases = {"kernels": phase_kernels, "quant": phase_quant_kernels,
              "slice": phase_slice, "smallinfer": phase_small,
              "qslice": phase_quant_slice, "paged": phase_paged_kernels,
              "hbm": phase_hbm, "serve": phase_serving,
              "bwd": phase_bwd_kernels, "train": phase_train,
-             "small": phase_train_small}
+             "small": phase_train_small, "ckpt": phase_ckpt}
             timed(phases[name], dev)
         print(f"partial run {argv}: no result")
         return 1
@@ -2680,6 +3106,8 @@ def main(argv=()) -> int:
     for k, n in timed(phase_train, dev).items():
         launches[k] = launches.get(k, 0) + n
     timed(phase_train_small, dev)
+    for k, n in timed(phase_ckpt, dev).items():
+        launches[k] = launches.get(k, 0) + n
     if [m for m in sys.modules
             if m.split(".")[0] in ("jax", "matryoshka_mm_tpu")]:
         fail("jax or the JAX package was imported")

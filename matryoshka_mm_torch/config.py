@@ -152,6 +152,15 @@ class M3Preset:
         return cls(**{k: v for k, v in d.items() if k in known})
 
 
+def router_features(preset: M3Preset) -> Tuple[str, ...]:
+    """The router's feature taps: the ``ft=`` key of the ``moe`` string
+    (the reference reads them there, not from a config field)."""
+    if not preset.moe:
+        return ()
+    ft = parse_kv_from_string(preset.moe).get("ft")
+    return tuple(str(ft).split(",")) if ft else ()
+
+
 @dataclasses.dataclass(frozen=True)
 class LlavaConfig:
     llama: LlamaConfig = dataclasses.field(default_factory=LlamaConfig)

@@ -15,10 +15,12 @@ text-only paths of ``matryoshka_mm_tpu/generate.py``.
   step; the CPU takes it, and so does ``generate(..., cuda_graph=False)``.
 * Token choice: greedy argmax, or temperature / top-p sampling drawn from a
   ``torch.Generator``.
+* ``numtoks=gateprobargmax``: the M3-MoE router picks the scale of a B=1
+  request (:func:`gating_probs`, the argmax over ``cfg.tokscale_list``).
 
 Not ported yet; each raises ``NotImplementedError`` naming its ROADMAP.md
-item: ``ver=v2`` combine-logits, ``numtoks=gateprobargmax``, anyres tiles,
-multi-image prompts, beam search, speculative decoding.
+item: ``ver=v2`` combine-logits, anyres tiles, multi-image prompts, beam
+search, speculative decoding.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ from .kvconfig import parse_kv_from_string
 from .config import LlavaConfig
 from .models.llama import (KVCache, embed_tokens, init_kv_cache,
                            llama_forward, lm_head)
-from .models.llava import prepare_multimodal
+from .models.llava import encode_images, prepare_multimodal, router_forward
 from .utils.cuda_graph import CapturedStep
 
 
@@ -304,7 +306,11 @@ def _trim(tokens: np.ndarray, gen_cfg: GenerationConfig) -> np.ndarray:
 # public API
 # ---------------------------------------------------------------------------
 
-def _parse_scale(spec: Optional[str]) -> Optional[int]:
+GATE = "gateprobargmax"
+
+
+def _parse_scale(spec: Optional[str]):
+    """The fixed scale of ``spec``, None for the full grid, or ``GATE``."""
     if not spec:
         return None
     kvs = parse_kv_from_string(spec)
@@ -312,11 +318,22 @@ def _parse_scale(spec: Optional[str]) -> Optional[int]:
         raise NotImplementedError(
             "ver=v2 combine-logits decoding is not ported yet (ROADMAP.md "
             "Queue 1, item 4)")
-    if kvs["numtoks"] == "gateprobargmax":
-        raise NotImplementedError(
-            "numtoks=gateprobargmax (the router picks the scale while "
-            "decoding) is not ported yet (ROADMAP.md Queue 1, item 4)")
+    if kvs["numtoks"] == GATE:
+        return GATE
     return int(kvs["numtoks"])
+
+
+@torch.inference_mode()
+def gating_probs(params: dict, cfg: LlavaConfig,
+                 pixel_values) -> Optional[torch.Tensor]:
+    """(B, K) float32 router probabilities over ``cfg.tokscale_list``: the
+    CLIP tower once, then the router; None when the config is not
+    M3-MoE."""
+    device = params["vision_tower"]["class_embedding"].device
+    px = torch.as_tensor(np.asarray(pixel_values, np.float32)) \
+        if not isinstance(pixel_values, torch.Tensor) else pixel_values
+    px = px.to(device=device, dtype=torch.float32)
+    return router_forward(params, cfg, encode_images(params, cfg, px))
 
 
 @torch.inference_mode()
@@ -336,7 +353,9 @@ def generate(
 ) -> np.ndarray:
     """Generate token ids; returns the (B, <= max_new_tokens) generated
     suffixes as int32 numpy.  ``matryoshka_vis_token_scale`` is
-    ``ver=v0_numtoks=N`` for a fixed scale, or None for the full grid.
+    ``ver=v0_numtoks=N`` for a fixed scale, ``ver=v0_numtoks=gateprobargmax``
+    for the router's pick (B=1, M3-MoE configs), or None for the full
+    grid.
     Sampling draws from ``generator`` (a new one seeded with 0 on the
     model's device when None).  On a CUDA device the decode replays a
     captured step (:class:`DecodeGraph`) unless ``cuda_graph=False`` asks
@@ -362,6 +381,14 @@ def generate(
                 "multi-image prompts are not ported yet (ROADMAP.md "
                 "Queue 1, item 8)")
         pixel_values = torch.as_tensor(pv, device=device)
+    if numtoks == GATE:
+        if B != 1:
+            raise ValueError("gateprobargmax supports batch_size=1 only")
+        if pixel_values is None or not cfg.is_m3_moe:
+            raise ValueError("gateprobargmax needs an image and an M3-MoE "
+                             "config (its router picks the scale)")
+        gp = gating_probs(params, cfg, pixel_values)
+        numtoks = cfg.tokscale_list[int(gp[0].argmax())]
 
     logits, cache, lengths = _prefill_dispatch(
         params, cfg, input_ids, pixel_values, attention_mask, numtoks,

@@ -1,5 +1,8 @@
 """Parameters of the PyTorch port: the bridge from the JAX package's
-parameter pytree, and the port's own random initialisation.
+parameter pytree, the port's own random initialisation, and the
+conversion of HF / LLaVA state dicts (:func:`convert_llava_state`, the
+JAX ``models/convert.py`` mapping, with :func:`merge_lora` for LoRA
+adapters).
 
 Port layout (plain dicts of tensors):
 
@@ -24,7 +27,8 @@ Port layout (plain dicts of tensors):
 
 from __future__ import annotations
 
-from typing import Optional
+import re
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -103,80 +107,257 @@ def params_from_jax(np_tree: dict, cfg: LlavaConfig, device="cuda",
     return out
 
 
+def _llama_tree(lc, make) -> dict:
+    """The decoder's parameter tree, each leaf ``make(kind, shape, dtype)``
+    with ``kind`` one of ``"normal"``, ``"ones"``, ``"zeros"``."""
+    dt = torch_dtype(lc.dtype)
+    D, I = lc.hidden_size, lc.intermediate_size
+    H, Hkv, Dh = lc.num_attention_heads, lc.num_key_value_heads, lc.head_dim
+    llama = {
+        "embed_tokens": make("normal", (lc.vocab_size, D), dt),
+        "layers": [{
+            "input_layernorm": make("ones", (D,), dt),
+            "post_attention_layernorm": make("ones", (D,), dt),
+            "self_attn": {"q_proj": make("normal", (H * Dh, D), dt),
+                          "k_proj": make("normal", (Hkv * Dh, D), dt),
+                          "v_proj": make("normal", (Hkv * Dh, D), dt),
+                          "o_proj": make("normal", (D, H * Dh), dt)},
+            "mlp": {"gate_proj": make("normal", (I, D), dt),
+                    "up_proj": make("normal", (I, D), dt),
+                    "down_proj": make("normal", (D, I), dt)},
+        } for _ in range(lc.num_hidden_layers)],
+        "norm": make("ones", (D,), dt),
+    }
+    if not lc.tie_word_embeddings:
+        llama["lm_head"] = make("normal", (lc.vocab_size, D), dt)
+    return llama
+
+
+def _dense(make, out_dim, in_dim, dtype) -> dict:
+    return {"weight": make("normal", (out_dim, in_dim), dtype),
+            "bias": make("zeros", (out_dim,), dtype)}
+
+
+def _vision_tree(vc, make) -> dict:
+    """The CLIP tower's parameter tree (``make`` as in :func:`_llama_tree`)."""
+    dt = torch_dtype(vc.dtype)
+    VD, VI, P = vc.hidden_size, vc.intermediate_size, vc.patch_size
+
+    def ln():
+        return {"weight": make("ones", (VD,), dt),
+                "bias": make("zeros", (VD,), dt)}
+
+    return {
+        "class_embedding": make("normal", (VD,), dt),
+        "patch_embedding": make("normal", (3 * P * P, VD), dt),
+        "position_embedding": make("normal", (vc.num_positions, VD), dt),
+        "pre_layrnorm": ln(),
+        "layers": [{
+            "layer_norm1": ln(),
+            "self_attn": {n: _dense(make, VD, VD, dt)
+                          for n in ("q_proj", "k_proj", "v_proj",
+                                    "out_proj")},
+            "layer_norm2": ln(),
+            "mlp": {"fc1": _dense(make, VI, VD, dt),
+                    "fc2": _dense(make, VD, VI, dt)},
+        } for _ in range(vc.num_hidden_layers)],
+        "post_layernorm": ln(),
+    }
+
+
+def _projector_tree(cfg: LlavaConfig, make) -> dict:
+    D, dt = cfg.llama.hidden_size, torch_dtype(cfg.llama.dtype)
+    depth = projector_depth(cfg.mm_projector_type)
+    return {"layers": [_dense(make, D, cfg.mm_hidden_size if i == 0 else D,
+                              dt)
+                       for i in range(depth)]} if depth else {}
+
+
+def _random_maker(gen: torch.Generator, device):
+    """normal(0, 0.02), ones and zeros made on ``device`` from ``gen``."""
+    def make(kind, shape, dtype):
+        if kind == "normal":
+            return torch.randn(shape, generator=gen, device=device,
+                               dtype=dtype).mul_(0.02)
+        fill = torch.ones if kind == "ones" else torch.zeros
+        return fill(shape, dtype=dtype, device=device)
+    return make
+
+
 def init_params(cfg: LlavaConfig, device="cuda", seed: int = 0) -> dict:
     """Random parameters made on ``device`` (the card unless the caller
     names the CPU) with a seeded ``torch.Generator`` (normal(0, 0.02) dense
     weights, unit norms, zero biases), so a 7B model never crosses from the
     host."""
-    gen = torch.Generator(device=device).manual_seed(seed)
-
-    def normal(shape, dtype):
-        return torch.randn(shape, generator=gen, device=device,
-                           dtype=dtype).mul_(0.02)
-
-    def ones(n, dtype):
-        return torch.ones(n, dtype=dtype, device=device)
-
-    def zeros(n, dtype):
-        return torch.zeros(n, dtype=dtype, device=device)
-
-    lc, vc = cfg.llama, cfg.vision
-    ldt, vdt = torch_dtype(lc.dtype), torch_dtype(vc.dtype)
-    D, I = lc.hidden_size, lc.intermediate_size
-    H, Hkv, Dh = lc.num_attention_heads, lc.num_key_value_heads, lc.head_dim
-    llama = {
-        "embed_tokens": normal((lc.vocab_size, D), ldt),
-        "layers": [{
-            "input_layernorm": ones(D, ldt),
-            "post_attention_layernorm": ones(D, ldt),
-            "self_attn": {"q_proj": normal((H * Dh, D), ldt),
-                          "k_proj": normal((Hkv * Dh, D), ldt),
-                          "v_proj": normal((Hkv * Dh, D), ldt),
-                          "o_proj": normal((D, H * Dh), ldt)},
-            "mlp": {"gate_proj": normal((I, D), ldt),
-                    "up_proj": normal((I, D), ldt),
-                    "down_proj": normal((D, I), ldt)},
-        } for _ in range(lc.num_hidden_layers)],
-        "norm": ones(D, ldt),
-    }
-    if not lc.tie_word_embeddings:
-        llama["lm_head"] = normal((lc.vocab_size, D), ldt)
-
-    VD, VI, P = vc.hidden_size, vc.intermediate_size, vc.patch_size
-
-    def dense(out_dim, in_dim, dtype):
-        return {"weight": normal((out_dim, in_dim), dtype),
-                "bias": zeros(out_dim, dtype)}
-
-    def ln():
-        return {"weight": ones(VD, vdt), "bias": zeros(VD, vdt)}
-
-    vision = {
-        "class_embedding": normal((VD,), vdt),
-        "patch_embedding": normal((3 * P * P, VD), vdt),
-        "position_embedding": normal((vc.num_positions, VD), vdt),
-        "pre_layrnorm": ln(),
-        "layers": [{
-            "layer_norm1": ln(),
-            "self_attn": {n: dense(VD, VD, vdt)
-                          for n in ("q_proj", "k_proj", "v_proj",
-                                    "out_proj")},
-            "layer_norm2": ln(),
-            "mlp": {"fc1": dense(VI, VD, vdt), "fc2": dense(VD, VI, vdt)},
-        } for _ in range(vc.num_hidden_layers)],
-        "post_layernorm": ln(),
-    }
     from .llava import router_embed_dim
 
-    depth = projector_depth(cfg.mm_projector_type)
-    proj = {"layers": [dense(D, cfg.mm_hidden_size if i == 0 else D, ldt)
-                       for i in range(depth)]} if depth else {}
-    params = {"llama": llama, "vision_tower": vision, "mm_projector": proj}
+    gen = torch.Generator(device=device).manual_seed(seed)
+    make = _random_maker(gen, device)
+    params = {"llama": _llama_tree(cfg.llama, make),
+              "vision_tower": _vision_tree(cfg.vision, make),
+              "mm_projector": _projector_tree(cfg, make)}
     if cfg.is_m3_moe and parse_kv_from_string(cfg.preset.moe).get("t") \
             == "dense":
         params["router"] = init_dense_gating_params(
             gen, router_embed_dim(cfg), len(cfg.tokscale_list), device=device)
     return params
+
+
+def random_vision_tower(cfg: LlavaConfig, device="cuda",
+                        seed: int = 0) -> dict:
+    """A random CLIP tower made on ``device`` from ``seed``, as
+    :func:`init_params` makes one (for checkpoints that ship none)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return _vision_tree(cfg.vision, _random_maker(gen, device))
+
+
+# ---------------------------------------------------------------------------
+# HF / LLaVA state dicts (the JAX package's convert_clip_vision,
+# convert_llama, convert_projector, convert_router and
+# convert_llava_checkpoint, streamed one tensor at a time)
+# ---------------------------------------------------------------------------
+
+TOWER_PREFIX = "model.vision_tower.vision_tower.vision_model."
+
+_HF_KEYS = [(re.compile(p), fn) for p, fn in (
+    (r"model\.embed_tokens\.weight", lambda m: ("llama", "embed_tokens")),
+    (r"model\.norm\.weight", lambda m: ("llama", "norm")),
+    (r"lm_head\.weight", lambda m: ("llama", "lm_head")),
+    (r"model\.layers\.(\d+)\.(input_layernorm|post_attention_layernorm)"
+     r"\.weight", lambda m: ("llama", "layers", int(m[1]), m[2])),
+    (r"model\.layers\.(\d+)\.(self_attn)\.([qkvo]_proj)\.weight",
+     lambda m: ("llama", "layers", int(m[1]), m[2], m[3])),
+    (r"model\.layers\.(\d+)\.(mlp)\.(gate_proj|up_proj|down_proj)"
+     r"\.weight", lambda m: ("llama", "layers", int(m[1]), m[2], m[3])),
+    (re.escape(TOWER_PREFIX) + r"embeddings\.class_embedding",
+     lambda m: ("vision_tower", "class_embedding")),
+    (re.escape(TOWER_PREFIX) + r"embeddings\.patch_embedding\.weight",
+     lambda m: ("vision_tower", "patch_embedding")),
+    (re.escape(TOWER_PREFIX) + r"embeddings\.position_embedding\.weight",
+     lambda m: ("vision_tower", "position_embedding")),
+    (re.escape(TOWER_PREFIX) + r"(pre_layrnorm|post_layernorm)\."
+     r"(weight|bias)", lambda m: ("vision_tower", m[1], m[2])),
+    (re.escape(TOWER_PREFIX) + r"encoder\.layers\.(\d+)\."
+     r"(layer_norm1|layer_norm2)\.(weight|bias)",
+     lambda m: ("vision_tower", "layers", int(m[1]), m[2], m[3])),
+    (re.escape(TOWER_PREFIX) + r"encoder\.layers\.(\d+)\.(self_attn)\."
+     r"(q_proj|k_proj|v_proj|out_proj)\.(weight|bias)",
+     lambda m: ("vision_tower", "layers", int(m[1]), m[2], m[3], m[4])),
+    (re.escape(TOWER_PREFIX) + r"encoder\.layers\.(\d+)\.(mlp)\."
+     r"(fc1|fc2)\.(weight|bias)",
+     lambda m: ("vision_tower", "layers", int(m[1]), m[2], m[3], m[4])),
+    # a bare nn.Linear, or a Sequential with the Linears at even indices
+    (r"model\.mm_projector\.(weight|bias)",
+     lambda m: ("mm_projector", "layers", 0, m[1])),
+    (r"model\.mm_projector\.(\d*[02468])\.(weight|bias)",
+     lambda m: ("mm_projector", "layers", int(m[1]) // 2, m[2])),
+    (r"model\.router\.(fc1|fc2)\.(weight|bias)",
+     lambda m: ("router", m[1], m[2])),
+    (r"model\.image_newline", lambda m: ("image_newline",)),
+)]
+
+
+def hf_param_path(key: str) -> Optional[tuple]:
+    """The port's tree path of a HF / LLaVA state-dict key, or None for a
+    key the JAX conversion does not read (``rotary_emb.inv_freq``,
+    ``position_ids``, ...)."""
+    for pat, fn in _HF_KEYS:
+        m = pat.fullmatch(key)
+        if m:
+            return fn(m)
+    return None
+
+
+def convert_llava_state(items, cfg: LlavaConfig, device="cuda") -> dict:
+    """``(key, tensor)`` pairs of a LLaVA state dict (any device) -> port
+    parameters on ``device``, each tensor moved there and its float leaves
+    cast to bf16 one at a time (the JAX loader's ``cast_pytree``).  Keys keep their HF names and
+    ``(out, in)`` orientation; the conv kernel of the patch embedding
+    becomes the ``(3*P*P, D)`` matrix.  Every leaf of the config's
+    decoder and projector must come; the CLIP tower is left out when no
+    key of it comes (the caller then makes one), else it must be whole; a
+    missing ``lm_head`` means tied embeddings; ``router`` and
+    ``image_newline`` are kept when present.  Keys of layers the config
+    does not have are skipped, as the JAX conversion skips them."""
+    def meta(kind, shape, dt):
+        return torch.empty(shape, dtype=dt, device="meta")
+
+    params = {"llama": _llama_tree(cfg.llama, meta),
+              "vision_tower": _vision_tree(cfg.vision, meta),
+              "mm_projector": _projector_tree(cfg, meta)}
+    params["llama"].pop("lm_head", None)
+    for key, t in items:
+        path = hf_param_path(key)
+        if path is None:
+            continue
+        if path[0] in ("router", "image_newline") or path[-1] == "lm_head":
+            parent, want = params, None
+            for part in path[:-1]:
+                parent = parent.setdefault(part, {})
+            if path[-1] == "lm_head":
+                want = (cfg.llama.vocab_size, cfg.llama.hidden_size)
+        else:
+            parent = _parent(params, path)
+            if parent is None:
+                continue        # a layer the config does not have
+            want = parent[path[-1]].shape
+        t = t.to(device, copy=True)      # never a view of the file
+        if t.is_floating_point():
+            t = t.to(torch.bfloat16)
+        if path[-1] == "patch_embedding":
+            t = t.reshape(t.shape[0], -1).T.contiguous()
+        if want is not None and t.shape != want:
+            raise ValueError(f"{key}: shape {tuple(t.shape)}, the config "
+                             f"needs {tuple(want)}")
+        parent[path[-1]] = t
+    from ..train.optimizer import named_leaves
+
+    if all(leaf.is_meta for _, leaf in named_leaves(params["vision_tower"])):
+        del params["vision_tower"]
+    missing = [p for p, leaf in named_leaves(params) if leaf.is_meta]
+    if missing:
+        raise ValueError(f"the checkpoint lacks {len(missing)} parameters "
+                         f"of the config, e.g. {missing[:4]}")
+    return params
+
+
+def _parent(params: dict, path: tuple) -> Optional[dict]:
+    """The dict that holds ``path``'s leaf in ``params``, or None when the
+    tree has no such leaf."""
+    node = params
+    for part in path[:-1]:
+        if isinstance(node, list):
+            node = node[part] if part < len(node) else None
+        else:
+            node = node.get(part)
+        if node is None:
+            return None
+    return node if path[-1] in node else None
+
+
+def lora_pairs(adapter: Mapping[str, torch.Tensor]) -> Dict[str, tuple]:
+    """A PEFT adapter state dict -> ``{base key: (lora_A, lora_B)}``, with
+    ``base_model.model.`` and ``.default`` taken out of the keys (the JAX
+    ``merge_lora``'s matching)."""
+    out = {}
+    for k, a in adapter.items():
+        m = _LORA_A.fullmatch(k)
+        if m:
+            target = (m[1] + ".weight").replace("base_model.model.", "")
+            out[target] = (a, adapter[k.replace("lora_A", "lora_B")])
+    return out
+
+
+_LORA_A = re.compile(r"(.*)\.lora_A(?:\.default)?\.weight")
+
+
+def merge_lora(weight: torch.Tensor, lora_a: torch.Tensor,
+               lora_b: torch.Tensor, scaling: float) -> torch.Tensor:
+    """``W + scaling * B @ A`` in float32 on ``weight``'s device, whatever
+    the operands' dtypes (the caller rounds the result once)."""
+    dev = weight.device
+    delta = lora_b.to(dev, torch.float32) @ lora_a.to(dev, torch.float32)
+    return weight.to(torch.float32) + scaling * delta
 
 
 def paged_cache_from_jax(k, v, k_scale=None, v_scale=None, device="cuda"):

@@ -34,13 +34,15 @@ def init_dense_gating_params(generator: torch.Generator, embed_dim: int,
 
 
 def dense_gating_forward(params: dict, x: torch.Tensor) -> torch.Tensor:
-    """(B, D) -> (B, K) softmax gating probabilities in float32.  (The JAX
-    function's dropout arguments are never passed by its callers and are
-    not ported.)"""
-    h = torch.tanh(F.linear(x, params["fc1"]["weight"],
-                            params["fc1"]["bias"]))
-    logits = F.linear(h, params["fc2"]["weight"], params["fc2"]["bias"])
-    return torch.softmax(logits.float(), dim=-1)
+    """(B, D) -> (B, K) softmax gating probabilities in float32.  Weights
+    of a narrower dtype than ``x`` (a bf16 checkpoint's) are widened to it,
+    as JAX promotes them.  (The JAX function's dropout arguments are never
+    passed by its callers and are not ported.)"""
+    def dense(p, h):
+        return F.linear(h, p["weight"].to(h.dtype), p["bias"].to(h.dtype))
+
+    h = torch.tanh(dense(params["fc1"], x))
+    return torch.softmax(dense(params["fc2"], h).float(), dim=-1)
 
 
 def uniform_gating_forward(num_experts: int, x: torch.Tensor) -> torch.Tensor:

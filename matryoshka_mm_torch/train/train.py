@@ -12,6 +12,11 @@ freeze / LoRA / quantized-base wiring, the data module, auto-resume from
 ``checkpoint-*``, gradient accumulation, the length-grouped samplers and
 the three save shapes (full / projector-only / LoRA).
 
+``--model_name_or_path`` is ``debug://tiny`` (random weights) or any
+directory ``load_pretrained_model`` reads (a HF / LLaVA checkpoint, or
+one of the port's own); the weights and widths come from it, the preset,
+remat and dtypes from the arguments.
+
 Runs on one device: the card unless ``--device cpu`` is given.
 ``--tp_size`` and ``--dp_size`` above 1 raise (ROADMAP.md Queue 1, slice 4).
 """
@@ -33,7 +38,8 @@ import numpy as np
 import torch
 
 from .. import conversation as conversation_lib
-from ..config import ClipVisionConfig, LlamaConfig, LlavaConfig, M3Preset
+from ..config import (ClipVisionConfig, LlamaConfig, LlavaConfig, M3Preset,
+                      router_features, torch_dtype)
 from ..kvconfig import parse_kv_from_string
 from ..utils.checkpoint import (latest_checkpoint, load_checkpoint, load_meta,
                                 save_checkpoint, save_lora_checkpoint,
@@ -196,14 +202,7 @@ def build_llava_config(model_args: ModelArguments,
         mm_patch_merge_type=model_args.mm_patch_merge_type,
         image_aspect_ratio=data_args.image_aspect_ratio,
         tokenizer_model_max_length=training_args.model_max_length,
-        router_feature_types=_router_features(preset))
-
-
-def _router_features(preset: M3Preset):
-    if preset.moe is None:
-        return ()
-    ft = parse_kv_from_string(preset.moe).get("ft")
-    return tuple(str(ft).split(",")) if ft else ()
+        router_feature_types=router_features(preset))
 
 
 def _batches(dataset, collator, sampler_indices, batch_size):
@@ -217,16 +216,60 @@ def _batches(dataset, collator, sampler_indices, batch_size):
         yield collator(batch)
 
 
+LLAMA_WIDTHS = ("vocab_size", "hidden_size", "intermediate_size",
+                "num_hidden_layers", "num_attention_heads",
+                "num_key_value_heads", "max_position_embeddings",
+                "rms_norm_eps", "rope_theta")
+VISION_WIDTHS = ("hidden_size", "intermediate_size", "num_hidden_layers",
+                 "num_attention_heads", "image_size", "patch_size",
+                 "layer_norm_eps")
+
+
+def _with_checkpoint_widths(cfg: LlavaConfig,
+                            ckpt: LlavaConfig) -> LlavaConfig:
+    """``cfg`` (from the arguments) with the widths of a checkpoint's
+    config: the preset, remat and dtypes stay the arguments'.  (The JAX
+    ``train()`` takes the checkpoint's config whole, and so drops the
+    arguments' preset and remat.)"""
+    def take(mine, theirs, fields):
+        return dataclasses.replace(
+            mine, **{f: getattr(theirs, f) for f in fields})
+
+    return dataclasses.replace(
+        cfg, llama=take(cfg.llama, ckpt.llama, LLAMA_WIDTHS),
+        vision=take(cfg.vision, ckpt.vision, VISION_WIDTHS),
+        mm_projector_type=ckpt.mm_projector_type)
+
+
 def _build_params(model_args, training_args, cfg, device):
-    """Random debug parameters with the quantized base and the adapters the
-    arguments ask for."""
+    """The parameters and the config to train: random ones for
+    ``debug://`` paths, else the checkpoint that ``load_pretrained_model``
+    reads (with the widths it gives, :func:`_with_checkpoint_widths`), with
+    the quantized base and the adapters the arguments ask for."""
     from ..models.convert import init_params
 
-    if not model_args.model_name_or_path.startswith("debug://"):
-        raise NotImplementedError(
-            f"{model_args.model_name_or_path!r}: HF and orbax checkpoint "
-            f"loading is not ported yet (ROADMAP.md Queue 1, item 5)")
-    params = init_params(cfg, device=device, seed=training_args.seed)
+    path = model_args.model_name_or_path
+    if path.startswith("debug://"):
+        params = init_params(cfg, device=device, seed=training_args.seed)
+    else:
+        from ..models.builder import load_pretrained_model
+        from ..models.llava import router_embed_dim
+        from ..models.router import init_dense_gating_params
+
+        _, model, _, _ = load_pretrained_model(path, device=str(device),
+                                               seed=training_args.seed)
+        params = model.params
+        cfg = _with_checkpoint_widths(cfg, model.cfg)
+        vdt = torch_dtype(cfg.vision.dtype)
+        params["vision_tower"] = _cast_floats(params["vision_tower"], vdt)
+        if cfg.is_m3_moe and "router" not in params and \
+                parse_kv_from_string(cfg.preset.moe).get("t") == "dense":
+            # a router to train over a checkpoint that has none
+            gen = torch.Generator(device=device).manual_seed(
+                training_args.seed)
+            params["router"] = init_dense_gating_params(
+                gen, router_embed_dim(cfg), len(cfg.tokscale_list),
+                device=device)
     if training_args.bits in (4, 8):
         # quantize the LM base before (optionally) adding adapters: QLoRA.
         # fuse=False keeps the per-projection leaves LoRA wraps
@@ -245,7 +288,15 @@ def _build_params(model_args, training_args, cfg, device):
             training_args.seed + 1)
         params = add_lora(params, gen, r=training_args.lora_r,
                           alpha=float(training_args.lora_alpha))
-    return params
+    return params, cfg
+
+
+def _cast_floats(tree, dtype: torch.dtype):
+    if isinstance(tree, dict):
+        return {k: _cast_floats(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cast_floats(v, dtype) for v in tree]
+    return tree.to(dtype) if tree.is_floating_point() else tree
 
 
 def train(attn_implementation: str = "flash", argv=None) -> TrainState:
@@ -283,11 +334,12 @@ def train(attn_implementation: str = "flash", argv=None) -> TrainState:
         }, f, indent=2)
 
     from ..image_processing import ClipImageProcessor
-    from ..models.builder import DebugTokenizer
+    from ..models.builder import _load_tokenizer
 
-    tokenizer = DebugTokenizer(cfg.llama.vocab_size)
+    params, cfg = _build_params(model_args, training_args, cfg, device)
+    tokenizer = _load_tokenizer(model_args.model_name_or_path, None,
+                                cfg.llama.vocab_size)
     tokenizer.model_max_length = training_args.model_max_length
-    params = _build_params(model_args, training_args, cfg, device)
 
     # ---- data ----
     s = cfg.vision.image_size

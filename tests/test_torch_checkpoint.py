@@ -9,7 +9,7 @@ import pytest
 import torch
 
 from matryoshka_mm_torch.config import LlavaConfig
-from matryoshka_mm_torch.models import convert
+from matryoshka_mm_torch.models import builder, convert
 from matryoshka_mm_torch.models.convert import init_params
 from matryoshka_mm_torch.ops.lora import add_lora, load_lora, strip_lora
 from matryoshka_mm_torch.ops.quant import quantize_llama_params
@@ -99,13 +99,16 @@ def test_latest_checkpoint(tmp_path):
 
 @pytest.mark.parametrize("fn", [convert.params_from_jax,
                                 convert.paged_cache_from_jax,
-                                ck.load_checkpoint],
+                                ck.load_checkpoint,
+                                convert.convert_llava_state,
+                                convert.random_vision_tower,
+                                builder.load_pretrained_model],
                          ids=lambda f: f.__name__)
 def test_weight_bridges_and_loader_build_on_the_card_unless_told_otherwise(
         fn):
-    """Like ``init_params`` and ``load_pretrained_model``, the weight
-    bridge, the paged-cache bridge and the checkpoint loader put their
-    tensors on the card by default; the CPU has to be named."""
+    """Like ``init_params``, the weight bridge, the paged-cache bridge, the
+    checkpoint loaders and the HF state-dict conversion put their tensors
+    on the card by default; the CPU has to be named."""
     import inspect
 
     assert inspect.signature(fn).parameters["device"].default == "cuda"

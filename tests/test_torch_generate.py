@@ -108,8 +108,7 @@ def test_sampling_is_seeded_and_in_vocab(models):
         and a.max() < tcfg.llama.vocab_size
 
 
-@pytest.mark.parametrize("spec", ["ver=v2_numtoks=[1,4]_betas=[0.5,0.5]",
-                                  "ver=v0_numtoks=gateprobargmax"])
+@pytest.mark.parametrize("spec", ["ver=v2_numtoks=[1,4]_betas=[0.5,0.5]"])
 def test_unported_modes_raise(models, spec):
     _, _, tcfg, tp = models
     ids, px, _ = _prompt(1)
@@ -137,7 +136,7 @@ def test_load_pretrained_and_eval_model_end_to_end(tmp_path, capsys):
     _, model, _, ctx = load_pretrained_model("debug://tiny", device="cpu")
     assert ctx == 128
     assert model.params["llama"]["embed_tokens"].device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(FileNotFoundError):      # a directory, no checkpoint
         load_pretrained_model(str(tmp_path), device="cpu", load_4bit=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         load_pretrained_model("debug://tiny", device="cpu", tp_size=2)

@@ -177,6 +177,97 @@ def test_sources_import_no_jax():
     assert not bad, bad
 
 
+def test_sources_import_no_checkpoint_package_at_module_level():
+    """The card host has neither ``safetensors`` nor ``transformers``: the
+    port reads safetensors itself and imports ``transformers`` only inside
+    the tokenizer fallback."""
+    bad = []
+    for p in _port_files():
+        if p.suffix != ".py":
+            continue
+        tree = ast.parse(p.read_text())
+        everywhere = list(ast.walk(tree))
+        for node in everywhere:
+            if not isinstance(node, (ast.Import, ast.ImportFrom)):
+                continue
+            names = [a.name for a in node.names] \
+                if isinstance(node, ast.Import) else [node.module or ""]
+            for n in names:
+                top = n.split(".")[0]
+                if top == "safetensors" or (top == "transformers"
+                                            and node in tree.body):
+                    bad.append(f"{p.relative_to(REPO)}: {n}")
+    assert not bad, bad
+
+
+_LOAD = """
+import sys
+for name in ("jax", "matryoshka_mm_tpu", "safetensors", "transformers"):
+    sys.modules[name] = None
+import numpy as np
+from matryoshka_mm_torch.models.builder import load_pretrained_model
+tok, model, _, _ = load_pretrained_model(sys.argv[1], device="cpu")
+assert type(tok).__name__ == "DebugTokenizer"
+ids = np.array([[1, 5, -200, 17, 42]], np.int32)
+px = np.zeros((1, 3, 56, 56), np.float32)
+out = model.generate(ids, images=px, matryoshka_vis_token_scale="ver=v0_numtoks=4",
+                     max_new_tokens=3, eos_token_id=-1)
+assert out.shape == (1, 3), out.shape
+print("OK", out.tolist())
+"""
+
+
+def test_hf_checkpoint_loads_with_jax_and_checkpoint_packages_blocked(
+        tmp_path):
+    """A bf16 safetensors directory in the liuhaotian layout (decoder and
+    projector; the loader makes the CLIP tower) loads and generates with
+    ``jax``, the JAX package, ``safetensors`` and ``transformers`` made
+    unimportable (the directory is written here, with the ``safetensors``
+    package)."""
+    import json
+
+    import torch
+    from safetensors.torch import save_file
+
+    from matryoshka_mm_torch.config import LlavaConfig
+    from matryoshka_mm_torch.models.convert import init_params
+
+    cfg = LlavaConfig.tiny_debug()
+    p = init_params(cfg, device="cpu", seed=2)
+    lm = p["llama"]
+    sd = {"model.embed_tokens.weight": lm["embed_tokens"],
+          "model.norm.weight": lm["norm"], "lm_head.weight": lm["lm_head"]}
+    for i, layer in enumerate(lm["layers"]):
+        for group in ("self_attn", "mlp"):
+            for k, w in layer[group].items():
+                sd[f"model.layers.{i}.{group}.{k}.weight"] = w
+        for k in ("input_layernorm", "post_attention_layernorm"):
+            sd[f"model.layers.{i}.{k}.weight"] = layer[k]
+    for i, layer in enumerate(p["mm_projector"]["layers"]):
+        for k in ("weight", "bias"):
+            sd[f"model.mm_projector.{2 * i}.{k}"] = layer[k]
+    save_file({k: v.to(torch.bfloat16).contiguous() for k, v in sd.items()},
+              str(tmp_path / "model.safetensors"))
+    vc = cfg.vision
+    (tmp_path / "config.json").write_text(json.dumps({
+        "vocab_size": cfg.llama.vocab_size, "hidden_size": 64,
+        "intermediate_size": 128, "num_hidden_layers": 4,
+        "num_attention_heads": 4, "mm_projector_type": "mlp2x_gelu",
+        "vision_tower_config": {
+            "hidden_size": vc.hidden_size,
+            "intermediate_size": vc.intermediate_size,
+            "num_hidden_layers": vc.num_hidden_layers,
+            "num_attention_heads": vc.num_attention_heads,
+            "image_size": vc.image_size, "patch_size": vc.patch_size},
+        "config": {"matryoshka_vis_token_scale": "ver=v0_numtoks=[1,4,16]"}}))
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", _LOAD, str(tmp_path)],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("OK")
+
+
 def test_wrappers_have_no_fallback_try():
     """No try/except in a kernel module: a CUDA tensor launches the kernel
     or raises, and never drops to the plain version."""
