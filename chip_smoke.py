@@ -15,21 +15,24 @@ Phases; any failure exits non-zero, and no phase's exception is caught:
    in bf16, with max errors and the median time of kernel and plain version
    over CUDA events: prefill flash attention B=1 H=32 Dh=128 Sq=640 against
    a 672-slot cache, GQA and window cases (the float32 FMA kernel timed at
-   the same shape), the training shapes S=1024 and S=1599 (kernel, plain
-   version and library timed, TFLOP/s), and the edges of a 64 x 64 tile
+   the same shape), the training shapes S=1024 and S=1599 and an anyres
+   prefill at S=3008 (kernel, plain version and library timed, TFLOP/s),
+   and the edges of a 64 x 64 tile
    walk in bf16 and float32 (S of 63/64/65/129, paddings of 70 and 150,
    windows of 16 and 150, q_index_offset with Sq != Sk, GQA 4 and 8, Dh=64,
    non-causal; zeros and lse = -1e30 on keyless rows, the same bits from two
    launches); decode attention with its n_split printed: B in {1, 4}, S=672,
    GQA, window, a ragged S, S=40, S=65, a row whose last split is wholly
-   masked, B=1 at S=4096 (each against the plain and the split plain
+   masked, B=1 at S=4096, B=1 at 3040 (an anyres request, timed with b1
+   and b4) (each against the plain and the split plain
    version, two launches bit-identical), then its int8-KV branch at B in
    {1, 4}, S in {672, 673}, GQA and window; int4_matmul / int8_matmul at the
    7B projections (qkv 12288x4096, o 4096x4096, gateup 22016x4096, down
    4096x11008, lm_head 32000x4096) for M in {1, 2, 4, 8} (the decode
-   kernel) and {192, 640, 768, 1024} (the prefill kernel), two launches
+   kernel) and {192, 640, 768, 1024} (the prefill kernel), and at M=3008
+   (an anyres prefill) for qkv, gateup and down, two launches
    bit-identical at M = 1, 8 and 640, timed at M = 1, 4, 8 (GB/s, share of
-   the byte bound) and 192, 640, 1024 (TFLOP/s, share of the operations
+   the byte bound) and 192, 640, 1024, 3008 (TFLOP/s, share of the operations
    bound), each beside bf16 F.linear on the dequantized weight; quant_mlp
    at 7B widths for M in {1, 4, 8, 32}, int4 and int8;
 4. the bf16 slice at full width: load_pretrained_model("debug://7b")
@@ -61,8 +64,8 @@ Phases; any failure exits non-zero, and no phase's exception is caught:
    captured decode bit-identical to decode_chunk on one request; TTFT,
    decode tok/s and peak memory per configuration, and per request a
    profile of its prefill (device ms, the quantized prefill kernel's ms,
-   launches and share) and of its decode steps; and phase 4's eager /
-   graph turns and profiles at B=1 and B=4;
+   launches and share) and of its decode steps; and, under load_4bit,
+   phase 4's eager / graph turns and profiles at B=1 and B=4;
 6. paged attention against its plain version at the 7B shapes (H=Hkv=32,
    Dh=128, page 64, 25 pages a row; bf16 and int8 pools; the stacked form
    at layers 0 and 31 with the split paged_splits picks; B=1 and B=8;
@@ -155,9 +158,38 @@ Phases; any failure exits non-zero, and no phase's exception is caught:
    and held, the host's RSS before and at its peak, TTFT and decode tok/s
    of the loaded models.  The directory is removed at the end.
 
+13. anyres and multi-image prompts at the full width of
+   llava-next-vicuna-7b-m3: LlavaConfig.llava_v15_7b_m3 with anyres,
+   spatial_unpad and LLaVA-1.6's published pinpoints, random bf16 weights
+   made on the card by init_params (image_newline included), a 672x672
+   and a 1000x400 image from a seed through process_images (5 and 4
+   tiles).  generate at every scale of both images and two multi-image
+   prompts (3 images at 144, 2 at 576), 32 greedy tokens each, a captured
+   decode: 32 flash launches a prefill and 32 decode launches a step,
+   replays included, one capture a request; the host's spliced length
+   equal to the prefill's device length at every scale; the 576 prefill's
+   logits against attn_impl="reference" (cosine >= 0.99); the captured
+   decode bit-identical to decode_chunk.  Printed per request: TTFT,
+   decode tok/s, peak memory; the CLIP tower's ms over each tile stack; a
+   profile of the 576 prefill (device ms, idle share, flash, quantized
+   products, CLIP).  A paged ContinuousBatcher(max_batch=8,
+   prefill_len=3072, page_size=64, chunk=8) answers 4 anyres and 4
+   single-tile requests as one burst: every budget met, the anyres rows
+   admitted solo and the single tiles as a group, exact paged-attention
+   launches, every page returned; tok/s, TTFT p50 / max, pool GiB; a
+   repeated anyres request with prefix_cache=True hits its pages.  The same
+   weights quantized to int4 in place: anyres requests at 576 and 144 with
+   exact launches (4 x 32 + 1 products a prefill through the quantized
+   kernels, 3,008 rows at 576), logits against disable_fused_proj()
+   (cosine >= 0.99, same argmax) and TTFT beside that route's, a profile
+   of each prefill.  Then phase 8's small float32 model with anyres fields, the
+   card against the CPU: the same greedy tokens from anyres and
+   multi-image generate, the paged and the dense batcher's anyres
+   admission, and an anyres prefix-cache hit equal to its miss.
+
 With arguments (`python3 chip_smoke.py kernels quant slice qslice paged hbm
-serve smallinfer bwd train small ckpt`) only the build and the named phases
-run, and no result line is printed.
+serve smallinfer bwd train small ckpt anyres`) only the build and the named
+phases run, and no result line is printed.
 
 Each kernel's record carries its bound: the larger of its bytes (inputs once,
 outputs once) over 3.35 TB/s and its operations over 989 TFLOP/s, the H100
@@ -207,6 +239,13 @@ QUANT_TIMED_ROWS = (1, 4, 8)      # decode rows timed (8: the serving step)
 # batch at 144, is held only
 QUANT_PREFILL_ROWS = (192, 640, 1024)
 QUANT_SAME_BITS_ROWS = (1, 8, 640)   # two launches bit-identical
+# long prefills, held and timed at the projections of a decoder layer: an
+# anyres request at scale 576 (3,008 slots) and a serving group of 8 rows
+# of 1,024.  Beside the kernel, the model's other route for a quantized
+# projection, dequantize + bf16 F.linear (dequant_linear_ms), which it takes
+# past MAX_FUSED_ROWS rows
+QUANT_LONG_ROWS = (3008, 8192)
+QUANT_LONG_SHAPES = ("qkv", "gateup", "down")
 MLP_ROWS = (1, 4, 8, 32)          # quant_mlp rows held (32: its limit)
 # the quantized products' kernels, by the names a profile gives them: the
 # prefill kernel was quant_mma_kernel before its wgmma design, a name kept so
@@ -510,9 +549,11 @@ FLASH_EDGES = (
     ("gqa 8 dh64", 1, 8, 1, 131, 131, True, None, 0, 9, 64),
     ("non-causal", 2, 4, 4, 65, 130, False, None, 0, 4, 128),
 )
-# the training shapes of the flash forward (B=1, H=32, Dh=128, causal):
-# (S, left padding); bf16 kernel, plain version and library timed
-FLASH_TRAIN = ((1024, 37), (1599, 61))
+# long shapes of the flash forward (B=1, H=32, Dh=128, causal): (label, S,
+# left padding); bf16 kernel, plain version and library timed.  The training
+# shapes, and an anyres prefill at scale 576 (a 5-tile image, 2,928 visual
+# tokens in 3,008 slots)
+FLASH_TRAIN = (("train", 1024, 37), ("train", 1599, 61), ("anyres", 3008, 41))
 # decode cases: (label, B, H, Hkv, S, window); every row valid up to S - 20
 # except that the last row's first 31 slots are not, the query at S - 21
 DECODE_CASES = (
@@ -522,7 +563,9 @@ DECODE_CASES = (
     ("s65", 1, 32, 32, 65, None),
     # slots 0-30 invalid and the last split (504-671 of 4) wholly masked
     ("masked split", 1, 32, 32, 672, None),
-    ("long b1", 1, 32, 32, 4096, None))
+    ("long b1", 1, 32, 32, 4096, None),
+    # an anyres request at scale 576: 3,008 prefill slots + 32 decode slots
+    ("anyres b1", 1, 32, 32, 3040, None))
 DECODE_INT8 = (
     ("int8 b1", 1, 32, 32, 672, None), ("int8 b4", 4, 32, 32, 673, None),
     ("int8 gqa", 4, 32, 8, 672, None), ("int8 window", 4, 32, 32, 673, 128))
@@ -645,8 +688,8 @@ def phase_kernels(dev) -> dict:
                   f"{ms32:.4f} ms ({flops / ms32 / 1e9:.1f} TFLOP/s)")
             del ops, ops32
 
-    # ---- the training shapes ----
-    for S, tpad in FLASH_TRAIN:
+    # ---- the training shapes and the anyres prefill ----
+    for label, S, tpad in FLASH_TRAIN:
         q, k, v, valid = _flash_operands(gen, dev, torch.bfloat16, 1, 32, 32,
                                          S, S, Dh, tpad)
         out, lse = fl.flash_attention_lse(q, k, v, kv_valid=valid)
@@ -656,7 +699,7 @@ def phase_kernels(dev) -> dict:
         lerr = (lse - ref_l).abs().max().item()
         if not (torch.allclose(out.float(), ref_o.float(), atol=FLASH_TOL,
                                rtol=FLASH_TOL) and lerr <= LSE_TOL):
-            fail(f"flash train {S} disagrees with its plain version")
+            fail(f"flash {label} {S} disagrees with its plain version")
         ops = rotations(q, k, v)
         ms = time_ms(lambda *a: fl.flash_attention_lse(*a, kv_valid=valid),
                      ops)
@@ -665,7 +708,7 @@ def phase_kernels(dev) -> dict:
         train_library_ms = library_ms("flash", ops, kv_valid=valid)
         flops = 4 * 32 * Dh * _pairs(valid, S, S)
         b = bound(nbytes(q, k, v) + nbytes(out, lse), flops)
-        print(f"[flash train {S}] {card_line()}: max|out-plain|={err:.3e} "
+        print(f"[flash {label} {S}] {card_line()}: max|out-plain|={err:.3e} "
               f"max|lse-plain|={lerr:.3e}; kernel {ms:.4f} ms "
               f"({flops / ms / 1e9:.1f} TFLOP/s)  plain {pms:.4f} ms  bound "
               f"{b['bound_ms']:.4f} ms by {b['bound_by']}  library "
@@ -715,7 +758,7 @@ def phase_kernels(dev) -> dict:
             fail(f"decode b1: the slots were not split (n_split {n_split})")
         rec["decode_attention"]["err"] = max(rec["decode_attention"]["err"],
                                              err)
-        if name in ("b1", "b4"):
+        if name in ("b1", "b4", "anyres b1"):
             ops = rotations(*args)
             ms = time_ms(dec.flash_decode_attention, ops)
             plain = time_ms(dec.decode_attention_plain, ops, reps=5)
@@ -853,7 +896,9 @@ def phase_quant_kernels(dev) -> dict:
             w, sc = leaf[key], leaf["scale"]
             wdq = quant.dequantize_array(leaf)   # the yardstick's weight
             del leaf
-            for M in QUANT_ROWS:
+            rows = QUANT_ROWS + (QUANT_LONG_ROWS
+                                 if shape in QUANT_LONG_SHAPES else ())
+            for M in rows:
                 x = _rand((M, K), gen, dev)
                 got = fn(x, w, sc)
                 err, rel = _rel_err(got, plain(x, w, sc))
@@ -876,10 +921,18 @@ def phase_quant_kernels(dev) -> dict:
                     if (shape, M) == ("qkv", 1):
                         r.update(bound(moved, 2 * M * N * K),
                                  library_ms=None)
-                elif M in QUANT_PREFILL_ROWS:
+                elif M in QUANT_PREFILL_ROWS + QUANT_LONG_ROWS:
                     line = timed(line, r, f"{shape}_{M}", fn, plain,
                                  rotations(x, w, sc), linear,
                                  rotations(x, wdq), flops=2 * M * N * K)
+                if M in QUANT_LONG_ROWS:
+                    dq = time_ms(lambda x, w, sc: linear(
+                        x, quant.dequantize_array({key: w, "scale": sc})),
+                        rotations(x, w, sc), reps=5)
+                    r[f"dequant_linear_ms_{shape}_{M}"] = dq
+                    line += (f"  dequant_linear_ms {dq:.4f} "
+                             f"({dq / r[f'ms_{shape}_{M}']:.2f}x the "
+                             f"kernel's time)")
                 print(line)
             del w, sc, wdq
         r["ms"], r["plain_ms"] = r["ms_qkv_1"], r["plain_ms_qkv_1"]
@@ -970,11 +1023,13 @@ def make_inputs(cfg) -> dict:
     return {1: (ids1, px1, None), 4: (ids4, px4, mask4)}
 
 
-def run(model, inputs, numtoks, new_tokens, cuda_graph=True):
+def run(model, inputs, numtoks, new_tokens, cuda_graph=True,
+        image_sizes=None):
     """One ``generate`` request; its decode replays a captured step unless
     ``cuda_graph=False`` asks for the eager loop."""
     ids, px, mask = inputs
     out = model.generate(ids, images=px, attention_mask=mask,
+                         image_sizes=image_sizes,
                          matryoshka_vis_token_scale=f"ver=v0_numtoks="
                                                     f"{numtoks}",
                          max_new_tokens=new_tokens, eos_token_id=-1,
@@ -1096,7 +1151,7 @@ def decode_profile(model, inputs, numtoks, label, cuda_graph=True,
     return (dev_n - dev1) / 1e3 / steps, base
 
 
-def decode_bits(model, inputs, numtoks, label) -> None:
+def decode_bits(model, inputs, numtoks, label, image_sizes=None) -> None:
     """The captured decode against ``decode_chunk`` on the card, from one
     prefill's cache and a copy of it: the NEW_TOKENS - 1 steps' tokens and
     the last step's logits must be bit-identical (the same kernels in the
@@ -1115,7 +1170,8 @@ def decode_bits(model, inputs, numtoks, label) -> None:
         logits, cache_a, lengths = _prefill_dispatch(
             model.params, model.cfg,
             torch.as_tensor(ids, dtype=torch.int64, device=dev),
-            torch.as_tensor(px, device=dev), mask, numtoks, gen)
+            torch.as_tensor(px, device=dev), mask, numtoks, gen,
+            image_sizes)
         first = _select_token(logits, gen, None)
         cache_b = KVCache(*(None if t is None else t.clone() for t in (
             cache_a.k, cache_a.v, cache_a.valid, cache_a.positions,
@@ -1328,12 +1384,16 @@ def phase_quant_slice(dev) -> dict:
             want_logits = prefill_logits(model, cfg, inputs[b], n)
         compare_logits(got, want_logits, label, need_same_top=True)
 
+        # the eager / graph turns under the first load only: the other
+        # loads replay the same captured step (PR 11 measured them all)
+        turns = label == QUANT_RUNS[0][0]
         for b, n in requests:
             time_requests(model, inputs[b], n, label)
             # decode_ab profiles the decode at B=1 and BATCH_SCALE
             decode_profile(model, inputs[b], n, label,
-                           decode=(b, n) != (1, BATCH_SCALE))
-        decode_ab(model, inputs, label)
+                           decode=not turns or (b, n) != (1, BATCH_SCALE))
+        if turns:
+            decode_ab(model, inputs, label)
         print(f"[{label}] max_memory_allocated while serving "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         del model
@@ -1630,23 +1690,28 @@ def serve_traffic(batcher, cfg, burst, late, label) -> dict:
             fail(f"{label}: a request at scale {n} gave {len(out)} of {new} "
                  f"tokens in [{min(out)}, {max(out)}]")
     solo = sum(kind == "admit_solo" for _, kind, _ in batcher.events)
-    groups = sum(kind == "admit_group" for _, kind, _ in batcher.events)
+    sizes = [len(d["rids"]) for _, kind, d in batcher.events
+             if kind == "admit_group"]
+    groups = len(sizes)
     quantized = launches["int4_matmul"] > 0
     # every decode step: one paged attention a layer and, with int4 weights,
     # one quant_mlp a layer and qkv, o and lm_head through the GEMV; every
     # prefill: one flash attention a layer and, with int4 weights, qkv, o,
-    # gateup, down and lm_head through the matmul kernel.  A group prefill
-    # has more than 1024 rows and dequantizes its weights instead, all but
-    # the lm_head over its last positions
+    # gateup, down and lm_head through the matmul kernel.  A prefill of
+    # more than MAX_FUSED_ROWS rows (a group of G rows of L) dequantizes its
+    # weights instead, all but the lm_head over its last positions
+    prefill_matmuls = sum(
+        4 * n_layers + 1 if g * batcher.L <= int4_matmul.MAX_FUSED_ROWS
+        else 1 for g in [1] * solo + sizes)
     want = {"paged_attention": steps * n_layers,
             "flash_attention": (solo + groups) * n_layers,
             "decode_attention": 0,
             "quant_mlp": steps * n_layers if quantized else 0,
-            "int4_matmul": (steps * (2 * n_layers + 1)
-                            + solo * (4 * n_layers + 1) + groups)
+            "int4_matmul": (steps * (2 * n_layers + 1) + prefill_matmuls)
             if quantized else 0}
     print(f"[{label}] launches {launches} over {steps} decode steps, {solo} "
-          f"solo and {groups} group prefills; expected {want}")
+          f"solo and {groups} group prefills (sizes {sizes}); expected "
+          f"{want}")
     if steps <= 0 or launches != want:
         fail(f"{label}: the serving path did not go through the kernels as "
              f"expected")
@@ -3045,6 +3110,485 @@ def phase_ckpt(dev) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 13: anyres and multi-image at full width
+# ---------------------------------------------------------------------------
+
+# LLaVA-1.6's published pinpoints (liuhaotian/llava-v1.6-vicuna-7b's
+# config.json), which llava-next-vicuna-7b-m3 inherits
+NEXT_PINPOINTS = ("[(336, 672), (672, 336), (672, 672), (1008, 336), "
+                  "(336, 1008)]")
+# the two images (width, height): the base + a 2 x 2 grid, and the base + a
+# 3 x 1 grid
+ANYRES_SIZES = ((672, 672), (1000, 400))
+ANYRES_MULTI = ((3, 144), (2, 576))     # (images, scale) of the multi-image
+ANYRES_4BIT = (576, 144)                # load_4bit scales, the 5-tile image
+# the serving run: (scale, image) of the anyres requests, then single tiles
+ANYRES_SERVE = ((36, 0), (144, 0), (144, 1), (576, 1))
+ANYRES_SERVE_SINGLE = 4
+ANYRES_SERVE_KW = dict(backend="paged", max_batch=8, prefill_len=3072,
+                       max_new_tokens=128, page_size=64, chunk=8)
+# the small float32 model's anyres fields: 56-pixel tiles
+SMALL_PINPOINTS = "[(112, 56), (56, 112), (112, 112)]"
+
+
+def anyres_stacks(model, rng) -> list:
+    """``(tile stack (1, T, 3, 336, 336), (width, height))`` of each of
+    ANYRES_SIZES: random pixels from ``rng`` through the port's
+    ``process_images``."""
+    from PIL import Image
+
+    from matryoshka_mm_torch.image_processing import (ClipImageProcessor,
+                                                      process_images)
+
+    out = []
+    for w, h in ANYRES_SIZES:
+        img = Image.fromarray(rng.integers(0, 256, (h, w, 3), np.uint8))
+        px = process_images([img], ClipImageProcessor(), model.config)
+        out.append((np.asarray(px, np.float32), (w, h)))
+    return out
+
+
+def multi_prompt(rng, vocab, n_images):
+    """A PROMPT_LEN prompt with ``n_images`` sentinels, 10 tokens apart."""
+    ids = make_prompt(rng, PROMPT_LEN, vocab)
+    ids[5:5 + 10 * n_images:10] = -200
+    return ids[None]
+
+
+def anyres_prefill(model, cfg, ids, px, size, numtoks):
+    """``(last-position logits f32, device length)`` of one anyres
+    prefill through ``generate``'s dispatch."""
+    from matryoshka_mm_torch.generate import (GenerationConfig,
+                                              _prefill_dispatch)
+
+    dev = model.params["llama"]["norm"].device
+    with torch.inference_mode():
+        logits, _, lengths = _prefill_dispatch(
+            model.params, cfg,
+            torch.as_tensor(ids, dtype=torch.int64, device=dev),
+            torch.as_tensor(px, device=dev), None, numtoks,
+            GenerationConfig(max_new_tokens=NEW_TOKENS), [size])
+    return logits[0].float(), int(lengths[0])
+
+
+def prefill_profile(model, label, inputs, numtoks, size) -> None:
+    """One 1-token request under ``torch.profiler``: its device ms, the
+    flash forward's and the quantized products' ms, launches and shares;
+    the CLIP tower's device ms over the tile stack in its own profile; the
+    device's idle share against the request's wall time."""
+    from matryoshka_mm_torch.models.llava import encode_images
+
+    dev = model.params["llama"]["norm"].device
+    wall = statistics.median(_wall(lambda: run(
+        model, inputs, numtoks, 1, image_sizes=[size])) for _ in range(2))
+    kernels = profile_kernels(lambda: run(model, inputs, numtoks, 1,
+                                          image_sizes=[size]))
+    tiles = torch.as_tensor(inputs[1][0], device=dev)
+    with torch.inference_mode():
+        clip = profile_kernels(lambda: encode_images(model.params, model.cfg,
+                                                     tiles))
+    total = sum(dev_us(e) for e in kernels)
+    flash = sum(dev_us(e) for e in kernels if "flash_fwd" in e.key)
+    quant = [e for e in kernels if any(k in e.key for k in QUANT_KERNELS)]
+    q_us = sum(dev_us(e) for e in quant)
+    clip_us = sum(dev_us(e) for e in clip)
+    print(f"[{label}] {card_line()}: numtoks={numtoks} {size[0]}x{size[1]} "
+          f"prefill profile: wall {wall * 1e3:.2f} ms, device "
+          f"{total / 1e3:.3f} ms (idle {max(0.0, 1 - total / 1e3 / (wall * 1e3)):.3f}); "
+          f"flash {flash / 1e3:.3f} ms ({100 * flash / total:.1f}%); "
+          f"quantized products {q_us / 1e3:.3f} ms over "
+          f"{sum(e.count for e in quant)} launches "
+          f"({100 * q_us / total:.1f}%); CLIP tower over "
+          f"{tiles.shape[0]} tiles {clip_us / 1e3:.3f} ms "
+          f"({100 * clip_us / total:.1f}%)")
+
+
+def anyres_requests(model, cfg, stacks, label) -> dict:
+    """The counted main-path run: every scale of both anyres images and
+    the multi-image prompts through ``generate``, 32 greedy tokens each,
+    with the launch counters set to 0 just before and read just after;
+    then the gates and the timings.  Returns the launches."""
+    from matryoshka_mm_torch.models.llava import (anyres_token_count,
+                                                  encode_images)
+    from matryoshka_mm_torch.ops.decode_attention import flash_decode_attention
+    from matryoshka_mm_torch.ops.flash_attention import flash_attention_lse
+
+    n_layers, vocab = cfg.llama.num_hidden_layers, cfg.llama.vocab_size
+    rng = np.random.default_rng(13)
+    ids = make_prompt(rng, PROMPT_LEN, vocab)[None]
+    s = cfg.vision.image_size
+    multi = [(multi_prompt(rng, vocab, m), rng.standard_normal(
+        (m, 3, s, s)).astype(np.float32), n) for m, n in ANYRES_MULTI]
+    single = [((ids, px, None), n, size) for px, size in stacks
+              for n in SCALES]
+
+    flash_attention_lse.launches = 0
+    flash_decode_attention.launches = 0
+    tally = graph_tally()
+    for inputs, n, size in single:
+        run(model, inputs, n, NEW_TOKENS, image_sizes=[size])
+    for m_ids, m_px, n in multi:
+        run(model, (m_ids, m_px, None), n, NEW_TOKENS)
+    launches = {"flash_attention": flash_attention_lse.launches,
+                "decode_attention": flash_decode_attention.launches}
+    requests = len(single) + len(multi)
+    want = {"flash_attention": requests * n_layers,
+            "decode_attention": requests * (NEW_TOKENS - 1) * n_layers}
+    print(f"[{label}] launches {launches} expected {want}")
+    if launches != want:
+        fail(f"{label}: the main path did not go through the kernels as "
+             f"expected")
+    check_graphs(label, tally, requests, requests * (NEW_TOKENS - 2))
+
+    # ---- host spliced lengths against the prefill's device lengths ----
+    for inputs, n, size in single:
+        tiles = inputs[1].shape[1]
+        host = PROMPT_LEN - 1 + anyres_token_count(cfg, size, tiles, n)
+        _, device = anyres_prefill(model, cfg, ids, inputs[1], size, n)
+        print(f"[{label}] {size[0]}x{size[1]} ({tiles} tiles) numtoks={n}: "
+              f"spliced length host {host} device {device}, prefill slots "
+              f"{-(-host // 64) * 64}")
+        if host != device:
+            fail(f"{label}: the host's spliced length differs from the "
+                 f"prefill's")
+
+    # ---- the kernel path against attn_impl="reference" at scale 576 ----
+    px0, size0 = stacks[0]
+    top = max(SCALES)
+    got, _ = anyres_prefill(model, cfg, ids, px0, size0, top)
+    ref, _ = anyres_prefill(model, cfg.with_attn_impl("reference"), ids, px0,
+                            size0, top)
+    compare_logits(got, ref, f"{label} {top}", need_same_top=False)
+    decode_bits(model, (ids, px0, None), top, label, image_sizes=[size0])
+
+    # ---- timings, after the counted run warmed everything up ----
+    dev = model.params["llama"]["norm"].device
+    for px, size in stacks:
+        tiles = torch.as_tensor(px[0], device=dev)
+        with torch.inference_mode():
+            ms = time_ms(lambda t: encode_images(model.params, cfg, t),
+                         [(tiles,)], reps=5)
+        print(f"[{label}] {card_line()}: {size[0]}x{size[1]}: CLIP tower "
+              f"over {tiles.shape[0]} tiles {ms:.3f} ms")
+    for inputs, n, size in single + [((i, p, None), n, None)
+                                     for i, p, n in multi]:
+        sizes = None if size is None else [size]
+        ttft = statistics.median(_wall(lambda: run(
+            model, inputs, n, 1, image_sizes=sizes)) for _ in range(2))
+        torch.cuda.reset_peak_memory_stats()
+        full = _wall(lambda: run(model, inputs, n, NEW_TOKENS,
+                                 image_sizes=sizes))
+        what = (f"{size[0]}x{size[1]} ({inputs[1].shape[1]} tiles)"
+                if size else f"{inputs[1].shape[0]} images")
+        print(f"[{label}] {card_line()}: {what} numtoks={n:4d} TTFT "
+              f"{ttft * 1e3:.2f} ms  decode "
+              f"{(NEW_TOKENS - 1) / (full - ttft):.2f} tok/s  peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    prefill_profile(model, label, (ids, px0, None), top, size0)
+    return launches
+
+
+def anyres_serving(model, cfg, stacks, label) -> dict:
+    """A paged ContinuousBatcher answers 4 anyres and 4 single-tile
+    requests landing as one burst: the anyres rows admit solo, the single
+    tiles as one group.  Gates as phase 7's; then a repeated anyres request
+    with prefix_cache=True.  Returns the launches of the counted run."""
+    from matryoshka_mm_torch.generate import GenerationConfig
+    from matryoshka_mm_torch.models.llava import anyres_token_count
+    from matryoshka_mm_torch.ops.decode_attention import flash_decode_attention
+    from matryoshka_mm_torch.ops.flash_attention import flash_attention_lse
+    from matryoshka_mm_torch.ops.paged_attention import paged_decode_attention
+    from matryoshka_mm_torch.serve.batching import ContinuousBatcher
+
+    counters = {"paged_attention": paged_decode_attention,
+                "flash_attention": flash_attention_lse,
+                "decode_attention": flash_decode_attention}
+    n_layers, vocab = cfg.llama.num_hidden_layers, cfg.llama.vocab_size
+    rng = np.random.default_rng(14)
+    gen_cfg = GenerationConfig(max_new_tokens=128, decode_chunk=8,
+                               eos_token_id=-1)
+    batcher = ContinuousBatcher(model.params, cfg, gen_cfg=gen_cfg,
+                                **ANYRES_SERVE_KW)
+    try:
+        print(f"[{label}] {card_line()}: ContinuousBatcher {ANYRES_SERVE_KW}"
+              f" warm-up {batcher.warmup(numtoks=BATCH_SCALE):.2f} s")
+        while batcher.decode_steps != \
+                batcher.occupancy["rounds"] * batcher.chunk:
+            time.sleep(0.005)
+        for fn in counters.values():
+            fn.launches = 0
+        batcher.decode_steps = 0
+        batcher.occupancy = {"rounds": 0, "active_rows": 0}
+        batcher.admit_stats = {"solo": 0, "grouped": 0}
+        batcher.events = []
+        tally = graph_tally()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        batcher._hold_admission = True      # the burst lands as one batch
+        readers = [_serve(batcher, (make_prompt(rng, PROMPT_LEN, vocab)[None],
+                                    stacks[i][0][0]), n, NEW_TOKENS,
+                          image_size=stacks[i][1])
+                   for n, i in ANYRES_SERVE]
+        readers += [_serve(batcher, serve_prompt(rng, cfg), BATCH_SCALE,
+                           NEW_TOKENS) for _ in range(ANYRES_SERVE_SINGLE)]
+        batcher._hold_admission = False
+        outs = [r.result() for r in readers]
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counters.items()}
+        steps = batcher.decode_steps
+        for out in outs:
+            if len(out) != NEW_TOKENS or min(out) < 0 or max(out) >= vocab:
+                fail(f"{label}: a stream gave {len(out)} of {NEW_TOKENS} "
+                     f"tokens in [{min(out)}, {max(out)}]")
+        solo = sum(kind == "admit_solo" for _, kind, _ in batcher.events)
+        groups = sum(kind == "admit_group" for _, kind, _ in batcher.events)
+        want = {"paged_attention": steps * n_layers,
+                "flash_attention": (solo + groups) * n_layers,
+                "decode_attention": 0}
+        print(f"[{label}] launches {launches} over {steps} decode steps, "
+              f"{solo} solo and {groups} group prefills; expected {want}; "
+              f"admissions {batcher.admit_stats}")
+        if steps <= 0 or launches != want:
+            fail(f"{label}: the serving path did not go through the kernels "
+                 f"as expected")
+        if batcher.admit_stats != {"solo": len(ANYRES_SERVE),
+                                   "grouped": ANYRES_SERVE_SINGLE}:
+            fail(f"{label}: the anyres rows were not admitted solo and the "
+                 f"single tiles as a group")
+        check_graphs(label, tally, 0, steps // batcher.chunk)
+        free, total = len(batcher.alloc.free), batcher.alloc.n_allocatable
+        print(f"[{label}] pages free {free} of {total}")
+        if free != total:
+            fail(f"{label}: pages were not returned to the free list")
+        ttft = sorted(r.t_first - r.t_submit for r in readers)
+        pool = nbytes(batcher.paged.k, batcher.paged.v)
+        print(f"[{label}] {card_line()}: {len(outs)} requests, "
+              f"{sum(map(len, outs))} tokens in {wall:.3f} s: "
+              f"{sum(map(len, outs)) / wall:.2f} tok/s over the batch "
+              f"(prefills included); TTFT p50 "
+              f"{statistics.median(ttft) * 1e3:.1f} ms max "
+              f"{ttft[-1] * 1e3:.1f} ms; pool {pool / 2**30:.2f} GiB; "
+              f"max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    finally:
+        batcher.shutdown()
+    del batcher
+    torch.cuda.empty_cache()
+
+    # ---- a repeated anyres request hits its cached pages ----
+    px, size = stacks[0]
+    prompt = (make_prompt(rng, PROMPT_LEN, vocab)[None], px[0])
+    outs, b = _short_run(model, f"{label} prefix_cache",
+                         [(prompt, BATCH_SCALE, 16, {"image_size": size})] * 2,
+                         prefix_cache=True, prefill_len=3072)
+    spliced = PROMPT_LEN - 1 + anyres_token_count(cfg, size, px.shape[1],
+                                                  BATCH_SCALE)
+    pages = (spliced - 1) // 64
+    print(f"[{label} prefix_cache] {b.stats}; the hit gave "
+          f"{sum(x == y for x, y in zip(*outs))} of 16 tokens of the miss")
+    if b.stats["prefix_hits"] != 1 \
+            or b.stats["prefix_pages_reused"] != pages:
+        fail(f"{label}: the repeated anyres request did not hit its {pages} "
+             f"pages")
+    return launches
+
+
+def anyres_4bit(model, cfg, stacks, label) -> dict:
+    """The same weights quantized to int4 in place: one anyres request at
+    each of ANYRES_4BIT through ``generate``, counted; logits against
+    disable_fused_proj(), and TTFT beside the TTFT of that route; a
+    profile of each prefill."""
+    from matryoshka_mm_torch.models.llava import anyres_token_count
+    from matryoshka_mm_torch.ops import fused_mlp, int4_matmul
+    from matryoshka_mm_torch.ops.decode_attention import flash_decode_attention
+    from matryoshka_mm_torch.ops.flash_attention import flash_attention_lse
+    from matryoshka_mm_torch.ops.quant import (disable_fused_proj,
+                                               quantize_llama_params)
+
+    counters = {"int4_matmul": int4_matmul.int4_matmul,
+                "quant_mlp": fused_mlp.quant_mlp,
+                "decode_attention": flash_decode_attention,
+                "flash_attention": flash_attention_lse}
+    t0 = time.perf_counter()
+    quantize_llama_params(model.params, bits=4)
+    torch.cuda.synchronize()
+    print(f"[{label}] quantized on the card in {time.perf_counter() - t0:.1f}"
+          f" s: decoder weights "
+          f"{_nbytes(model.params['llama']) / 2**30:.2f} GiB")
+    L = cfg.llama.num_hidden_layers
+    rng = np.random.default_rng(15)
+    ids = make_prompt(rng, PROMPT_LEN, cfg.llama.vocab_size)[None]
+    px, size = stacks[0]
+    for fn in counters.values():
+        fn.launches = 0
+    tally = graph_tally()
+    for n in ANYRES_4BIT:
+        run(model, (ids, px, None), n, NEW_TOKENS, image_sizes=[size])
+    launches = {k: fn.launches for k, fn in counters.items()}
+    steps = len(ANYRES_4BIT) * (NEW_TOKENS - 1)
+    slots = [-(-(PROMPT_LEN - 1 + anyres_token_count(
+        cfg, size, px.shape[1], n)) // 64) * 64 for n in ANYRES_4BIT]
+    prefill = sum(4 * L + 1 if rows <= int4_matmul.MAX_FUSED_ROWS else 1
+                  for rows in slots)
+    want = {"int4_matmul": prefill + steps * (2 * L + 1),
+            "quant_mlp": steps * L, "decode_attention": steps * L,
+            "flash_attention": len(ANYRES_4BIT) * L}
+    print(f"[{label}] prefill slots {slots}; launches {launches} expected "
+          f"{want}")
+    if launches != want:
+        fail(f"{label}: the main path did not go through the kernels as "
+             f"expected")
+    check_graphs(label, tally, len(ANYRES_4BIT),
+                 len(ANYRES_4BIT) * (NEW_TOKENS - 2))
+    for n in ANYRES_4BIT:
+        got, _ = anyres_prefill(model, cfg, ids, px, size, n)
+        with disable_fused_proj():
+            want_logits, _ = anyres_prefill(model, cfg, ids, px, size, n)
+        compare_logits(got, want_logits, f"{label} {n}", need_same_top=True)
+        ttft = statistics.median(_wall(lambda: run(
+            model, (ids, px, None), n, 1, image_sizes=[size]))
+            for _ in range(2))
+        full = _wall(lambda: run(model, (ids, px, None), n, NEW_TOKENS,
+                                 image_sizes=[size]))
+        with disable_fused_proj():
+            dequant = statistics.median(_wall(lambda: run(
+                model, (ids, px, None), n, 1, image_sizes=[size]))
+                for _ in range(2))
+        print(f"[{label}] {card_line()}: numtoks={n} TTFT {ttft * 1e3:.2f} "
+              f"ms (every projection dequantized + F.linear: "
+              f"{dequant * 1e3:.2f} ms)  decode "
+              f"{(NEW_TOKENS - 1) / (full - ttft):.2f} tok/s")
+        prefill_profile(model, label, (ids, px, None), n, size)
+    return launches
+
+
+def anyres_small(dev) -> None:
+    """Phase 8's small model (Dh=128, float32) with anyres fields: the card
+    (kernels) against the CPU (plain versions), the same greedy tokens from
+    anyres and multi-image ``generate``, from the batcher's anyres
+    admission on the paged and the dense backend, and from an anyres
+    prefix-cache hit, which must equal its miss."""
+    import dataclasses
+
+    from matryoshka_mm_torch.config import LlavaConfig
+    from matryoshka_mm_torch.generate import GenerationConfig, generate
+    from matryoshka_mm_torch.models.convert import init_params
+    from matryoshka_mm_torch.serve.batching import ContinuousBatcher
+
+    base = LlavaConfig.tiny_debug()
+    cfg = dataclasses.replace(
+        base, llama=dataclasses.replace(
+            base.llama, hidden_size=256, num_attention_heads=2,
+            num_key_value_heads=2, intermediate_size=512),    # Dh = 128
+        mm_patch_merge_type="spatial_unpad", image_aspect_ratio="anyres",
+        image_grid_pinpoints=SMALL_PINPOINTS, tokenizer_model_max_length=256)
+    params = {"cpu": init_params(cfg, "cpu", seed=3)}
+    params["card"] = _to(params["cpu"], dev)
+    rng = np.random.default_rng(2)
+    ids = np.array([[1, 5, 17, -200, 42, 9]], np.int32)
+    stacks = [(rng.standard_normal((5, 3, 56, 56)).astype(np.float32),
+               (500, 500)),
+              (rng.standard_normal((3, 3, 56, 56)).astype(np.float32),
+               (300, 120))]
+    multi_ids = np.array([[1, 23, -200, 57, -200, 88, -200, 14, 9]],
+                         np.int32)
+    multi_px = rng.standard_normal((3, 3, 56, 56)).astype(np.float32)
+    long_ids = np.array([[7] * 20 + [-200] + [9] * 30], np.int32)
+    gen_cfg = GenerationConfig(max_new_tokens=10, decode_chunk=4,
+                               eos_token_id=-1)
+    got = {}
+    for name, p in params.items():
+        got[name, "anyres"] = generate(
+            p, cfg, ids, stacks[0][0][None], image_sizes=[stacks[0][1]],
+            matryoshka_vis_token_scale="ver=v0_numtoks=16",
+            gen_cfg=gen_cfg).tolist()
+        got[name, "multi"] = generate(
+            p, cfg, multi_ids, multi_px,
+            matryoshka_vis_token_scale="ver=v0_numtoks=4",
+            gen_cfg=gen_cfg).tolist()
+        for backend in ("paged", "dense"):
+            kw = dict(page_size=16) if backend == "paged" else {}
+            b = ContinuousBatcher(p, cfg, max_batch=2, prefill_len=128,
+                                  max_new_tokens=16, gen_cfg=gen_cfg,
+                                  chunk=4, backend=backend, **kw)
+            try:
+                b._hold_admission = True
+                reqs = [b.submit(ids, px, numtoks=16, max_new_tokens=10,
+                                 image_size=size) for px, size in stacks]
+                b._hold_admission = False
+                got[name, backend] = [
+                    np.concatenate(list(b.stream(r))).tolist() for r in reqs]
+                if b.admit_stats != {"solo": 2, "grouped": 0}:
+                    fail(f"small anyres: the {backend} batcher on the {name} "
+                         f"did not admit the tile stacks solo")
+            finally:
+                b.shutdown()
+        b = ContinuousBatcher(p, cfg, max_batch=2, prefill_len=192,
+                              max_new_tokens=16, gen_cfg=gen_cfg, chunk=4,
+                              backend="paged", page_size=16,
+                              prefix_cache=True)
+        try:
+            got[name, "prefix"] = [np.concatenate(list(b.stream(b.submit(
+                long_ids, stacks[0][0], numtoks=16, max_new_tokens=10,
+                image_size=stacks[0][1])))).tolist() for _ in range(2)]
+            if b.stats["prefix_hits"] != 1:
+                fail(f"small anyres: the repeated request on the {name} did "
+                     f"not hit")
+        finally:
+            b.shutdown()
+    for key in ("anyres", "multi", "paged", "dense", "prefix"):
+        print(f"[small anyres] {key:6s} card {got['card', key]}\n"
+              f"[small anyres] {key:6s} cpu  {got['cpu', key]}")
+        if got["card", key] != got["cpu", key]:
+            fail(f"small anyres: {key}: card tokens differ from CPU tokens")
+    if got["card", "paged"][0] != got["card", "anyres"][0] \
+            or got["card", "dense"][0] != got["card", "anyres"][0]:
+        fail("small anyres: the batchers' tokens differ from generate's")
+    prefix = got["card", "prefix"]
+    if prefix[0] != prefix[1]:
+        fail("small anyres: the prefix-cache hit differs from its miss")
+
+
+def phase_anyres(dev) -> dict:
+    """LLaVA-NeXT's anyres path and multi-image prompts at the full width of
+    llava-next-vicuna-7b-m3 (random bf16 weights made on the card, the
+    newline included): generate, the paged batcher, then load_4bit, then
+    the small model on card and CPU.  Returns the launch counts of the
+    counted runs."""
+    from matryoshka_mm_torch.config import LlavaConfig
+    from matryoshka_mm_torch.models.builder import LlavaModel
+    from matryoshka_mm_torch.models.convert import init_params
+
+    label = "anyres"
+    cfg = LlavaConfig.llava_v15_7b_m3(
+        image_aspect_ratio="anyres", mm_patch_merge_type="spatial_unpad",
+        image_grid_pinpoints=NEXT_PINPOINTS)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = init_params(cfg, device=str(dev), seed=0)
+    torch.cuda.synchronize()
+    if params["image_newline"].shape != (cfg.llama.hidden_size,):
+        fail(f"{label}: init_params made no image_newline")
+    model = LlavaModel(params, cfg)
+    print(f"[{label}] llava-next-vicuna-7b-m3 widths made on the card in "
+          f"{time.perf_counter() - t0:.1f} s; pinpoints {NEXT_PINPOINTS}")
+    stacks = anyres_stacks(model, np.random.default_rng(12))
+    print(f"[{label}] tile stacks " + ", ".join(
+        f"{w}x{h}: {tuple(px.shape)}" for px, (w, h) in stacks))
+    launches = anyres_requests(model, cfg, stacks, label)
+    for k, n in anyres_serving(model, cfg, stacks,
+                               f"{label} serve").items():
+        launches[k] = launches.get(k, 0) + n
+    for k, n in anyres_4bit(model, cfg, stacks, f"{label} int4").items():
+        launches[k] = launches.get(k, 0) + n
+    del model, params
+    torch.cuda.empty_cache()
+    anyres_small(dev)
+    return launches
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
@@ -3076,16 +3620,17 @@ def main(argv=()) -> int:
     phase_build()
     if argv:
         # a subset for work on one phase: `chip_smoke.py kernels quant slice
-        # qslice paged hbm serve smallinfer bwd train small ckpt` runs
+        # qslice paged hbm serve smallinfer bwd train small ckpt anyres` runs
         # phases 3 (attention kernels), 3 (quantized products), 4, 5, 6, 7,
-        # 8, 9, 10, 11 and 12 alone and prints no result line
+        # 8, 9, 10, 11, 12 and 13 alone and prints no result line
         for name in argv:
             phases = {"kernels": phase_kernels, "quant": phase_quant_kernels,
              "slice": phase_slice, "smallinfer": phase_small,
              "qslice": phase_quant_slice, "paged": phase_paged_kernels,
              "hbm": phase_hbm, "serve": phase_serving,
              "bwd": phase_bwd_kernels, "train": phase_train,
-             "small": phase_train_small, "ckpt": phase_ckpt}
+             "small": phase_train_small, "ckpt": phase_ckpt,
+             "anyres": phase_anyres}
             timed(phases[name], dev)
         print(f"partial run {argv}: no result")
         return 1
@@ -3107,6 +3652,8 @@ def main(argv=()) -> int:
         launches[k] = launches.get(k, 0) + n
     timed(phase_train_small, dev)
     for k, n in timed(phase_ckpt, dev).items():
+        launches[k] = launches.get(k, 0) + n
+    for k, n in timed(phase_anyres, dev).items():
         launches[k] = launches.get(k, 0) + n
     if [m for m in sys.modules
             if m.split(".")[0] in ("jax", "matryoshka_mm_tpu")]:

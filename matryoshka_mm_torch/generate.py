@@ -1,9 +1,16 @@
-"""Autoregressive generation, PyTorch port of the single-image and
-text-only paths of ``matryoshka_mm_tpu/generate.py``.
+"""Autoregressive generation, PyTorch port of the text-only, one image
+a row, multi-image and anyres paths of ``matryoshka_mm_tpu/generate.py``.
 
 * Prefill: left-padded splice into ``L = round_up(T - 1 + n, 64)`` slots
   (text only: ``round_up(T, 64)``) of a KV cache with capacity
-  ``L + max_new_tokens``; next-token logits from the last position.
+  ``L + max_new_tokens``; next-token logits from the last position.  A
+  B=1 prompt with M sentinels and M images (``(M, 3, H, W)``) splices
+  image i at sentinel i into ``round_up(T - M + M * n, 64)`` slots
+  (:func:`prefill_multi`); a B=1 anyres tile stack ``(1, T_tiles, 3, H,
+  W)`` with its ``image_sizes`` splices its exact merged count
+  (``models/llava.py`` ``anyres_token_count``) into ``round_up(T - 1 +
+  count, 64)`` slots (:func:`prefill_anyres`).  Each leaves the cache of
+  a one-image prefill, so the decode is the same.
 * Decode: chunks of ``decode_chunk`` steps run without a host round trip;
   the new slot is valid only for unfinished rows (``attn_valid=~finished``),
   finished rows emit ``pad_token_id``, and EOS / stopping criteria are
@@ -19,8 +26,7 @@ text-only paths of ``matryoshka_mm_tpu/generate.py``.
   request (:func:`gating_probs`, the argmax over ``cfg.tokscale_list``).
 
 Not ported yet; each raises ``NotImplementedError`` naming its ROADMAP.md
-item: ``ver=v2`` combine-logits, anyres tiles, multi-image prompts, beam
-search, speculative decoding.
+item: ``ver=v2`` combine-logits, beam search, speculative decoding.
 """
 
 from __future__ import annotations
@@ -37,7 +43,9 @@ from .kvconfig import parse_kv_from_string
 from .config import LlavaConfig
 from .models.llama import (KVCache, embed_tokens, init_kv_cache,
                            llama_forward, lm_head)
-from .models.llava import encode_images, prepare_multimodal, router_forward
+from .models.llava import (anyres_token_count, encode_images,
+                           prepare_multimodal, prepare_multimodal_anyres,
+                           prepare_multimodal_multi, router_forward)
 from .utils.cuda_graph import CapturedStep
 
 
@@ -75,8 +83,42 @@ def prefill_image(params: dict, cfg: LlavaConfig, input_ids: torch.Tensor,
     spliced, _ = prepare_multimodal(
         params, cfg, input_ids, pixel_values, numtoks=numtoks,
         attn_mask=attn_mask, out_len=out_len, padding_side="left")
+    return _prefill_spliced(params, cfg, spliced, capacity)
+
+
+@torch.inference_mode()
+def prefill_multi(params: dict, cfg: LlavaConfig, input_ids: torch.Tensor,
+                  pixel_values: torch.Tensor, numtoks: int, out_len: int,
+                  capacity: int
+                  ) -> Tuple[torch.Tensor, KVCache, torch.Tensor]:
+    """A (1, T) prompt with M sentinels and its M images (M, 3, H, W) ->
+    as :func:`prefill_image`."""
+    spliced, _ = prepare_multimodal_multi(
+        params, cfg, input_ids, pixel_values, numtoks=numtoks,
+        out_len=out_len, padding_side="left")
+    return _prefill_spliced(params, cfg, spliced, capacity)
+
+
+@torch.inference_mode()
+def prefill_anyres(params: dict, cfg: LlavaConfig, input_ids: torch.Tensor,
+                   pixel_values: torch.Tensor, image_size, numtoks: int,
+                   out_len: int, capacity: int
+                   ) -> Tuple[torch.Tensor, KVCache, torch.Tensor]:
+    """A (1, T) prompt with one sentinel and the anyres tile stack
+    (T_tiles, 3, H, W) of an image of ``image_size`` (width, height) ->
+    as :func:`prefill_image`."""
+    spliced = prepare_multimodal_anyres(
+        params, cfg, input_ids, pixel_values, image_size, numtoks=numtoks,
+        out_len=out_len, padding_side="left")
+    return _prefill_spliced(params, cfg, spliced, capacity)
+
+
+def _prefill_spliced(params: dict, cfg: LlavaConfig, spliced,
+                     capacity: int
+                     ) -> Tuple[torch.Tensor, KVCache, torch.Tensor]:
     B, L, _ = spliced.embeds.shape
-    cache = init_kv_cache(cfg.llama, B, capacity, device=input_ids.device)
+    cache = init_kv_cache(cfg.llama, B, capacity,
+                          device=spliced.embeds.device)
     hidden, cache = llama_forward(
         params["llama"], cfg.llama, spliced.embeds,
         position_ids=spliced.position_ids, attn_valid=spliced.attn_mask,
@@ -103,12 +145,15 @@ def prefill_text(params: dict, cfg: LlavaConfig, input_ids: torch.Tensor,
 
 def _prefill_dispatch(params, cfg: LlavaConfig, input_ids: torch.Tensor,
                       pixel_values, attention_mask, numtoks,
-                      gen_cfg: GenerationConfig):
-    """Prompt prefill for the text-only and one-image-per-row cases."""
+                      gen_cfg: GenerationConfig, image_sizes=None):
+    """Prompt prefill for the text-only, anyres-tiled (B=1, an unpadded
+    prompt; ``image_sizes`` defaults to the tile size) and
+    one-image-per-row cases."""
     B, T = input_ids.shape
     dev = input_ids.device
-    mask = None if attention_mask is None else torch.as_tensor(
-        np.asarray(attention_mask, bool), device=dev)
+    mask_np = None if attention_mask is None else \
+        np.asarray(attention_mask, bool)
+    mask = None if mask_np is None else torch.as_tensor(mask_np, device=dev)
     if pixel_values is None:
         text_cap = _round_up(T, 64)
         pad = text_cap - T
@@ -119,6 +164,18 @@ def _prefill_dispatch(params, cfg: LlavaConfig, input_ids: torch.Tensor,
         return prefill_text(params, cfg, ids_p, m,
                             text_cap + gen_cfg.max_new_tokens)
     n = numtoks if numtoks is not None else cfg.vision.num_patches
+    if pixel_values.dim() == 5:
+        if B != 1:
+            raise ValueError("anyres generation supports batch_size=1")
+        if mask_np is not None and not mask_np.all():
+            raise ValueError("anyres prompts must be unpadded")
+        tiles = pixel_values[0]
+        size = tuple(image_sizes[0]) if image_sizes else \
+            (cfg.vision.image_size, cfg.vision.image_size)
+        L = _round_up(T - 1 + anyres_token_count(cfg, size, tiles.shape[0],
+                                                 n), 64)
+        return prefill_anyres(params, cfg, input_ids, tiles, size, n, L,
+                              L + gen_cfg.max_new_tokens)
     L = _round_up(T - 1 + n, 64)
     return prefill_image(params, cfg, input_ids, pixel_values, mask, n, L,
                          L + gen_cfg.max_new_tokens)
@@ -341,9 +398,9 @@ def generate(
     params: dict,
     cfg: LlavaConfig,
     input_ids,                                    # (B, T)
-    pixel_values=None,                            # (B, 3, H, W)
-    *,
-    image_sizes=None,
+    pixel_values=None,            # (B, 3, H, W), (M, 3, H, W) or
+    *,                            # (1, T_tiles, 3, H, W)
+    image_sizes=None,                             # [(w, h), ...] for anyres
     attention_mask=None,                          # (B, T) for padded batches
     matryoshka_vis_token_scale: Optional[str] = None,
     gen_cfg: GenerationConfig = GenerationConfig(),
@@ -355,44 +412,61 @@ def generate(
     suffixes as int32 numpy.  ``matryoshka_vis_token_scale`` is
     ``ver=v0_numtoks=N`` for a fixed scale, ``ver=v0_numtoks=gateprobargmax``
     for the router's pick (B=1, M3-MoE configs), or None for the full
-    grid.
+    grid.  ``pixel_values`` is one image a row; at B=1, M images for a
+    prompt with M sentinels; or an anyres tile stack of one image, with its
+    ``image_sizes``.
     Sampling draws from ``generator`` (a new one seeded with 0 on the
     model's device when None).  On a CUDA device the decode replays a
     captured step (:class:`DecodeGraph`) unless ``cuda_graph=False`` asks
     for the eager loop (:func:`decode_chunk`); the CPU always takes the
     eager loop."""
     device = _params_device(params)
-    input_ids = torch.as_tensor(np.asarray(input_ids, np.int64),
-                                device=device)
-    B, T = input_ids.shape
+    ids_np = np.asarray(input_ids, np.int64)
+    B, T = ids_np.shape
+    multi = False
+    if pixel_values is not None:
+        pixel_values = np.asarray(pixel_values, np.float32)
+        # M images for the M sentinels of one prompt
+        multi = (pixel_values.ndim == 4 and B == 1
+                 and pixel_values.shape[0] > 1)
+        if multi and matryoshka_vis_token_scale and parse_kv_from_string(
+                matryoshka_vis_token_scale)["ver"] == "v2":
+            raise ValueError("ver=v2 combine-logits supports one image per "
+                             "sample (multi-image prompts use ver=v0)")
+        multi = multi and pixel_values.shape[0] == int(
+            (ids_np == IMAGE_TOKEN_INDEX).sum())
     numtoks = _parse_scale(matryoshka_vis_token_scale)
     if generator is None and gen_cfg.do_sample:
         generator = torch.Generator(device=device).manual_seed(0)
-
+    input_ids = torch.as_tensor(ids_np, device=device)
     if pixel_values is not None:
-        pv = np.asarray(pixel_values, np.float32)
-        if pv.ndim == 5:
-            raise NotImplementedError(
-                "anyres multi-tile input is not ported yet (ROADMAP.md "
-                "Queue 1, item 8)")
-        n_sent = int((input_ids == IMAGE_TOKEN_INDEX).sum())
-        if B == 1 and pv.shape[0] > 1 and pv.shape[0] == n_sent:
-            raise NotImplementedError(
-                "multi-image prompts are not ported yet (ROADMAP.md "
-                "Queue 1, item 8)")
-        pixel_values = torch.as_tensor(pv, device=device)
+        pixel_values = torch.as_tensor(pixel_values, device=device)
     if numtoks == GATE:
         if B != 1:
             raise ValueError("gateprobargmax supports batch_size=1 only")
         if pixel_values is None or not cfg.is_m3_moe:
             raise ValueError("gateprobargmax needs an image and an M3-MoE "
                              "config (its router picks the scale)")
+        if pixel_values.dim() != 4:
+            # the JAX package's CLIP tower fails to reshape a tile stack
+            # with this TypeError
+            raise TypeError(f"gateprobargmax reads one image a row: cannot "
+                            f"reshape pixels of shape "
+                            f"{tuple(pixel_values.shape)} into patches")
         gp = gating_probs(params, cfg, pixel_values)
         numtoks = cfg.tokscale_list[int(gp[0].argmax())]
 
-    logits, cache, lengths = _prefill_dispatch(
-        params, cfg, input_ids, pixel_values, attention_mask, numtoks,
-        gen_cfg)
+    if multi:
+        n = numtoks if numtoks is not None else cfg.vision.num_patches
+        M = pixel_values.shape[0]
+        L = _round_up(T - M + M * n, 64)
+        logits, cache, lengths = prefill_multi(
+            params, cfg, input_ids, pixel_values, n, L,
+            L + gen_cfg.max_new_tokens)
+    else:
+        logits, cache, lengths = _prefill_dispatch(
+            params, cfg, input_ids, pixel_values, attention_mask, numtoks,
+            gen_cfg, image_sizes)
     first = _select_token(logits, gen_cfg, generator)
     return _decode_loop(params, cfg, gen_cfg, cache, first, lengths,
                         generator, stopping_criteria, cuda_graph)

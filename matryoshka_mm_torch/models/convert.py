@@ -188,7 +188,8 @@ def init_params(cfg: LlavaConfig, device="cuda", seed: int = 0) -> dict:
     """Random parameters made on ``device`` (the card unless the caller
     names the CPU) with a seeded ``torch.Generator`` (normal(0, 0.02) dense
     weights, unit norms, zero biases), so a 7B model never crosses from the
-    host."""
+    host.  An ``*unpad`` merge adds ``image_newline``, normal(0, D^-1/2)
+    in the decoder's dtype, as the JAX ``init_llava_params``."""
     from .llava import router_embed_dim
 
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -200,6 +201,11 @@ def init_params(cfg: LlavaConfig, device="cuda", seed: int = 0) -> dict:
             == "dense":
         params["router"] = init_dense_gating_params(
             gen, router_embed_dim(cfg), len(cfg.tokscale_list), device=device)
+    if "unpad" in cfg.mm_patch_merge_type:
+        D = cfg.llama.hidden_size
+        params["image_newline"] = (
+            torch.randn((D,), generator=gen, device=device) * D ** -0.5
+        ).to(torch_dtype(cfg.llama.dtype))
     return params
 
 

@@ -29,10 +29,11 @@ only for the TPU compiler).
 
 Quantized weights (``ops/quant.py``): every dense weight, ``lm_head``
 included, goes through :func:`proj`, the port of the JAX ``proj`` +
-``fused_int4_proj``.  A quantized leaf with bf16 rows <= 1024 on a CUDA
-tensor, outside ``disable_fused_proj()``, launches ``int4_matmul`` /
-``int8_matmul``; everything else (other dtypes, more rows, the CPU)
-dequantizes to bf16 and multiplies, as the JAX package does off the TPU.
+``fused_int4_proj``.  A quantized leaf with bf16 rows <=
+``MAX_FUSED_ROWS`` (``ops/int4_matmul.py``) on a CUDA tensor, outside
+``disable_fused_proj()``, launches ``int4_matmul`` / ``int8_matmul``;
+everything else (other dtypes, more rows, the CPU) dequantizes to bf16 and
+multiplies, as the JAX package does off the TPU.
 The MLP of the fused layout takes ``quant_mlp`` under the JAX rule (rows
 <= 32, bf16, CUDA, fused kernels enabled).
 

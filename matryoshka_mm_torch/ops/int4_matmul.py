@@ -24,7 +24,7 @@ conversions), streams every weight byte once through per-warp ``cp.async``
 rings (no L2 cache policy: ``cp.async`` with one faulted on the card), and
 splits K over the ``parts`` warps of a block (:func:`gemv_parts`, plain
 ints; :func:`int4_matmul_split_plain` is the same blocking of the f32 sums
-in PyTorch).  At prefill (M > 8, up to 1024 rows on the main path)
+in PyTorch).  At prefill (M > 8, up to MAX_FUSED_ROWS rows)
 operations, 2 M a weight value: the prefill kernel
 (``csrc/quant_matmul.cu`` ``quant_wgmma_kernel``) runs Hopper's
 asynchronous ``wgmma`` products with both operands in swizzled shared
@@ -40,8 +40,9 @@ ragged edges, so the TPU tile padding and block-divisor rules are gone.
 
 Dispatch: a CPU tensor goes to the plain version; a CUDA tensor launches
 the kernel or raises on what it does not take.  The eligibility rule of
-the model (bf16 rows <= 1024, outside ``disable_fused_proj()``) is applied
-by ``models/llama.py`` ``proj``, as the JAX ``fused_int4_proj`` does.
+the model (bf16 rows <= ``MAX_FUSED_ROWS``, outside
+``disable_fused_proj()``) is applied by ``models/llama.py`` ``proj``, as
+the JAX ``fused_int4_proj`` does.
 """
 
 from __future__ import annotations
@@ -54,7 +55,14 @@ from .. import _kernels
 from .decode_attention import H100_SMS, _sm_count
 from .quant import Q4KEY, QKEY, unpack_int4
 
-MAX_FUSED_ROWS = 1024   # the JAX int4_matmul_eligible row limit
+# Rows past which a projection dequantizes and multiplies instead (the JAX
+# int4_matmul_eligible rule, 1,024 rows on the TPU).  On the H100 the
+# kernel beat dequantize + bf16 F.linear at 3,008 rows by 1.94-2.18x
+# (int4) and 1.10-1.23x (int8), and at 8,192 rows int8 lost (0.76-0.83x):
+# chip_smoke.py phase 3, qkv / gateup / down.  3,072 holds an anyres
+# prefill at scale 576 (3,008 slots in generate, the batcher's 3,072-slot
+# region) and leaves serving groups of 4-8 rows of 1,024 to cuBLAS
+MAX_FUSED_ROWS = 3072
 GEMV_MAX_ROWS = 8       # rows at or below which the decode kernel runs
 GEMV_UNITS = 32         # output channels a block (16 gate/up pairs: GLU)
 GEMV_CHUNK = 128        # packed weight bytes of a row a warp takes a step

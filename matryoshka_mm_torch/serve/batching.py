@@ -17,6 +17,10 @@ and per-request token streams come out of thread-safe queues.
 
 New requests prefill into pool rows: compatible burst arrivals share ONE
 batched ``(G, L)`` prefill (``_admit_group``), the rest a batch-1 prefill.
+An anyres request (a ``(T_tiles, 3, H, W)`` tile stack of one image, with
+its ``image_size``) admits solo: its prefill splices the exact merged token
+count (``models/llava.py`` ``anyres_token_count``) into the same
+left-padded ``L``-slot layout, so its row decodes like any other.
 
 The model runs on the device of ``params``.  Nothing is compiled ahead of
 time here, so what the JAX package did to bound its number of traces
@@ -43,8 +47,7 @@ Admissions under it stay device futures: a prefill's first token reaches the
 host through the next round's echo of its pre-round token vector.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
-item): ``adapters=`` (multi-LoRA), anyres multi-tile requests, decoders other
-than ``arch="llama"``.
+item): ``adapters=`` (multi-LoRA), decoders other than ``arch="llama"``.
 """
 
 from __future__ import annotations
@@ -66,9 +69,11 @@ from .. import _kernels
 from ..config import LlavaConfig
 from ..constants import IMAGE_TOKEN_INDEX
 from ..generate import (GenerationConfig, _params_device, _round_up,
-                        _select_token, prefill_image, prefill_text)
+                        _select_token, prefill_anyres, prefill_image,
+                        prefill_text)
 from ..models.llama import (KVCache, embed_tokens, init_kv_cache,
                             llama_forward, lm_head)
+from ..models.llava import anyres_token_count
 from .paged_cache import (CapturedRound, PageAllocator, PoolState,
                           _resolve_use_kernel, import_prefill,
                           import_prefill_group, init_paged_cache,
@@ -97,6 +102,9 @@ class _Request:
     pixel_values: Optional[np.ndarray]
     numtoks: Optional[int]
     max_new_tokens: int
+    # anyres multi-tile request: pixel_values (T_tiles, 3, H, W) and the
+    # original (w, h) the unpad merge needs
+    image_size: Optional[tuple] = None
     out_queue: "queue.Queue" = field(default_factory=queue.Queue)
     emitted: int = 0
     slot: int = -1
@@ -124,6 +132,13 @@ class _Request:
     # device (not yet in ``generated`` / the client stream); the round that
     # echoes it delivers it
     pending: bool = False
+
+
+def _is_anyres(pixel_values, image_size) -> bool:
+    """An anyres tile stack of one image: several tiles, or one with its
+    original size."""
+    return pixel_values is not None and pixel_values.ndim == 4 and (
+        pixel_values.shape[0] > 1 or image_size is not None)
 
 
 @torch.inference_mode()
@@ -392,8 +407,18 @@ class ContinuousBatcher:
         pool.set_write_idx(self.L)
 
     # ---- client API ----
-    def _vis_tokens(self, numtoks: Optional[int]) -> int:
-        return numtoks if numtoks is not None else self.cfg.vision.num_patches
+    def _vis_tokens(self, numtoks: Optional[int], pixel_values=None,
+                    image_size=None) -> int:
+        """Visual tokens one image splices in: ``numtoks`` for a single
+        tile, the exact anyres merge count for a tile stack."""
+        n = numtoks if numtoks is not None else self.cfg.vision.num_patches
+        if _is_anyres(None if pixel_values is None
+                      else np.asarray(pixel_values), image_size):
+            size = tuple(image_size) if image_size else \
+                (self.cfg.vision.image_size, self.cfg.vision.image_size)
+            return anyres_token_count(self.cfg, size,
+                                      int(np.shape(pixel_values)[0]), n)
+        return n
 
     def spliced_len(self, input_ids: np.ndarray, numtoks: Optional[int],
                     pixel_values=None, image_size=None) -> int:
@@ -402,13 +427,15 @@ class ContinuousBatcher:
         n_img = int((ids == IMAGE_TOKEN_INDEX).sum())
         if n_img == 0:
             return ids.shape[0]
-        return ids.shape[0] + n_img * (self._vis_tokens(numtoks) - 1)
+        n = self._vis_tokens(numtoks, pixel_values, image_size)
+        return ids.shape[0] + n_img * (n - 1)
 
     def fits(self, input_ids: np.ndarray, numtoks: Optional[int],
              pixel_values=None, image_size=None) -> bool:
         """True when the prompt fits the pool's prefill region; callers
         should route oversized prompts to the solo generate path."""
-        return self.spliced_len(input_ids, numtoks) <= self.L
+        return self.spliced_len(input_ids, numtoks, pixel_values,
+                                image_size) <= self.L
 
     def submit(self, input_ids: np.ndarray, pixel_values=None,
                numtoks: Optional[int] = None,
@@ -441,21 +468,21 @@ class ContinuousBatcher:
                     "multi-image prompts are not batchable; use the solo "
                     "generate path (the pool treats a multi-frame stack as "
                     "anyres tiles of one image)")
-            if px.ndim != 4 or px.shape[0] > 1 or image_size is not None:
-                raise NotImplementedError(
-                    "anyres multi-tile admission is not ported yet "
-                    "(ROADMAP.md Queue 1, item 8a)")
-        if not self.fits(input_ids, numtoks):
+        if not self.fits(input_ids, numtoks, pixel_values, image_size):
             # a negative left-pad would crash the scheduler thread and take
             # the whole pool down with it; reject just this request instead
+            n = self.spliced_len(input_ids, numtoks, pixel_values,
+                                 image_size)
             raise ValueError(
-                f"prompt ({self.spliced_len(input_ids, numtoks)} "
-                f"spliced tokens) exceeds the pool prefill region ({self.L}); "
-                f"use the solo generate path or raise prefill_len")
+                f"prompt ({n} spliced tokens) exceeds the pool prefill "
+                f"region ({self.L}); use the solo generate path or raise "
+                f"prefill_len")
         req = _Request(0, np.asarray(input_ids, np.int32),
                        None if pixel_values is None
                        else np.asarray(pixel_values, np.float32),
-                       numtoks, max_new_tokens, constraint=constraint_regex)
+                       numtoks, max_new_tokens,
+                       image_size=tuple(image_size) if image_size else None,
+                       constraint=constraint_regex)
         # the lock spans the error check and the enqueue so the crash
         # handler (which drains pending under the same lock) can never
         # miss a request submitted concurrently with scheduler death
@@ -556,7 +583,9 @@ class ContinuousBatcher:
     # ---- scheduler ----
     def _key_seq(self, req: _Request):
         """Spliced token-key sequence for prefix caching, or (None, 0) when
-        the request shape isn't cacheable (multi-image)."""
+        the request shape isn't cacheable (multi-image).  An anyres stack
+        keys on its exact merge count and on a hash of the tile bytes, the
+        tile count and the original size (the unpad crop depends on it)."""
         from .prefix_cache import build_key_seq
 
         ids = np.asarray(req.input_ids)
@@ -566,9 +595,9 @@ class ContinuousBatcher:
             return build_key_seq(ids, None, None, IMAGE_TOKEN_INDEX)
         if req.pixel_values.ndim != 4:
             return None, 0
-        n = self._vis_tokens(req.numtoks)
+        n = self._vis_tokens(req.numtoks, req.pixel_values, req.image_size)
         h = hashlib.blake2b(req.pixel_values.tobytes(), digest_size=8)
-        h.update(repr((req.pixel_values.shape[0], None)).encode())
+        h.update(repr((req.pixel_values.shape[0], req.image_size)).encode())
         img_hash = int.from_bytes(h.digest(), "little")
         return build_key_seq(ids, n, img_hash, IMAGE_TOKEN_INDEX)
 
@@ -616,7 +645,9 @@ class ContinuousBatcher:
         # suffix is pure text: map spliced positions back to input ids
         ids = np.asarray(req.input_ids).reshape(-1)
         if text_resume > 0:                      # image inside the prefix
-            suffix = ids[n_prefix - self._vis_tokens(req.numtoks) + 1:]
+            n = self._vis_tokens(req.numtoks, req.pixel_values,
+                                 req.image_size)
+            suffix = ids[n_prefix - n + 1:]
         else:
             suffix = ids[n_prefix:]
         t_suf = len(suffix)
@@ -770,9 +801,20 @@ class ContinuousBatcher:
 
     def _prefill(self, reqs):
         """One ``(G, L)`` prefill of compatible requests -> ``(logits (G, V),
-        dense cache of exactly L slots)``."""
+        dense cache of exactly L slots)``; an anyres request alone."""
+        r = reqs[0]
+        if _is_anyres(r.pixel_values, r.image_size):
+            s = self.cfg.vision.image_size
+            return prefill_anyres(
+                self.params, self.cfg,
+                torch.as_tensor(r.input_ids.astype(np.int64),
+                                device=self.device),
+                torch.as_tensor(r.pixel_values, device=self.device),
+                r.image_size or (s, s),
+                r.numtoks if r.numtoks is not None
+                else self.cfg.vision.num_patches, self.L, self.L)[:2]
         ids_p, mask = self._pad_ids(reqs)
-        if reqs[0].pixel_values is None:
+        if r.pixel_values is None:
             logits, cache, _ = prefill_text(self.params, self.cfg, ids_p,
                                             mask, self.L)
         else:
@@ -830,7 +872,8 @@ class ContinuousBatcher:
 
         # host-computed spliced length == the prefill's device lengths
         # (submit() guarantees it fits self.L) — no sync needed
-        T = self.spliced_len(req.input_ids, req.numtoks)
+        T = self.spliced_len(req.input_ids, req.numtoks, req.pixel_values,
+                             req.image_size)
         if self.backend == "paged":
             if not self._insert_paged(req, slot, cache, T):
                 return False
@@ -904,11 +947,13 @@ class ContinuousBatcher:
     def _group_key(req: _Request):
         """Batched-prefill compatibility key, or None when the request must
         admit solo (constrained requests need per-request first-token
-        masking)."""
+        masking; an anyres stack splices its own token count)."""
         if req.constraint is not None:
             return None
         if req.pixel_values is None:
             return ("text",)
+        if _is_anyres(req.pixel_values, req.image_size):
+            return None
         return ("img", req.numtoks)
 
     def _insert_dense(self, slot: int, cache: KVCache, g: int):
@@ -1052,15 +1097,17 @@ class ContinuousBatcher:
         ids = np.concatenate(
             [np.asarray(req.input_ids).reshape(-1).astype(np.int32),
              np.asarray(req.generated, np.int32)])[None]
-        if not self.fits(ids, req.numtoks):
+        if not self.fits(ids, req.numtoks, req.pixel_values,
+                         req.image_size):
             req.out_queue.put(_StreamError(
                 f"request aborted: {reason} and the continuation prompt "
                 f"no longer fits the pool prefill region"))
             req.out_queue.put(None)
             return None
         return _Request(req.rid, ids, req.pixel_values, req.numtoks,
-                        remaining, out_queue=req.out_queue,
-                        emitted=req.emitted, constraint=req.constraint)
+                        remaining, image_size=req.image_size,
+                        out_queue=req.out_queue, emitted=req.emitted,
+                        constraint=req.constraint)
 
     def _requeue_inflight(self, req: _Request, reason: str):
         """Resume a mid-flight request through the front-of-line retry

@@ -563,9 +563,10 @@ def test_submit_rejects_what_the_pool_cannot_take(models):
                        np.int32)
         with pytest.raises(ValueError, match="multi-image"):
             b.submit(ids, np.zeros((2, 3, 56, 56), np.float32), numtoks=4)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            b.submit(*_inputs(0)[:1], np.zeros((3, 3, 56, 56), np.float32),
-                     numtoks=4, image_size=(100, 60))
+        # an anyres stack counts its merge (flat here: 5 tiles x 16 tokens)
+        with pytest.raises(ValueError, match="prefill region"):
+            b.submit(*_inputs(0)[:1], np.zeros((5, 3, 56, 56), np.float32),
+                     numtoks=16, image_size=(100, 60))
         with pytest.raises(KeyError, match="LoRA"):
             b.submit(*_inputs(0), numtoks=4, lora_id="a")
     finally:
