@@ -17,24 +17,29 @@ Phases; any failure exits non-zero, and no phase's exception is caught:
    a 672-slot cache, GQA and window cases (the float32 FMA kernel timed at
    the same shape), the training shapes S=1024 and S=1599 and an anyres
    prefill at S=3008 (kernel, plain version and library timed, TFLOP/s),
-   and the edges of a 64 x 64 tile
+   chunked_prefill's last chunk (512 queries at q_index_offset 2,560
+   against 3,136 slots, left-padded; timed the same), and the edges of a
+   64 x 64 tile
    walk in bf16 and float32 (S of 63/64/65/129, paddings of 70 and 150,
    windows of 16 and 150, q_index_offset with Sq != Sk, GQA 4 and 8, Dh=64,
    non-causal; zeros and lse = -1e30 on keyless rows, the same bits from two
    launches); decode attention with its n_split printed: B in {1, 4}, S=672,
    GQA, window, a ragged S, S=40, S=65, a row whose last split is wholly
    masked, B=1 at S=4096, B=1 at 3040 (an anyres request, timed with b1
-   and b4) (each against the plain and the split plain
+   and b4), B=5 and B=20 at 672 (ver=v2 steps, timed) (each against the
+   plain and the split plain
    version, two launches bit-identical), then its int8-KV branch at B in
    {1, 4}, S in {672, 673}, GQA and window; int4_matmul / int8_matmul at the
    7B projections (qkv 12288x4096, o 4096x4096, gateup 22016x4096, down
    4096x11008, lm_head 32000x4096) for M in {1, 2, 4, 8} (the decode
-   kernel) and {192, 640, 768, 1024} (the prefill kernel), and at M=3008
-   (an anyres prefill) for qkv, gateup and down, two launches
-   bit-identical at M = 1, 8 and 640, timed at M = 1, 4, 8 (GB/s, share of
-   the byte bound) and 192, 640, 1024, 3008 (TFLOP/s, share of the operations
+   kernel) and {9, 20, 192, 640, 768, 1024} (the prefill kernel; 9 a
+   speculative verify, 20 a ver=v2 step of 5 scales x 4 rows), and at
+   M=3008 (an anyres prefill) for qkv, gateup and down, two launches
+   bit-identical at M = 1, 8, 9, 20 and 640, timed at M = 1, 4, 8, 9, 20
+   (GB/s, share of the byte bound; 9 and 20 also beside dequantize +
+   F.linear) and 192, 640, 1024, 3008 (TFLOP/s, share of the operations
    bound), each beside bf16 F.linear on the dequantized weight; quant_mlp
-   at 7B widths for M in {1, 4, 8, 32}, int4 and int8;
+   at 7B widths for M in {1, 4, 8, 20, 32}, int4 and int8;
 4. the bf16 slice at full width: load_pretrained_model("debug://7b")
    (random weights from a seed), five one-image requests with 32 greedy
    tokens at ver=v0_numtoks in {1, 9, 36, 144, 576} and a left-padded B=4
@@ -187,9 +192,38 @@ Phases; any failure exits non-zero, and no phase's exception is caught:
    multi-image generate, the paged and the dense batcher's anyres
    admission, and an anyres prefix-cache hit equal to its miss.
 
+14. generate's other modes at the full width of llava-v1.5-7b-m3
+   (debug://7b, random bf16 weights, nothing cut; B=1 prompts of ~40
+   tokens and phase 4's left-padded B=4 batch).  ver=v2 combine-logits:
+   ver=v2_numtoks=[36,576]_betas=[0.5,1]_gamma=0.1 and
+   ver=v2_numtoks=[1,9,36,144,576]_pickby=entropy at B=1, the betas spec
+   at B=4 (K*B = 8), the entropy spec under load_4bit at B=4 (K*B = 20), 32
+   greedy tokens each: K * 32 flash launches, 32 decode launches a step,
+   replays included, and under int4 the quantized products of K prefills
+   and of the K*B-row steps (through the prefill kernel and quant_mlp),
+   one capture and 30 replays a request; ver=v2_numtoks=[144]_betas=[1]
+   gives ver=v0_numtoks=144's tokens bit for bit; the captured v2 step
+   bit-identical to decode_chunk; TTFT and tok/s at K = 2 and 5 beside v0
+   at 576.  stream_generate at 144 in chunks of 8: one yield a chunk plus
+   one, the last equal to generate's; the time to the first yield.
+   beam_generate with 3 beams at 144: one beam equals greedy generate, the
+   hypothesis's summed log-prob at least greedy's (less 0.5, both rescored
+   by one forward), exact launches; tok/s and the cache reorder's ms.
+   speculative_generate, k = 8, on a prompt whose text repeats, in bf16 and
+   under load_4bit: exact launches (under int4 every verify step's
+   products at 9 rows, the profile's count of the prefill kernel equal to
+   the prefill's 128 and 65 a verify step); the acceptance rate, tok/s
+   beside generate's, the first index where the tokens differ.
+   chunked_prefill of a 3,072-token prompt in chunks of 512 against the
+   one-shot prefill: cosine >= 0.99, the same argmax, 32 x 6 flash
+   launches; ms and peak memory of both.  Then phase 8's small float32
+   model, card against CPU: the same tokens from v2 generate (a captured
+   decode), stream_generate, beam_generate, speculative_generate and
+   chunked_prefill's argmax.
+
 With arguments (`python3 chip_smoke.py kernels quant slice qslice paged hbm
-serve smallinfer bwd train small ckpt anyres`) only the build and the named
-phases run, and no result line is printed.
+serve smallinfer bwd train small ckpt anyres genmodes`) only the build and
+the named phases run, and no result line is printed.
 
 Each kernel's record carries its bound: the larger of its bytes (inputs once,
 outputs once) over 3.35 TB/s and its operations over 989 TFLOP/s, the H100
@@ -232,13 +266,17 @@ QUANT_SHAPES = {"qkv": (12288, 4096), "o": (4096, 4096),
                 "gateup": (22016, 4096), "down": (4096, 11008),
                 "lm_head": (32000, 4096)}
 # rows held against the plain versions
-QUANT_ROWS = (1, 2, 4, 8, 192, 640, 768, 1024)
-QUANT_TIMED_ROWS = (1, 4, 8)      # decode rows timed (8: the serving step)
+QUANT_ROWS = (1, 2, 4, 8, 9, 20, 192, 640, 768, 1024)
+# rows timed against the byte bound: decode rows (8: the serving step), a
+# speculative verify of k + 1 = 9 rows and a ver=v2 step of 5 scales x 4
+# rows, the last two through the prefill kernel
+QUANT_TIMED_ROWS = (1, 4, 8, 9, 20)
+QUANT_STEP_ROWS = (9, 20)         # also timed beside dequant_linear_ms
 # prefill rows timed: a B=1 prefill at scales 144 and 576 (generate.py rounds
 # T - 1 + numtoks up to 64) and a 1024-row serving admission; 768, the B=4
 # batch at 144, is held only
 QUANT_PREFILL_ROWS = (192, 640, 1024)
-QUANT_SAME_BITS_ROWS = (1, 8, 640)   # two launches bit-identical
+QUANT_SAME_BITS_ROWS = (1, 8, 9, 20, 640)   # two launches bit-identical
 # long prefills, held and timed at the projections of a decoder layer: an
 # anyres request at scale 576 (3,008 slots) and a serving group of 8 rows
 # of 1,024.  Beside the kernel, the model's other route for a quantized
@@ -246,7 +284,7 @@ QUANT_SAME_BITS_ROWS = (1, 8, 640)   # two launches bit-identical
 # past MAX_FUSED_ROWS rows
 QUANT_LONG_ROWS = (3008, 8192)
 QUANT_LONG_SHAPES = ("qkv", "gateup", "down")
-MLP_ROWS = (1, 4, 8, 32)          # quant_mlp rows held (32: its limit)
+MLP_ROWS = (1, 4, 8, 20, 32)      # quant_mlp rows held (32: its limit)
 # the quantized products' kernels, by the names a profile gives them: the
 # prefill kernel was quant_mma_kernel before its wgmma design, a name kept so
 # that ab_torch_phases.py --same-script also reads an older package's
@@ -367,7 +405,7 @@ def library_ms(kind: str, operands: list, **kw) -> float:
         Sq, Sk = operands[0][0].shape[2], operands[0][1].shape[2]
         dev = operands[0][0].device
         causal = torch.arange(Sk, device=dev)[None] <= \
-            torch.arange(Sq, device=dev)[:, None]
+            torch.arange(Sq, device=dev)[:, None] + kw.get("offset", 0)
         mask = (kw["kv_valid"][:, None, None, :] & causal[None, None])
         return time_ms(lambda q, k, v: sdpa(q, k, v, attn_mask=mask),
                        operands)
@@ -554,6 +592,9 @@ FLASH_EDGES = (
 # shapes, and an anyres prefill at scale 576 (a 5-tile image, 2,928 visual
 # tokens in 3,008 slots)
 FLASH_TRAIN = (("train", 1024, 37), ("train", 1599, 61), ("anyres", 3008, 41))
+# chunked_prefill's last chunk of a 3,072-token prompt in chunks of 512:
+# (Sq, cache slots, q_index_offset, left padding)
+FLASH_CHUNK = (512, 3136, 2560, 41)
 # decode cases: (label, B, H, Hkv, S, window); every row valid up to S - 20
 # except that the last row's first 31 slots are not, the query at S - 21
 DECODE_CASES = (
@@ -565,7 +606,9 @@ DECODE_CASES = (
     ("masked split", 1, 32, 32, 672, None),
     ("long b1", 1, 32, 32, 4096, None),
     # an anyres request at scale 576: 3,008 prefill slots + 32 decode slots
-    ("anyres b1", 1, 32, 32, 3040, None))
+    ("anyres b1", 1, 32, 32, 3040, None),
+    # ver=v2 steps: 5 scales of one row, 5 scales of 4 rows
+    ("b5", 5, 32, 32, 672, None), ("b20", 20, 32, 32, 672, None))
 DECODE_INT8 = (
     ("int8 b1", 1, 32, 32, 672, None), ("int8 b4", 4, 32, 32, 673, None),
     ("int8 gqa", 4, 32, 8, 672, None), ("int8 window", 4, 32, 32, 673, 128))
@@ -634,6 +677,47 @@ def flash_edge_cases(dev, gen) -> float:
                 fail(f"{name}: two launches gave other bits")
             worst = max(worst, err)
     return worst
+
+
+def flash_chunk_case(dev, gen, Dh) -> float:
+    """The last chunk of ``chunked_prefill``'s 3,072-token prompt in chunks
+    of 512 (FLASH_CHUNK): 512 queries at ``q_index_offset`` 2,560 against
+    a 3,136-slot cache, left-padded, the slots past the prompt not yet
+    written; against the plain version, two launches bit-identical, and
+    timed beside the plain version and the library.  Returns the error."""
+    from matryoshka_mm_torch.ops import flash_attention as fl
+
+    Sq, Sk, offset, pad = FLASH_CHUNK
+    q, k, v, valid = _flash_operands(gen, dev, torch.bfloat16, 1, 32, 32, Sq,
+                                     Sk, Dh, pad)
+    valid[:, offset + Sq:] = False
+    kw = dict(kv_valid=valid, q_index_offset=offset)
+    out, lse = fl.flash_attention_lse(q, k, v, **kw)
+    out2, lse2 = fl.flash_attention_lse(q, k, v, **kw)
+    ref_o, ref_l = fl.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err = (out.float() - ref_o.float()).abs().max().item()
+    lerr = (lse - ref_l).abs().max().item()
+    if not (torch.allclose(out.float(), ref_o.float(), atol=FLASH_TOL,
+                           rtol=FLASH_TOL) and lerr <= LSE_TOL):
+        fail("flash chunk disagrees with its plain version")
+    if not (torch.equal(out, out2) and torch.equal(lse, lse2)):
+        fail("flash chunk: two launches gave other bits")
+    ops = rotations(q, k, v)
+    ms = time_ms(lambda *a: fl.flash_attention_lse(*a, **kw), ops)
+    pms = time_ms(lambda *a: fl.flash_attention_plain(*a, **kw), ops, reps=3,
+                  warmup=1)
+    chunk_library_ms = library_ms("flash", ops, kv_valid=valid,
+                                  offset=offset)
+    flops = 4 * 32 * Dh * _pairs(valid, Sq, Sk, offset)
+    b = bound(nbytes(q, k, v) + nbytes(out, lse), flops)
+    print(f"[flash chunk] {card_line()}: Sq={Sq} q_index_offset={offset} "
+          f"against {Sk} slots, {pad} padded: max|out-plain|={err:.3e} "
+          f"max|lse-plain|={lerr:.3e}, two launches bit-identical; kernel "
+          f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s)  plain {pms:.4f} ms"
+          f"  bound {b['bound_ms']:.4f} ms by {b['bound_by']}  library "
+          f"{chunk_library_ms:.4f} ms")
+    return err
 
 
 def phase_kernels(dev) -> dict:
@@ -717,8 +801,9 @@ def phase_kernels(dev) -> dict:
         rec["flash_attention"]["err"] = max(rec["flash_attention"]["err"],
                                             err)
         del ops
-    rec["flash_attention"]["err"] = max(rec["flash_attention"]["err"],
-                                        flash_edge_cases(dev, gen))
+    rec["flash_attention"]["err"] = max(
+        rec["flash_attention"]["err"], flash_chunk_case(dev, gen, Dh),
+        flash_edge_cases(dev, gen))
 
     sms = dec._sm_count(dev.index or 0)
     for name, B, H, Hkv, S, window in DECODE_CASES:
@@ -758,7 +843,7 @@ def phase_kernels(dev) -> dict:
             fail(f"decode b1: the slots were not split (n_split {n_split})")
         rec["decode_attention"]["err"] = max(rec["decode_attention"]["err"],
                                              err)
-        if name in ("b1", "b4", "anyres b1"):
+        if name in ("b1", "b4", "anyres b1", "b5", "b20"):
             ops = rotations(*args)
             ms = time_ms(dec.flash_decode_attention, ops)
             plain = time_ms(dec.decode_attention_plain, ops, reps=5)
@@ -925,7 +1010,7 @@ def phase_quant_kernels(dev) -> dict:
                     line = timed(line, r, f"{shape}_{M}", fn, plain,
                                  rotations(x, w, sc), linear,
                                  rotations(x, wdq), flops=2 * M * N * K)
-                if M in QUANT_LONG_ROWS:
+                if M in QUANT_LONG_ROWS + QUANT_STEP_ROWS:
                     dq = time_ms(lambda x, w, sc: linear(
                         x, quant.dequantize_array({key: w, "scale": sc})),
                         rotations(x, w, sc), reps=5)
@@ -971,7 +1056,7 @@ def phase_quant_kernels(dev) -> dict:
             if rel > MLP_TOL:
                 fail(f"quant_mlp int{bits} M={M} disagrees with its plain "
                      f"version")
-            if M in (1, 8):
+            if M in (1, 8, 20):
                 if not torch.equal(got, mlp.quant_mlp(x, gateup, down, bits,
                                                       I)):
                     fail(f"quant_mlp int{bits} M={M}: two launches differ")
@@ -1024,21 +1109,22 @@ def make_inputs(cfg) -> dict:
 
 
 def run(model, inputs, numtoks, new_tokens, cuda_graph=True,
-        image_sizes=None):
-    """One ``generate`` request; its decode replays a captured step unless
-    ``cuda_graph=False`` asks for the eager loop."""
+        image_sizes=None, spec=None, **kw):
+    """One ``generate`` request at ``ver=v0_numtoks=<numtoks>``, or at the
+    scale spec ``spec``; its decode replays a captured step unless
+    ``cuda_graph=False`` asks for the eager loop.  ``kw`` goes to
+    ``LlavaModel.generate`` (``num_beams``, ``speculative``)."""
     ids, px, mask = inputs
+    spec = spec or f"ver=v0_numtoks={numtoks}"
     out = model.generate(ids, images=px, attention_mask=mask,
                          image_sizes=image_sizes,
-                         matryoshka_vis_token_scale=f"ver=v0_numtoks="
-                                                    f"{numtoks}",
+                         matryoshka_vis_token_scale=spec,
                          max_new_tokens=new_tokens, eos_token_id=-1,
-                         cuda_graph=cuda_graph)
+                         cuda_graph=cuda_graph, **kw)
     torch.cuda.synchronize()
     if out.shape != (ids.shape[0], new_tokens) or out.min() < 0 \
             or out.max() >= model.cfg.llama.vocab_size:
-        fail(f"numtoks={numtoks}: output {out.shape} ids "
-             f"[{out.min()}, {out.max()}]")
+        fail(f"{spec}: output {out.shape} ids [{out.min()}, {out.max()}]")
     return out
 
 
@@ -1151,14 +1237,19 @@ def decode_profile(model, inputs, numtoks, label, cuda_graph=True,
     return (dev_n - dev1) / 1e3 / steps, base
 
 
-def decode_bits(model, inputs, numtoks, label, image_sizes=None) -> None:
+def decode_bits(model, inputs, numtoks, label, image_sizes=None,
+                spec=None) -> None:
     """The captured decode against ``decode_chunk`` on the card, from one
     prefill's cache and a copy of it: the NEW_TOKENS - 1 steps' tokens and
     the last step's logits must be bit-identical (the same kernels in the
-    same order).  Prints the capture's ms and the warm-up step's."""
+    same order).  With a ``ver=v2`` ``spec`` the prefill is
+    ``prefill_scales``' and both decodes combine its scales' logits.
+    Prints the capture's ms and the warm-up step's."""
     from matryoshka_mm_torch.generate import (DecodeGraph, GenerationConfig,
-                                              _prefill_dispatch,
-                                              _select_token, decode_chunk)
+                                              LogitCombiner, _prefill_dispatch,
+                                              _round_up, _select_token,
+                                              decode_chunk, prefill_scales)
+    from matryoshka_mm_torch.kvconfig import parse_kv_from_string
     from matryoshka_mm_torch.models.llama import KVCache
 
     ids, px, mask = inputs
@@ -1166,12 +1257,22 @@ def decode_bits(model, inputs, numtoks, label, image_sizes=None) -> None:
     steps = NEW_TOKENS - 1
     gen = GenerationConfig(max_new_tokens=NEW_TOKENS, decode_chunk=steps,
                            eos_token_id=-1)
+    ids_t = torch.as_tensor(ids, dtype=torch.int64, device=dev)
+    px_t = torch.as_tensor(px, device=dev)
+    combine = None
     with torch.inference_mode():
-        logits, cache_a, lengths = _prefill_dispatch(
-            model.params, model.cfg,
-            torch.as_tensor(ids, dtype=torch.int64, device=dev),
-            torch.as_tensor(px, device=dev), mask, numtoks, gen,
-            image_sizes)
+        if spec is None:
+            logits, cache_a, lengths = _prefill_dispatch(
+                model.params, model.cfg, ids_t, px_t, mask, numtoks, gen,
+                image_sizes)
+        else:
+            combine = LogitCombiner(parse_kv_from_string(spec), dev)
+            L = _round_up(ids.shape[1] - 1 + max(combine.scales), 64)
+            logits_k, cache_a, lengths = prefill_scales(
+                model.params, model.cfg, ids_t, px_t,
+                None if mask is None else torch.as_tensor(mask, device=dev),
+                combine.scales, L, L + NEW_TOKENS)
+            logits = combine(logits_k)
         first = _select_token(logits, gen, None)
         cache_b = KVCache(*(None if t is None else t.clone() for t in (
             cache_a.k, cache_a.v, cache_a.valid, cache_a.positions,
@@ -1180,13 +1281,14 @@ def decode_bits(model, inputs, numtoks, label, image_sizes=None) -> None:
         finished = torch.zeros_like(first, dtype=torch.bool)
         _, _, _, toks, last = decode_chunk(
             model.params, model.cfg, gen, cache_a, first, lengths, finished,
-            steps, return_logits=True)
+            steps, return_logits=True, combine=combine)
         graph = DecodeGraph(model.params, model.cfg, gen, cache_b, first,
-                            lengths, finished)
+                            lengths, finished, combine=combine)
         got = graph.run(steps)
         torch.cuda.synchronize()
     same = bool(torch.equal(got, toks) and torch.equal(graph.logits, last))
-    print(f"[{label}] {card_line()}: B={ids.shape[0]} numtoks={numtoks} "
+    what = spec or f"numtoks={numtoks}"
+    print(f"[{label}] {card_line()}: B={ids.shape[0]} {what} "
           f"captured decode vs decode_chunk over {steps} steps: tokens and "
           f"last logits bit-identical {same}; capture "
           f"{graph.graph.capture_ms:.1f} ms, warm-up step "
@@ -3589,6 +3691,463 @@ def phase_anyres(dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: generate's other modes at full width
+# ---------------------------------------------------------------------------
+
+V2_BETAS = "ver=v2_numtoks=[36,576]_betas=[0.5,1]_gamma=0.1"
+V2_ENTROPY = "ver=v2_numtoks=[1,9,36,144,576]_pickby=entropy"
+# the counted v2 requests: (label, load, spec, batch)
+V2_RUNS = (("v2 bf16", "bf16", V2_BETAS, 1), ("v2 bf16", "bf16", V2_ENTROPY, 1),
+           ("v2 bf16", "bf16", V2_BETAS, 4), ("v2 int4", "int4", V2_ENTROPY, 4))
+BEAMS = 3
+BEAM_TOL = 0.5       # nats: the two sequences rescored by one bf16 forward
+SPEC_K = 8
+SPEC_PROFILE_TOKENS = 4  # the profiled speculative request: 3 verify steps
+CHUNKED = (3072, 512)    # chunked_prefill's prompt tokens and chunk
+GENMODES_SMALL_V2 = "ver=v2_numtoks=[1,4,16]_betas=[0.5,0.3,0.2]_gamma=0.1"
+
+
+def _v2_scales(spec) -> list:
+    from matryoshka_mm_torch.kvconfig import parse_kv_from_string, parse_list
+
+    return [int(x) for x in parse_list(parse_kv_from_string(spec)["numtoks"])]
+
+
+def _zero(counters) -> None:
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def _read(counters) -> dict:
+    return {k: fn.launches for k, fn in counters.items()}
+
+
+def _held(label, launches, want) -> None:
+    print(f"[{label}] launches {launches} expected {want}")
+    if launches != want:
+        fail(f"{label}: the path did not go through the kernels as expected")
+
+
+def v2_requests(models, inputs, counters) -> dict:
+    """The counted v2 requests of V2_RUNS, 32 greedy tokens each, the
+    counters set to 0 just before each and read just after: K flash
+    launches a layer, one decode launch a layer and step, and under int4
+    the quantized products of K prefills and of 31 steps over K * B rows;
+    one capture and 30 replays each.  Returns the launches summed."""
+    total = dict.fromkeys(counters, 0)
+    for label, load, spec, batch in V2_RUNS:
+        model = models[load]
+        L = model.cfg.llama.num_hidden_layers
+        K, steps = len(_v2_scales(spec)), NEW_TOKENS - 1
+        _zero(counters)
+        tally = graph_tally()
+        out = run(model, inputs[batch], None, NEW_TOKENS, spec=spec)
+        launches = _read(counters)
+        want = dict.fromkeys(counters, 0)
+        want.update(flash_attention=K * L, decode_attention=steps * L)
+        if load == "int4":
+            want.update(int4_matmul=K * (4 * L + 1) + steps * (2 * L + 1),
+                        quant_mlp=steps * L)
+        _held(f"{label} {spec} B={batch} (K*B={K * batch})", launches, want)
+        check_graphs(label, tally, 1, NEW_TOKENS - 2)
+        print(f"[{label}] {spec} B={batch}: row 0 tokens "
+              f"{out[0, :10].tolist()}")
+        for k in total:
+            total[k] += launches[k]
+    return total
+
+
+def v2_checks(model, inputs, label) -> None:
+    """A one-scale spec gives the v0 tokens bit for bit; the captured v2
+    step against the eager loop; TTFT and tok/s at K = 2 and 5 beside v0
+    at 576 (B=1, medians of 2 and 1 runs)."""
+    one = run(model, inputs[1], None, NEW_TOKENS,
+              spec="ver=v2_numtoks=[144]_betas=[1]")
+    v0 = run(model, inputs[1], 144, NEW_TOKENS)
+    same = bool(np.array_equal(one, v0))
+    print(f"[{label}] ver=v2_numtoks=[144]_betas=[1] vs ver=v0_numtoks=144: "
+          f"tokens bit-identical {same}")
+    if not same:
+        fail(f"{label}: a single beta of 1 does not give the v0 tokens")
+    decode_bits(model, inputs[1], None, label, spec=V2_ENTROPY)
+    specs = ("ver=v0_numtoks=576", V2_BETAS, V2_ENTROPY)
+    ttft = {spec: statistics.median(_wall(lambda: run(
+        model, inputs[1], None, 1, spec=spec)) for _ in range(2))
+        for spec in specs}
+    rates = {spec: [] for spec in specs}
+    for spec in specs + specs[::-1]:           # in turns: A B C C B A
+        full = _wall(lambda: run(model, inputs[1], None, NEW_TOKENS,
+                                 spec=spec))
+        rates[spec].append((NEW_TOKENS - 1) / (full - ttft[spec]))
+    for spec in specs:
+        print(f"[{label}] {card_line()}: B=1 {spec} TTFT "
+              f"{ttft[spec] * 1e3:.2f} ms  decode "
+              f"{', '.join(f'{r:.2f}' for r in rates[spec])} tok/s (turns "
+              f"v0 K=2 K=5 K=5 K=2 v0)")
+
+
+def stream_check(model, inputs, label) -> None:
+    """stream_generate at 144 in chunks of 8: one yield after the first
+    token and one a chunk, the last equal to generate's tokens; the time to
+    the first yield beside the whole stream's."""
+    from matryoshka_mm_torch.generate import GenerationConfig, stream_generate
+
+    ids, px, _ = inputs[1]
+    chunk = 8
+    gen = GenerationConfig(max_new_tokens=NEW_TOKENS, decode_chunk=chunk,
+                           eos_token_id=-1)
+    spec = f"ver=v0_numtoks={BATCH_SCALE}"
+    want = model.generate(ids, images=px, matryoshka_vis_token_scale=spec,
+                          max_new_tokens=NEW_TOKENS, decode_chunk=chunk,
+                          eos_token_id=-1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first_s, yields = None, []
+    for out in stream_generate(model.params, model.cfg, ids, px,
+                               matryoshka_vis_token_scale=spec, gen_cfg=gen):
+        first_s = first_s or time.perf_counter() - t0
+        yields.append(out)
+    total_s = time.perf_counter() - t0
+    n_want = 1 + -(-(NEW_TOKENS - 1) // chunk)
+    same = bool(np.array_equal(yields[-1], want))
+    print(f"[{label}] {card_line()}: stream_generate B=1 {spec}: "
+          f"{len(yields)} yields (expected {n_want}), widths "
+          f"{[y.shape[1] for y in yields]}, last equal to generate's "
+          f"{same}; first yield after {first_s * 1e3:.2f} ms, the last "
+          f"after {total_s * 1e3:.2f} ms")
+    if len(yields) != n_want or not same:
+        fail(f"{label}: stream_generate's yields are not generate's")
+
+
+def sequence_logprob(model, inputs, numtoks, tokens) -> float:
+    """Sum of log p(token i | prompt, tokens before i) for row 0: one
+    prefill, then every token but the last as one block at the cache's
+    write slot (the flash kernel at q_index_offset = the slot)."""
+    from matryoshka_mm_torch.generate import _round_up, prefill_image
+    from matryoshka_mm_torch.models.llama import (embed_tokens, llama_forward,
+                                                  lm_head)
+
+    ids, px, _ = inputs
+    dev = model.params["llama"]["norm"].device
+    p, lc = model.params["llama"], model.cfg.llama
+    L = _round_up(ids.shape[1] - 1 + numtoks, 64)
+    toks = torch.as_tensor(np.asarray(tokens, np.int64), device=dev)[None]
+    with torch.inference_mode():
+        logits0, cache, lengths = prefill_image(
+            model.params, model.cfg,
+            torch.as_tensor(ids, dtype=torch.int64, device=dev),
+            torch.as_tensor(px, device=dev), None, numtoks, L,
+            L + toks.shape[1])
+        n = toks.shape[1] - 1
+        hidden, _ = llama_forward(
+            p, lc, embed_tokens(p, toks[:, :n]),
+            position_ids=lengths[:, None] + torch.arange(n, device=dev),
+            cache=cache, q_index_offset=L)
+        logits = torch.cat([logits0[:, None], lm_head(p, hidden)], dim=1)
+        lp = torch.log_softmax(logits.float(), dim=-1)[0]
+        return float(lp.gather(-1, toks[0, :, None]).sum())
+
+
+def beam_check(model, inputs, label, counters) -> dict:
+    """beam_generate with BEAMS beams at 144, 32 tokens, B=1: width 1 gives
+    greedy generate's tokens; the chosen hypothesis scores at least as well
+    as greedy (both rescored by one forward, BEAM_TOL); the launches of the
+    counted run (L flash, 31 L decode at BEAMS rows); tok/s; the cache
+    reorder's device ms at this request's cache and at 672 slots.  Returns
+    the launches."""
+    from matryoshka_mm_torch.generate import _reorder_cache
+    from matryoshka_mm_torch.models.llama import init_kv_cache
+
+    lc = model.cfg.llama
+    L, n = lc.num_hidden_layers, BATCH_SCALE
+    greedy = run(model, inputs[1], n, NEW_TOKENS)
+    width1 = run(model, inputs[1], n, NEW_TOKENS, num_beams=1)
+    if not np.array_equal(width1, greedy):
+        fail(f"{label}: one beam differs from greedy generate")
+    _zero(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    beam = run(model, inputs[1], n, NEW_TOKENS, num_beams=BEAMS)
+    full = time.perf_counter() - t0
+    launches = _read(counters)
+    _held(f"{label} {BEAMS} beams", launches,
+          dict(dict.fromkeys(counters, 0), flash_attention=L,
+               decode_attention=(NEW_TOKENS - 1) * L))
+    lp_beam = sequence_logprob(model, inputs[1], n, beam[0])
+    lp_greedy = sequence_logprob(model, inputs[1], n, greedy[0])
+    print(f"[{label}] {BEAMS} beams at {n}: tokens {beam[0, :10].tolist()}, "
+          f"summed log-prob {lp_beam:.3f} against greedy {lp_greedy:.3f} "
+          f"(one beam = greedy: True)")
+    if lp_beam < lp_greedy - BEAM_TOL:
+        fail(f"{label}: the beam hypothesis scores below greedy")
+    ttft = statistics.median(_wall(lambda: run(
+        model, inputs[1], n, 1, num_beams=BEAMS)) for _ in range(2))
+    dev = model.params["llama"]["norm"].device
+    parent = torch.tensor([2, 0, 0], device=dev)
+    for slots in (-(-(PROMPT_LEN - 1 + n) // 64) * 64 + NEW_TOKENS, 672):
+        c = init_kv_cache(lc, BEAMS, slots, device=dev)
+        moved = 2 * nbytes(c.k, c.v, c.valid, c.positions)
+        ms = time_ms(lambda k, v, valid, pos: _reorder_cache(
+            type(c)(k, v, valid, pos, c.write_idx, host_idx=0), parent),
+            [(c.k, c.v, c.valid, c.positions)], reps=10)
+        print(f"[{label}] {card_line()}: cache reorder over {BEAMS} beams "
+              f"x {slots} slots: {ms:.4f} ms a step, {moved / 2**30:.3f} "
+              f"GiB read and written ({moved / ms / 1e6:.1f} GB/s; byte "
+              f"bound {moved / HBM_BYTES_S * 1e3:.4f} ms)")
+        del c
+    print(f"[{label}] {card_line()}: {BEAMS} beams at {n}: TTFT "
+          f"{ttft * 1e3:.2f} ms, decode {(NEW_TOKENS - 1) / (full - ttft):.2f}"
+          f" tok/s (a row's tokens; {BEAMS} rows a step, eager)")
+    return launches
+
+
+def spec_prompt(cfg):
+    """A one-image prompt whose text repeats (a 12-token phrase 3 times)."""
+    rng = np.random.default_rng(14)
+    phrase = rng.integers(100, cfg.llama.vocab_size, (12,))
+    ids = np.concatenate([[1, 5, -200], np.tile(phrase, 3)]).astype(np.int32)
+    s = cfg.vision.image_size
+    return ids[None], rng.standard_normal((1, 3, s, s)).astype(np.float32), \
+        None
+
+
+def spec_check(model, inputs, label, counters, quant) -> dict:
+    """speculative_generate with k = SPEC_K at 144 on a repeating prompt:
+    exact launches (the prefill's; each verify step's quantized products at
+    k + 1 rows, qkv, o and lm_head through the prefill kernel, one
+    quant_mlp a layer); under int4 the profile's count of the prefill
+    kernel; the acceptance rate, tok/s beside generate's and the first
+    index where the tokens differ.  Returns the launches."""
+    from matryoshka_mm_torch import generate as gm
+
+    L, n = model.cfg.llama.num_hidden_layers, BATCH_SCALE
+    calls = {"n": 0}
+    verify = gm._verify
+
+    def counted(*a, **kw):
+        calls["n"] += 1
+        return verify(*a, **kw)
+
+    gm._verify = counted
+    try:
+        _zero(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run(model, inputs, n, NEW_TOKENS, speculative=True)
+        full = time.perf_counter() - t0
+        launches, steps = _read(counters), calls["n"]
+        want = dict.fromkeys(counters, 0)
+        want["flash_attention"] = L
+        if quant:
+            want.update(int4_matmul=4 * L + 1 + steps * (2 * L + 1),
+                        quant_mlp=steps * L)
+        _held(f"{label} speculative k={SPEC_K} ({steps} verify steps)",
+              launches, want)
+        if quant:       # a short request: its profile processes quickly
+            calls["n"] = 0
+            kernels, _ = profile_events(lambda: run(
+                model, inputs, n, SPEC_PROFILE_TOKENS, speculative=True))
+            wgmma = sum(e.count for e in kernels
+                        if "quant_wgmma_kernel" in e.key)
+            expect = 4 * L + calls["n"] * (2 * L + 1)
+            print(f"[{label}] profile of a speculative request: "
+                  f"quant_wgmma_kernel x{wgmma}, expected {expect} (the "
+                  f"prefill's 4 L and {2 * L + 1} a verify step of "
+                  f"{SPEC_K + 1} rows)")
+            if wgmma != expect:
+                fail(f"{label}: the verify products did not take the "
+                     f"prefill kernel")
+        ttft = statistics.median(_wall(lambda: run(
+            model, inputs, n, 1, speculative=True)) for _ in range(2))
+    finally:
+        gm._verify = verify
+    plain = run(model, inputs, n, NEW_TOKENS)
+    g_ttft = statistics.median(_wall(lambda: run(model, inputs, n, 1))
+                               for _ in range(2))
+    g_full = _wall(lambda: run(model, inputs, n, NEW_TOKENS))
+    differ = np.flatnonzero(out[0] != plain[0])
+    accepted = NEW_TOKENS - 1 - steps
+    print(f"[{label}] {card_line()}: speculative k={SPEC_K} at {n}: "
+          f"{steps} verify steps for {NEW_TOKENS - 1} tokens, acceptance "
+          f"{accepted / (SPEC_K * steps):.3f} ({accepted} of "
+          f"{SPEC_K * steps} drafts); decode "
+          f"{(NEW_TOKENS - 1) / (full - ttft):.2f} tok/s against generate's "
+          f"{(NEW_TOKENS - 1) / (g_full - g_ttft):.2f}; first index where "
+          f"the tokens differ: "
+          f"{int(differ[0]) if differ.size else 'none'}")
+    return launches
+
+
+def chunked_check(model, label, counters) -> dict:
+    """chunked_prefill of a CHUNKED[0]-token text prompt in chunks of
+    CHUNKED[1] against the one-shot prefill: logits cosine >= LOGIT_COS and
+    the same argmax, flash launches 32 a chunk; the ms (CUDA events around
+    each) and the device memory each adds at its peak, and the kernels' device ms under the
+    profiler.  Returns the launches."""
+    from matryoshka_mm_torch.generate import chunked_prefill, prefill_text
+    from matryoshka_mm_torch.models.llama import embed_tokens
+
+    S, chunk = CHUNKED
+    L = model.cfg.llama.num_hidden_layers
+    dev = model.params["llama"]["norm"].device
+    rng = np.random.default_rng(15)
+    ids = torch.as_tensor(rng.integers(100, model.cfg.llama.vocab_size,
+                                       (1, S)), device=dev)
+    valid = torch.ones((1, S), dtype=torch.bool, device=dev)
+    pos = torch.arange(S, device=dev)[None]
+    cap = S + 64
+
+    def one_shot():
+        return prefill_text(model.params, model.cfg, ids, valid, cap)[0]
+
+    def chunked():
+        with torch.inference_mode():
+            embeds = embed_tokens(model.params["llama"], ids)
+            return chunked_prefill(model.params, model.cfg, embeds, pos,
+                                   valid, cap, chunk)[0]
+
+    _zero(counters)
+    got = chunked()
+    launches = _read(counters)
+    _held(f"{label} chunked prefill", launches,
+          dict(dict.fromkeys(counters, 0), flash_attention=S // chunk * L))
+    compare_logits(got[0].float(), one_shot()[0].float(),
+                   f"{label} chunked vs one-shot", need_same_top=True)
+    for name, fn in (("one-shot", one_shot), ("chunked", chunked)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        kernels = profile_kernels(fn)
+        print(f"[{label}] {card_line()}: {name} prefill of {S} tokens"
+              f"{f' in chunks of {chunk}' if name == 'chunked' else ''}: "
+              f"{start.elapsed_time(end):.2f} ms between CUDA events around "
+              f"it, {sum(dev_us(e) for e in kernels) / 1e3:.2f} ms of "
+              f"kernels over {sum(e.count for e in kernels)} launches; peak "
+              f"{peak / 2**30:.3f} GiB above the weights")
+    return launches
+
+
+def genmodes_small(dev) -> None:
+    """Phase 8's small model (Dh=128, float32), the card (kernels) against
+    the CPU (plain versions): the same tokens from v2 generate, the last
+    yield of stream_generate, beam_generate, speculative_generate and the
+    argmax of chunked_prefill; on the card the v2 decode replays a
+    captured step."""
+    import dataclasses
+
+    from matryoshka_mm_torch.config import LlavaConfig
+    from matryoshka_mm_torch.generate import (GenerationConfig,
+                                              beam_generate, chunked_prefill,
+                                              generate, speculative_generate,
+                                              stream_generate)
+    from matryoshka_mm_torch.models.convert import init_params
+    from matryoshka_mm_torch.models.llama import embed_tokens
+
+    base = LlavaConfig.tiny_debug()
+    cfg = dataclasses.replace(base, llama=dataclasses.replace(
+        base.llama, hidden_size=256, num_attention_heads=2,
+        num_key_value_heads=2, intermediate_size=512))   # Dh = 128
+    params = {"cpu": init_params(cfg, "cpu", seed=3)}
+    params["card"] = _to(params["cpu"], dev)
+    rng = np.random.default_rng(1)
+    ids = rng.integers(100, 500, (1, 12)).astype(np.int32)
+    ids[:, 4] = -200
+    px = rng.standard_normal((1, 3, 56, 56)).astype(np.float32)
+    # the speculative prompt repeats its text after the image
+    repeat = np.concatenate([ids[0], ids[0, 5:], ids[0, 5:]])[None]
+    text = rng.integers(100, 500, (1, 256))
+    gen = GenerationConfig(max_new_tokens=10, decode_chunk=4, eos_token_id=-1)
+    v0 = "ver=v0_numtoks=4"
+    got = {}
+    for name, p in params.items():
+        tally = graph_tally()
+        got[name, "v2"] = generate(p, cfg, ids, px, gen_cfg=gen,
+                                   matryoshka_vis_token_scale=GENMODES_SMALL_V2)
+        if name == "card":
+            check_graphs("small genmodes v2", tally, 1, 8)
+        got[name, "stream"] = list(stream_generate(
+            p, cfg, ids, px, matryoshka_vis_token_scale=v0, gen_cfg=gen))[-1]
+        got[name, "beam"] = beam_generate(p, cfg, ids, px, num_beams=3,
+                                          matryoshka_vis_token_scale=v0,
+                                          gen_cfg=gen)
+        got[name, "speculative"] = speculative_generate(
+            p, cfg, repeat, px, matryoshka_vis_token_scale=v0, gen_cfg=gen,
+            k=4)
+        t = torch.as_tensor(text, device=p["llama"]["norm"].device)
+        with torch.inference_mode():
+            logits, _ = chunked_prefill(
+                p, cfg, embed_tokens(p["llama"], t),
+                torch.arange(256, device=t.device)[None],
+                torch.ones_like(t, dtype=torch.bool), 320, 64)
+        got[name, "chunked"] = logits.argmax(-1).cpu().numpy()
+    for mode in ("v2", "stream", "beam", "speculative", "chunked"):
+        card, cpu = got["card", mode], got["cpu", mode]
+        print(f"[small genmodes] {mode:11s} card {card.tolist()}\n"
+              f"[small genmodes] {mode:11s} cpu  {cpu.tolist()}")
+        if not np.array_equal(card, cpu):
+            fail(f"small genmodes: {mode}: card tokens differ from CPU tokens")
+
+
+def phase_genmodes(dev) -> dict:
+    """generate's other modes at the full width of llava-v1.5-7b-m3
+    (debug://7b, random bf16 weights from a seed, nothing cut): the counted
+    v2 requests in bf16 and under load_4bit, v2's gates and timings,
+    stream_generate, beam search, speculative decoding in bf16 and int4,
+    chunked prefill, then the small model card vs CPU.  Returns the launch
+    counts of the counted runs."""
+    from matryoshka_mm_torch.models.builder import load_pretrained_model
+    from matryoshka_mm_torch.ops import fused_mlp, int4_matmul
+    from matryoshka_mm_torch.ops.decode_attention import flash_decode_attention
+    from matryoshka_mm_torch.ops.flash_attention import flash_attention_lse
+
+    counters = {"flash_attention": flash_attention_lse,
+                "decode_attention": flash_decode_attention,
+                "int4_matmul": int4_matmul.int4_matmul,
+                "quant_mlp": fused_mlp.quant_mlp}
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    models = {"bf16": load_pretrained_model("debug://7b", device=str(dev))[1],
+              "int4": load_pretrained_model("debug://7b", device=str(dev),
+                                            load_4bit=True)[1]}
+    print(f"[time] genmodes debug://7b in bf16 and load_4bit "
+          f"{time.perf_counter() - t0:.1f} s")
+    inputs = make_inputs(models["bf16"].cfg)
+    launches = dict.fromkeys(counters, 0)
+    label = "genmodes bf16"
+    prompt = spec_prompt(models["bf16"].cfg)
+    for name, fn, args in (
+            ("v2 requests", v2_requests, (models, inputs, counters)),
+            ("v2 checks", v2_checks, (models["bf16"], inputs, label)),
+            ("stream", stream_check, (models["bf16"], inputs, label)),
+            ("beam", beam_check, (models["bf16"], inputs, label, counters)),
+            ("speculative bf16", spec_check,
+             (models["bf16"], prompt, label, counters, False)),
+            ("speculative int4", spec_check,
+             (models["int4"], prompt, "genmodes int4", counters, True)),
+            ("chunked prefill", chunked_check,
+             (models["bf16"], label, counters))):
+        t0 = time.perf_counter()
+        for k, v in (fn(*args) or {}).items():
+            launches[k] += v
+        print(f"[time] genmodes {name} {time.perf_counter() - t0:.1f} s")
+    print(f"[genmodes] max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del models
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    genmodes_small(dev)
+    print(f"[time] genmodes small model {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
@@ -3620,9 +4179,10 @@ def main(argv=()) -> int:
     phase_build()
     if argv:
         # a subset for work on one phase: `chip_smoke.py kernels quant slice
-        # qslice paged hbm serve smallinfer bwd train small ckpt anyres` runs
-        # phases 3 (attention kernels), 3 (quantized products), 4, 5, 6, 7,
-        # 8, 9, 10, 11, 12 and 13 alone and prints no result line
+        # qslice paged hbm serve smallinfer bwd train small ckpt anyres
+        # genmodes` runs phases 3 (attention kernels), 3 (quantized
+        # products), 4, 5, 6, 7, 8, 9, 10, 11, 12, 13 and 14 alone and
+        # prints no result line
         for name in argv:
             phases = {"kernels": phase_kernels, "quant": phase_quant_kernels,
              "slice": phase_slice, "smallinfer": phase_small,
@@ -3630,7 +4190,7 @@ def main(argv=()) -> int:
              "hbm": phase_hbm, "serve": phase_serving,
              "bwd": phase_bwd_kernels, "train": phase_train,
              "small": phase_train_small, "ckpt": phase_ckpt,
-             "anyres": phase_anyres}
+             "anyres": phase_anyres, "genmodes": phase_genmodes}
             timed(phases[name], dev)
         print(f"partial run {argv}: no result")
         return 1
@@ -3654,6 +4214,8 @@ def main(argv=()) -> int:
     for k, n in timed(phase_ckpt, dev).items():
         launches[k] = launches.get(k, 0) + n
     for k, n in timed(phase_anyres, dev).items():
+        launches[k] = launches.get(k, 0) + n
+    for k, n in timed(phase_genmodes, dev).items():
         launches[k] = launches.get(k, 0) + n
     if [m for m in sys.modules
             if m.split(".")[0] in ("jax", "matryoshka_mm_tpu")]:

@@ -113,6 +113,7 @@ def eval_model(args) -> str:
         pad_token_id=getattr(tokenizer, "pad_token_id", 0) or 0,
         stopping_criteria=stopping,
         num_beams=getattr(args, "num_beams", 1),
+        speculative=getattr(args, "speculative", False),
     )
     outputs = tokenizer.batch_decode(output_ids,
                                      skip_special_tokens=True)[0].strip()
@@ -142,6 +143,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--max_new_tokens", type=int, default=512)
     parser.add_argument("--matryoshka_vis_token_scale", type=str,
                         default=None)
+    parser.add_argument("--speculative", action="store_true",
+                        help="prompt-lookup decoding (greedy, B=1)")
     return parser
 
 

@@ -69,21 +69,28 @@ class LlavaModel:
                  stopping_criteria=None, use_cache=True, num_beams=1,
                  speculative=False, generator=None, decode_chunk=32,
                  cuda_graph=True, **kw):
-        from ..generate import GenerationConfig, generate
+        from ..generate import (GenerationConfig, beam_generate, generate,
+                                speculative_generate)
 
-        if num_beams != 1:
-            raise NotImplementedError(
-                "beam search is not ported yet (ROADMAP.md Queue 1, item 8)")
-        if speculative:
-            raise NotImplementedError(
-                "speculative decoding is not ported yet (ROADMAP.md Queue 1, "
-                "item 8)")
         scale = matryoshka_vis_token_scale or \
             self.config.matryoshka_vis_token_scale
         gen_cfg = GenerationConfig(
             max_new_tokens=max_new_tokens, temperature=temperature,
             top_p=top_p, do_sample=do_sample, eos_token_id=eos_token_id,
             pad_token_id=pad_token_id, decode_chunk=decode_chunk)
+        if num_beams != 1:
+            # the reference's HF generate(num_beams=N) behind --num-beams:
+            # deterministic, the sampling knobs unused
+            return beam_generate(
+                self.params, self.cfg, input_ids, images,
+                image_sizes=image_sizes, attention_mask=attention_mask,
+                matryoshka_vis_token_scale=scale, num_beams=num_beams,
+                gen_cfg=gen_cfg, stopping_criteria=stopping_criteria)
+        if speculative:
+            # prompt-lookup decoding: greedy, B=1, one image at most
+            return speculative_generate(
+                self.params, self.cfg, input_ids, images,
+                matryoshka_vis_token_scale=scale, gen_cfg=gen_cfg)
         return generate(self.params, self.cfg, input_ids, images,
                         image_sizes=image_sizes,
                         attention_mask=attention_mask,

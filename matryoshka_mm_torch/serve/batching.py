@@ -68,9 +68,9 @@ import torch
 from .. import _kernels
 from ..config import LlavaConfig
 from ..constants import IMAGE_TOKEN_INDEX
-from ..generate import (GenerationConfig, _params_device, _round_up,
-                        _select_token, prefill_anyres, prefill_image,
-                        prefill_text)
+from ..generate import (GenerationConfig, _ngram_propose, _params_device,
+                        _round_up, _select_token, prefill_anyres,
+                        prefill_image, prefill_text)
 from ..models.llama import (KVCache, embed_tokens, init_kv_cache,
                             llama_forward, lm_head)
 from ..models.llava import anyres_token_count
@@ -171,20 +171,6 @@ def dense_pool_decode(params: dict, cfg, gen_cfg, steps: int, pool: KVCache,
         token = nxt
     return (PoolState(token, lengths, budget, active, state.fsm_state),
             torch.stack(toks, dim=1))
-
-
-def _ngram_propose(ids, k: int, ngram: int):
-    """Prompt-lookup draft: continue the most recent earlier occurrence of
-    the trailing n-gram; pad by repeating when the match runs short."""
-    if len(ids) <= ngram:
-        return [int(ids[-1])] * k
-    pat = list(ids[-ngram:])
-    for s in range(len(ids) - ngram - 1, -1, -1):
-        if list(ids[s:s + ngram]) == pat:
-            cont = [int(x) for x in ids[s + ngram: s + ngram + k]]
-            if cont:
-                return (cont + [cont[-1]] * k)[:k]
-    return [int(ids[-1])] * k
 
 
 @dataclass

@@ -110,10 +110,17 @@ def test_sampling_is_seeded_and_in_vocab(models):
 
 @pytest.mark.parametrize("spec", ["ver=v2_numtoks=[1,4]_betas=[0.5,0.5]"])
 def test_unported_modes_raise(models, spec):
-    _, _, tcfg, tp = models
+    """The ver=v2 combine-logits mode, which this test once saw raise, is
+    ported: it gives the JAX tokens.  No mode of generate raises
+    NotImplementedError."""
+    jcfg, jp, tcfg, tp = models
     ids, px, _ = _prompt(1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        generate(tp, tcfg, ids, px, matryoshka_vis_token_scale=spec)
+    kw = dict(max_new_tokens=6, decode_chunk=4, eos_token_id=-1)
+    want = jax_generate(jp, jcfg, ids, px, matryoshka_vis_token_scale=spec,
+                        gen_cfg=JaxGenConfig(**kw))
+    got = generate(tp, tcfg, ids, px, matryoshka_vis_token_scale=spec,
+                   gen_cfg=GenerationConfig(**kw))
+    np.testing.assert_array_equal(got, np.asarray(want))
 
 
 def test_load_pretrained_and_eval_model_end_to_end(tmp_path, capsys):
@@ -140,5 +147,8 @@ def test_load_pretrained_and_eval_model_end_to_end(tmp_path, capsys):
         load_pretrained_model(str(tmp_path), device="cpu", load_4bit=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         load_pretrained_model("debug://tiny", device="cpu", tp_size=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.generate(np.array([[1, 5]]), num_beams=2)
+    # beam search and speculative decoding through the facade
+    for kw in (dict(num_beams=2), dict(speculative=True)):
+        out = model.generate(np.array([[1, 5, 9]]), max_new_tokens=4,
+                             eos_token_id=-1, **kw)
+        assert out.shape[0] == 1 and 1 <= out.shape[1] <= 4

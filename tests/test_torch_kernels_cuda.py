@@ -83,7 +83,9 @@ def test_flash_kernel_matches_plain(dev, dtype, Dh, group, window, offset,
 @pytest.mark.parametrize("B,H,Hkv,S,Dh,window", [
     (1, 32, 32, 672, 128, None), (4, 32, 8, 672, 128, None),
     (3, 16, 2, 333, 64, 100), (2, 8, 1, 1000, 128, None),
-    (2, 4, 2, 5, 64, None)])
+    (2, 4, 2, 5, 64, None),
+    # ver=v2 steps: 5 scales of one row, 5 scales of 4 rows
+    (5, 32, 32, 672, 128, None), (20, 32, 32, 672, 128, None)])
 def test_decode_kernel_matches_plain(dev, dtype, B, H, Hkv, S, Dh, window):
     g = torch.Generator(device=dev).manual_seed(0)
     q = torch.randn((B, H, Dh), generator=g, device=dev, dtype=dtype)
@@ -144,8 +146,8 @@ def _quant_leaf(bits, N, K, dev, seed=0):
 @pytest.mark.parametrize("N,K", [(12288, 4096), (4096, 4096), (22016, 4096),
                                  (4096, 11008), (32000, 4096), (100, 200),
                                  (33, 46), (4096, 4100)])
-@pytest.mark.parametrize("M", [1, 2, 3, 4, 5, 8, 9, 63, 64, 65, 127, 129,
-                               640, 768, 1024])
+@pytest.mark.parametrize("M", [1, 2, 3, 4, 5, 8, 9, 20, 63, 64, 65, 127,
+                               129, 640, 768, 1024])
 def test_quant_matmul_kernel_matches_plain(dev, bits, N, K, M):
     leaf = _quant_leaf(bits, N, K, dev)
     x = torch.randn((M, K), device=dev, dtype=torch.bfloat16)
@@ -741,6 +743,32 @@ def test_flash_forward_tile_edges(dev, name, dtype):
     assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("offset", [0, 1536, 2560])
+def test_flash_forward_at_a_chunked_prefill_offset(dev, dtype, offset):
+    """A chunk of 512 queries of chunked_prefill's 3,072-token prompt at
+    ``q_index_offset`` against a 3,136-slot cache: the first 41 slots
+    padding, the slots past the prompt not written yet."""
+    Sq, Sk, pad = 512, 3136, 41
+    q, k, v, _, valid = _bwd_case(dev, dtype, 128, 1, 32, 32, Sq, Sk, pad, 5)
+    valid[:, 3072:] = False
+    kw = dict(kv_valid=valid, q_index_offset=offset)
+    out, lse = tflash.flash_attention_lse(q, k, v, **kw)
+    again = tflash.flash_attention_lse(q, k, v, **kw)
+    want_o, want_l = tflash.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    tol = _tol(dtype)
+    keyless = ~tflash._mask(1, Sq, Sk, valid, True, None, offset,
+                            dev).any(-1).expand(1, 32, Sq)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), want_o.float(), atol=tol,
+                               rtol=tol)
+    torch.testing.assert_close(lse[~keyless], want_l[~keyless], atol=1e-3,
+                               rtol=1e-3)
+    assert torch.all(out[keyless] == 0)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+
+
 def test_flash_forward_design_follows_the_dtype_alone(dev):
     """bfloat16 operands launch the tensor-core kernel, float32 operands
     the f32-FMA kernel: one launch a call, told apart by the kernel names
@@ -1042,6 +1070,89 @@ def test_captured_generate_gives_the_eager_tokens_and_counts(dev, case):
     assert np.array_equal(runs[True][0], runs[False][0])
     assert runs[True][1] == runs[False][1]
     assert runs[False][2] == 0 and runs[True][2] == 9
+
+
+@pytest.mark.parametrize("spec", [
+    "ver=v2_numtoks=[1,4,16]_betas=[0.5,0.3,0.2]_gamma=0.1",
+    "ver=v2_numtoks=[1,4,16]_pickby=entropy"])
+@pytest.mark.parametrize("case", sorted(CAPTURE_CASES))
+def test_captured_v2_generate_gives_the_eager_tokens_and_counts(dev, case,
+                                                                spec):
+    """The ver=v2 step over K * B rows, captured: the eager loop's tokens,
+    every launch counter moved by as much, 9 replays."""
+    import numpy as np
+
+    from matryoshka_mm_torch.generate import GenerationConfig, generate
+    from matryoshka_mm_torch.utils.cuda_graph import CapturedStep
+
+    cfg, params = _small_model(dev, *CAPTURE_CASES[case])
+    ids, px, mask = _small_prompt()
+    gen = GenerationConfig(max_new_tokens=11, decode_chunk=4,
+                           eos_token_id=-1)
+    runs = {}
+    for graph in (False, True):
+        before, replays = _counts(), CapturedStep.replays
+        out = generate(params, cfg, ids, px, attention_mask=mask,
+                       matryoshka_vis_token_scale=spec, gen_cfg=gen,
+                       cuda_graph=graph)
+        runs[graph] = (out, [a - b for a, b in zip(_counts(), before)],
+                       CapturedStep.replays - replays)
+    assert np.array_equal(runs[True][0], runs[False][0])
+    assert runs[True][1] == runs[False][1]
+    assert runs[False][2] == 0 and runs[True][2] == 9
+
+
+def test_generate_modes_on_the_card_give_the_cpu_tokens(dev):
+    """float32: stream_generate, beam_generate, speculative_generate and
+    chunked_prefill on the card (the kernels) against the CPU (the plain
+    versions)."""
+    import numpy as np
+
+    from matryoshka_mm_torch.generate import (GenerationConfig,
+                                              beam_generate, chunked_prefill,
+                                              speculative_generate,
+                                              stream_generate)
+    from matryoshka_mm_torch.models.llama import embed_tokens
+
+    cfg, card = _small_model(dev, *CAPTURE_CASES["f32"])
+    cpu = _to_cpu(card)
+    ids, px, _ = _small_prompt()
+    ids, px = ids[:1], px[:1]
+    repeat = np.concatenate([ids[0], ids[0, 5:], ids[0, 5:]])[None]
+    gen = GenerationConfig(max_new_tokens=10, decode_chunk=4,
+                           eos_token_id=-1)
+    v0 = "ver=v0_numtoks=4"
+    text = torch.as_tensor(np.random.default_rng(5).integers(100, 500,
+                                                             (2, 256)))
+
+    def modes(p):
+        d = p["llama"]["norm"].device
+        t = text.to(d)
+        with torch.inference_mode():
+            logits, _ = chunked_prefill(
+                p, cfg, embed_tokens(p["llama"], t),
+                torch.arange(256, device=d).expand(2, 256),
+                torch.ones_like(t, dtype=torch.bool), 320, 64)
+        return [list(stream_generate(p, cfg, ids, px, gen_cfg=gen,
+                                     matryoshka_vis_token_scale=v0)),
+                beam_generate(p, cfg, ids, px, num_beams=3, gen_cfg=gen,
+                              matryoshka_vis_token_scale=v0),
+                speculative_generate(p, cfg, repeat, px, gen_cfg=gen, k=4,
+                                     matryoshka_vis_token_scale=v0),
+                logits.argmax(-1).cpu().numpy()]
+
+    got, want = modes(card), modes(cpu)
+    assert len(got[0]) == len(want[0]) == 4
+    for a, b in zip(got[0] + got[1:], want[0] + want[1:]):
+        assert np.array_equal(a, b)
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_cpu(v) for v in tree]
+    return tree.cpu()
 
 
 @pytest.mark.parametrize("case", sorted(CAPTURE_CASES))
