@@ -221,9 +221,45 @@ Phases; any failure exits non-zero, and no phase's exception is caught:
    decode), stream_generate, beam_generate, speculative_generate and
    chunked_prefill's argmax.
 
+15. the Mistral and MPT decoder families at full width, one model at a
+   time: LlavaConfig.llava_v15_7b_m3 with llama=LlamaConfig.mistral_7b()
+   (32 layers, 32 heads over 8 KV heads, I 14,336, window 4,096, theta 1e6)
+   and then LlamaConfig.mpt_7b() (vocab 50,432, alibi, fused Wqkv, GELU MLP,
+   tied head), random bf16 weights made on the card by init_params, nothing
+   cut.  Mistral: one-image requests at 36 and 576, 32 greedy tokens, a
+   captured decode (32 flash launches a prefill, 32 decode launches a step,
+   replays included, no paged launch), the 576 prefill against
+   attn_impl="reference", the captured decode bit-identical to decode_chunk;
+   a one-shot 4,608-token text prefill and a decode step past the window
+   against attn_impl="reference" (cosine >= 0.99) and against
+   sliding_window=0 (the window must move the logits farther), then a
+   counted 32-token request of that prompt; the paged batcher (phase 7's
+   options, 8 requests at 576: rows of ~700 slots) on the gather path with
+   0 paged-kernel launches; load_4bit in place, one request at 576 (65
+   int4_matmul and 32 quant_mlp launches a decode step), logits against
+   disable_fused_proj().  MPT: bf16 requests at 144 with 0 flash, decode and
+   paged launches (alibi attends through the plain path), the captured
+   decode bit-identical to decode_chunk, an int8-KV request's tokens beside
+   bf16 KV's, the paged batcher at 4 requests with 0 paged launches,
+   load_4bit in place (128 int4_matmul and 0 quant_mlp launches a decode
+   step; the tied head stays bf16), logits against disable_fused_proj().
+   Printed with the card's name and power limit: TTFT, tok/s at B=1 and
+   B=4, peak memory, a decode step's device ms by kernel; serving tok/s and
+   ms a step.  Then a small float32 model of each family (Dh=128, Mistral
+   with a window of 64 under prompts past it), card against CPU: the same
+   greedy tokens from generate, the dense and paged batcher, and
+   chunked_prefill's argmax.  Phase 3 also runs the kernels at these
+   families' shapes: flash at S=4,608 with GQA 4 and the window, decode at
+   Hkv=8 with the window at 672 and 4,640 slots (n_split printed), the
+   quantized products at N 6,144 / 16,384 / 28,672 and K 14,336 / 16,384
+   for M in {1, 8, 640, 3008} and quant_mlp at I=14,336, each held against
+   its plain version, two launches bit-identical, timed beside the library
+   or dequantize + F.linear.
+
 With arguments (`python3 chip_smoke.py kernels quant slice qslice paged hbm
-serve smallinfer bwd train small ckpt anyres genmodes`) only the build and
-the named phases run, and no result line is printed.
+serve smallinfer bwd train small ckpt anyres genmodes families famkernels`)
+only the build and the named phases run (famkernels: phase 3's cases at the
+families' shapes), and no result line is printed.
 
 Each kernel's record carries its bound: the larger of its bytes (inputs once,
 outputs once) over 3.35 TB/s and its operations over 989 TFLOP/s, the H100
@@ -404,11 +440,15 @@ def library_ms(kind: str, operands: list, **kw) -> float:
     if kind == "flash":
         Sq, Sk = operands[0][0].shape[2], operands[0][1].shape[2]
         dev = operands[0][0].device
-        causal = torch.arange(Sk, device=dev)[None] <= \
-            torch.arange(Sq, device=dev)[:, None] + kw.get("offset", 0)
+        rel = torch.arange(Sq, device=dev)[:, None] + kw.get("offset", 0) \
+            - torch.arange(Sk, device=dev)[None]
+        causal = rel >= 0
+        if kw.get("window"):
+            causal = causal & (rel < kw["window"])
         mask = (kw["kv_valid"][:, None, None, :] & causal[None, None])
-        return time_ms(lambda q, k, v: sdpa(q, k, v, attn_mask=mask),
-                       operands)
+        return time_ms(lambda q, k, v: sdpa(
+            q, k, v, attn_mask=mask, enable_gqa=q.shape[1] != k.shape[1]),
+            operands)
     if kind == "flash_bwd":
         # forward + backward less the forward: (q, k, v, do) with the same
         # mask; the one call gives dq, dk and dv together
@@ -434,7 +474,8 @@ def library_ms(kind: str, operands: list, **kw) -> float:
     if kind == "decode":
         def call(q, k, v, valid, kv_pos, q_pos):
             return sdpa(q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
-                        attn_mask=valid[:, None, None, :])
+                        attn_mask=valid[:, None, None, :],
+                        enable_gqa=q.shape[1] != k.shape[2])
         return time_ms(call, operands)
     if kind == "copy":
         return time_ms(lambda src, dst: dst.copy_(src), operands)
@@ -909,6 +950,8 @@ def phase_kernels(dev) -> dict:
     rec["decode_attention"]["plain_ms"] = \
         rec["decode_attention"]["plain_ms_b1"]
     _show("decode b1", rec["decode_attention"])
+    for name, err in family_attention_cases(dev).items():
+        rec[name]["err"] = max(rec[name]["err"], err)
     return rec
 
 
@@ -1077,6 +1120,8 @@ def phase_quant_kernels(dev) -> dict:
         del gateup, down, gu_dq, dn_dq
     r["ms"], r["plain_ms"] = r["ms_int4_1"], r["plain_ms_int4_1"]
     _show("quant_mlp int4 M=1", r)
+    for name, err in family_quant_cases(dev).items():
+        rec[name]["err"] = max(rec[name]["err"], err)
     return rec
 
 
@@ -1250,7 +1295,6 @@ def decode_bits(model, inputs, numtoks, label, image_sizes=None,
                                               _round_up, _select_token,
                                               decode_chunk, prefill_scales)
     from matryoshka_mm_torch.kvconfig import parse_kv_from_string
-    from matryoshka_mm_torch.models.llama import KVCache
 
     ids, px, mask = inputs
     dev = model.params["llama"]["norm"].device
@@ -1274,10 +1318,7 @@ def decode_bits(model, inputs, numtoks, label, image_sizes=None,
                 combine.scales, L, L + NEW_TOKENS)
             logits = combine(logits_k)
         first = _select_token(logits, gen, None)
-        cache_b = KVCache(*(None if t is None else t.clone() for t in (
-            cache_a.k, cache_a.v, cache_a.valid, cache_a.positions,
-            cache_a.write_idx, cache_a.k_scale, cache_a.v_scale)),
-            host_idx=cache_a.host_idx)
+        cache_b = _copy_cache(cache_a)
         finished = torch.zeros_like(first, dtype=torch.bool)
         _, _, _, toks, last = decode_chunk(
             model.params, model.cfg, gen, cache_a, first, lengths, finished,
@@ -1805,8 +1846,11 @@ def serve_traffic(batcher, cfg, burst, late, label) -> dict:
     prefill_matmuls = sum(
         4 * n_layers + 1 if g * batcher.L <= int4_matmul.MAX_FUSED_ROWS
         else 1 for g in [1] * solo + sizes)
-    want = {"paged_attention": steps * n_layers,
-            "flash_attention": (solo + groups) * n_layers,
+    # a window config or MPT attends through the gather path: no paged
+    # kernel at all
+    want = {"paged_attention": steps * n_layers if batcher.use_kernel else 0,
+            "flash_attention": (solo + groups) * n_layers
+            if cfg.llama.arch != "mpt" else 0,
             "decode_attention": 0,
             "quant_mlp": steps * n_layers if quantized else 0,
             "int4_matmul": (steps * (2 * n_layers + 1) + prefill_matmuls)
@@ -4148,6 +4192,647 @@ def phase_genmodes(dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the Mistral and MPT decoder families at full width
+# ---------------------------------------------------------------------------
+
+# the kernels at the families' shapes (run with phase 3): Mistral-7B's
+# attention (32 heads over 8 KV heads, a window of 4,096), a prefill past
+# the window and decode rows of one request and of four
+FAMILY_WINDOW = 4096
+FAMILY_LONG = 4608          # a one-shot text prefill past the window
+FAMILY_DECODE = (("b1 672", 1, 672), ("b1 4640", 1, 4640),
+                 ("b4 4640", 4, 4640))
+# the quantized products' new (N, K): Mistral's fused qkv, gate/up and
+# down, MPT's up and down; decode rows 1, 8 and prefill rows 640, 3008
+FAMILY_QUANT_SHAPES = {"mistral qkv": (6144, 4096),
+                       "mistral gateup": (28672, 4096),
+                       "mistral down": (4096, 14336),
+                       "mpt up": (16384, 4096), "mpt down": (4096, 16384)}
+FAMILY_QUANT_ROWS = (1, 8, 640, 3008)
+FAMILY_MLP = (4096, 14336)          # Mistral's quant_mlp (D, I)
+# the requests: Mistral bf16 at two scales, int4 at 576; MPT at 144
+FAMILY_MISTRAL_SCALES = (36, 576)
+FAMILY_MPT_SCALE = 144
+# the paged batcher: Mistral 8 rows of ~700 slots (40 + 576 prompt slots,
+# 64 new), MPT 4 rows at 144
+FAMILY_SERVE = {"mistral": ((576, 64),) * 8, "mpt": ((FAMILY_MPT_SCALE, 32),)
+                * 4}
+# the small float32 models: Mistral's window and a prompt past it
+FAMILY_SMALL_WINDOW = 64
+
+
+def _window_pairs(S: int, window: int) -> int:
+    """(query, key) pairs of a causal S-token prefill under a window."""
+    return sum(min(i + 1, window) for i in range(S))
+
+
+def family_attention_cases(dev) -> float:
+    """The flash forward at a Mistral-7B prefill past the window (B=1, 32
+    heads over 8, Dh 128, S=4,608, window 4,096) and the decode kernel at
+    group 4 with the window past 4,096 slots, against their plain versions,
+    timed beside the library; the window must change the rows past it.
+    Returns the largest error by kernel."""
+    from matryoshka_mm_torch.ops import decode_attention as dec
+    from matryoshka_mm_torch.ops import flash_attention as fl
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    H, Hkv, Dh, S, W = 32, 8, 128, FAMILY_LONG, FAMILY_WINDOW
+    q = _rand((1, H, S, Dh), gen, dev)
+    k = _rand((1, S, Hkv, Dh), gen, dev).transpose(1, 2)
+    v = _rand((1, S, Hkv, Dh), gen, dev).transpose(1, 2)
+    valid = torch.ones((1, S), dtype=torch.bool, device=dev)
+    kw = dict(kv_valid=valid, sliding_window=W)
+    out, lse = fl.flash_attention_lse(q, k, v, **kw)
+    ref_o, ref_l = fl.flash_attention_plain(q, k, v, **kw)
+    whole, _ = fl.flash_attention_lse(q, k, v, kv_valid=valid)
+    torch.cuda.synchronize()
+    err = (out.float() - ref_o.float()).abs().max().item()
+    lerr = (lse - ref_l).abs().max().item()
+    bite = (whole[:, :, W:].float() - out[:, :, W:].float()).abs().max()
+    print(f"[flash mistral {S}] GQA 4, window {W}: max|out-plain|={err:.3e} "
+          f"max|lse-plain|={lerr:.3e}; rows past the window move by "
+          f"{bite.item():.3e} without it, rows before it equal "
+          f"{bool(torch.equal(whole[:, :, :W], out[:, :, :W]))}")
+    if not (torch.allclose(out.float(), ref_o.float(), atol=FLASH_TOL,
+                           rtol=FLASH_TOL) and lerr <= LSE_TOL):
+        fail("flash at the Mistral prefill disagrees with its plain version")
+    if bite.item() <= FLASH_TOL:
+        fail("flash at the Mistral prefill: the window changed nothing")
+    del ref_o, ref_l, whole
+    ops = rotations(q, k, v)
+    ms = time_ms(lambda *a: fl.flash_attention_lse(*a, **kw), ops)
+    pms = time_ms(lambda *a: fl.flash_attention_plain(*a, **kw), ops, reps=2,
+                  warmup=1)
+    case_library_ms = library_ms("flash", ops, kv_valid=valid, window=W)
+    flops = 4 * H * Dh * _window_pairs(S, W)
+    b = bound(nbytes(q, k, v) + nbytes(out, lse), flops)
+    print(f"[flash mistral {S}] {card_line()}: kernel {ms:.4f} ms "
+          f"({flops / ms / 1e9:.1f} TFLOP/s)  plain {pms:.4f} ms  bound "
+          f"{b['bound_ms']:.4f} ms by {b['bound_by']}  library "
+          f"{case_library_ms:.4f} ms "
+          f"({flops / case_library_ms / 1e9:.1f} TFLOP/s)")
+    del ops, q, k, v, out, lse
+
+    errs = {"flash_attention": err, "decode_attention": 0.0}
+    sms = dec._sm_count(dev.index or 0)
+    for name, B, S in FAMILY_DECODE:
+        q = _rand((B, H, Dh), gen, dev)
+        k = _rand((B, S, Hkv, Dh), gen, dev)
+        v = _rand((B, S, Hkv, Dh), gen, dev)
+        valid = torch.ones((B, S), dtype=torch.bool, device=dev)
+        kv_pos = torch.arange(S, device=dev, dtype=torch.int32).expand(B, S)
+        q_pos = torch.full((B,), S - 1, device=dev, dtype=torch.int32)
+        args = (q, k, v, valid, kv_pos, q_pos)
+        n_split = dec.decode_splits(B, Hkv, S, sms)
+        got = dec.flash_decode_attention(*args, sliding_window=W)
+        again = dec.flash_decode_attention(*args, sliding_window=W)
+        want = dec.decode_attention_plain(*args, sliding_window=W)
+        split = dec.decode_attention_split_plain(*args, sliding_window=W,
+                                                 n_split=n_split)
+        torch.cuda.synchronize()
+        e = (got.float() - want.float()).abs().max().item()
+        se = (got.float() - split.float()).abs().max().item()
+        print(f"[decode mistral {name}] B={B} S={S} Hkv={Hkv} window {W} "
+              f"n_split={n_split} ({B * Hkv * n_split} blocks of {sms} SMs) "
+              f"max|out-plain|={e:.3e} max|out-split plain|={se:.3e}")
+        if not (torch.allclose(got.float(), want.float(), atol=FLASH_TOL,
+                               rtol=FLASH_TOL)
+                and torch.allclose(got.float(), split.float(),
+                                   atol=FLASH_TOL, rtol=FLASH_TOL)):
+            fail(f"decode mistral {name} disagrees with its plain version")
+        if not torch.equal(got, again):
+            fail(f"decode mistral {name}: two launches gave other bits")
+        errs["decode_attention"] = max(errs["decode_attention"], e)
+        ops = rotations(*args)
+        ms = time_ms(lambda *a: dec.flash_decode_attention(
+            *a, sliding_window=W), ops)
+        plain = time_ms(lambda *a: dec.decode_attention_plain(
+            *a, sliding_window=W), ops, reps=5)
+        seen = valid & (q_pos[:, None] - kv_pos < W)
+        case_library_ms = library_ms("decode", rotations(q, k, v, seen,
+                                                         kv_pos, q_pos))
+        slots = int(seen.sum())
+        b = bound(2 * slots * Hkv * Dh * 2 + nbytes(q, got, valid),
+                  4 * H * Dh * slots)
+        print(f"[decode mistral {name}] {card_line()}: kernel {ms:.4f} ms  "
+              f"plain {plain:.4f} ms  bound {b['bound_ms']:.4f} ms by "
+              f"{b['bound_by']}  library {case_library_ms:.4f} ms")
+        del ops
+    return errs
+
+
+def family_quant_cases(dev) -> dict:
+    """int4_matmul / int8_matmul at the families' new (N, K) for the rows
+    of FAMILY_QUANT_ROWS and quant_mlp at Mistral's I = 14,336 for M = 1
+    and 8, against their plain versions, two launches bit-identical, each
+    timed beside dequantize + F.linear (``dequant_linear_ms``).  Returns the
+    largest error by kernel."""
+    from matryoshka_mm_torch.ops import fused_mlp as mlp
+    from matryoshka_mm_torch.ops import int4_matmul as mm
+    from matryoshka_mm_torch.ops import quant
+
+    linear = torch.nn.functional.linear
+    gen = torch.Generator(device=dev).manual_seed(16)
+    errs = {"int4_matmul": 0.0, "int8_matmul": 0.0, "quant_mlp": 0.0}
+    for bits, name in ((4, "int4_matmul"), (8, "int8_matmul")):
+        fn, plain = getattr(mm, name), getattr(mm, f"{name}_plain")
+        quantize = quant.quantize_array_int4 if bits == 4 \
+            else quant.quantize_array
+        key = quant.Q4KEY if bits == 4 else quant.QKEY
+        for shape, (N, K) in FAMILY_QUANT_SHAPES.items():
+            leaf = quantize(_rand((N, K), gen, dev).mul_(0.02))
+            w, sc = leaf[key], leaf["scale"]
+            for M in FAMILY_QUANT_ROWS:
+                x = _rand((M, K), gen, dev)
+                got = fn(x, w, sc)
+                err, rel = _rel_err(got, plain(x, w, sc))
+                same = torch.equal(got, fn(x, w, sc))
+                torch.cuda.synchronize()
+                if rel > MM_TOL or not same:
+                    fail(f"{name} {shape} M={M}: rel {rel:.2e}, two "
+                         f"launches the same {same}")
+                errs[name] = max(errs[name], err)
+                ops = rotations(x, w, sc)
+                ms = time_ms(fn, ops)
+                dq = time_ms(lambda x, w, sc: linear(x, quant.dequantize_array(
+                    {key: w, "scale": sc})), ops, reps=5)
+                if M <= 8:
+                    t = (nbytes(x, w, sc) + M * N * 2) / HBM_BYTES_S * 1e3
+                    rate = f"{100 * t / ms:.0f}% of the byte bound {t:.4f} ms"
+                else:
+                    t = 2 * M * N * K / PEAK_FLOPS * 1e3
+                    rate = (f"{2 * M * N * K / ms / 1e9:.1f} TFLOP/s, "
+                            f"{100 * t / ms:.0f}% of the operations bound "
+                            f"{t:.4f} ms")
+                print(f"[{name} {shape} {N}x{K} M={M}] {card_line()}: "
+                      f"max|out-plain|={err:.3e} rel {rel:.2e}, two launches "
+                      f"bit-identical; kernel {ms:.4f} ms ({rate})  "
+                      f"dequant_linear_ms {dq:.4f} ({dq / ms:.2f}x the "
+                      f"kernel's time)")
+                del ops
+            del w, sc, leaf
+    D, I = FAMILY_MLP
+    for bits in (4, 8):
+        quantize = quant.quantize_array_int4 if bits == 4 \
+            else quant.quantize_array
+        key = quant.Q4KEY if bits == 4 else quant.QKEY
+        gate = quantize(_rand((I, D), gen, dev).mul_(0.02))
+        up = quantize(_rand((I, D), gen, dev).mul_(0.02))
+        gu = {key: torch.cat([gate[key], up[key]]),
+              "scale": torch.cat([gate["scale"], up["scale"]])}
+        down = quantize(_rand((D, I), gen, dev).mul_(0.02))
+        del gate, up
+        i_orig = gu["scale"].shape[0] // 2       # as models/llama.py reads it
+        for M in (1, 8):
+            x = _rand((M, D), gen, dev)
+            got = mlp.quant_mlp(x, gu, down, bits, i_orig)
+            err, rel = _rel_err(got, mlp.quant_mlp_plain(x, gu, down, bits,
+                                                         I))
+            same = torch.equal(got, mlp.quant_mlp(x, gu, down, bits, i_orig))
+            torch.cuda.synchronize()
+            if rel > MLP_TOL or not same or i_orig != I:
+                fail(f"quant_mlp int{bits} I={I} M={M}: rel {rel:.2e}, two "
+                     f"launches the same {same}")
+            errs["quant_mlp"] = max(errs["quant_mlp"], err)
+            ops = rotations(x, gu[key], gu["scale"], down[key], down["scale"])
+            ms = time_ms(lambda x, gq, gs, dq_, ds: mlp.quant_mlp(
+                x, {key: gq, "scale": gs}, {key: dq_, "scale": ds}, bits, I),
+                ops)
+            t = (nbytes(*ops[0]) + M * D * 2) / HBM_BYTES_S * 1e3
+            print(f"[quant_mlp int{bits} I={I} M={M}] {card_line()}: "
+                  f"max|out-plain|={err:.3e} rel {rel:.2e}, two launches "
+                  f"bit-identical; kernel {ms:.4f} ms ({100 * t / ms:.0f}% "
+                  f"of the byte bound {t:.4f} ms)")
+            del ops
+        del gu, down
+    return errs
+
+
+def phase_family_kernels(dev) -> None:
+    """The families' kernel shapes alone (``chip_smoke.py famkernels``);
+    the whole script runs them inside phase 3."""
+    family_attention_cases(dev)
+    family_quant_cases(dev)
+
+
+def _family_model(cfg, dev, label):
+    from matryoshka_mm_torch.models.builder import LlavaModel
+    from matryoshka_mm_torch.models.convert import init_params
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, device=str(dev), seed=0)
+    torch.cuda.synchronize()
+    print(f"[{label}] made on the card in {time.perf_counter() - t0:.1f} s: "
+          f"decoder {_nbytes(params['llama']) / 2**30:.2f} GiB, "
+          f"{cfg.llama}")
+    return LlavaModel(params, cfg)
+
+
+def _counted(counters, want, label, fn):
+    """``fn()`` with every counter at 0 first; its launches against
+    ``want``."""
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
+    got = {k: c.launches for k, c in counters.items()}
+    print(f"[{label}] launches {got} expected {want}")
+    if got != want:
+        fail(f"{label}: the main path did not go through the kernels as "
+             f"expected")
+    return out, got
+
+
+def _family_counters():
+    from matryoshka_mm_torch.ops import fused_mlp, int4_matmul
+    from matryoshka_mm_torch.ops.decode_attention import flash_decode_attention
+    from matryoshka_mm_torch.ops.flash_attention import flash_attention_lse
+    from matryoshka_mm_torch.ops.paged_attention import paged_decode_attention
+
+    return {"flash_attention": flash_attention_lse,
+            "decode_attention": flash_decode_attention,
+            "paged_attention": paged_decode_attention,
+            "int4_matmul": int4_matmul.int4_matmul,
+            "quant_mlp": fused_mlp.quant_mlp}
+
+
+def _add(total, launches) -> None:
+    for k, n in launches.items():
+        total[k] = total.get(k, 0) + n
+
+
+def family_serve(model, cfg, label) -> dict:
+    """The paged ContinuousBatcher of phase 7 on a family's model: the
+    gather path (the JAX rule for a window or alibi), no paged-kernel
+    launch, every budget met, pages returned; tok/s and ms a step."""
+    from matryoshka_mm_torch.generate import GenerationConfig
+    from matryoshka_mm_torch.serve.batching import ContinuousBatcher
+
+    gen_cfg = GenerationConfig(max_new_tokens=128, decode_chunk=8,
+                               eos_token_id=-1)
+    batcher = ContinuousBatcher(model.params, cfg, gen_cfg=gen_cfg,
+                                **SERVE_KW)
+    try:
+        if batcher.use_kernel:
+            fail(f"{label}: the paged batcher chose the paged kernel")
+        print(f"[{label}] {card_line()}: ContinuousBatcher {SERVE_KW} "
+              f"use_kernel {batcher.use_kernel}, warm-up "
+              f"{batcher.warmup(numtoks=BATCH_SCALE):.2f} s")
+        arch = cfg.llama.arch
+        return serve_traffic(batcher, cfg, FAMILY_SERVE[arch], (), label)
+    finally:
+        batcher.shutdown()
+
+
+def _text_step(model, lcfg, cache, token, pos):
+    """One decode step of ``token`` at ``pos`` on ``cache`` (in place) under
+    the decoder config ``lcfg``: the last logits in float32."""
+    from matryoshka_mm_torch.models.llama import (embed_tokens, llama_forward,
+                                                  lm_head)
+
+    p = model.params["llama"]
+    with torch.inference_mode():
+        h, _ = llama_forward(p, lcfg, embed_tokens(p, token[:, None]),
+                             position_ids=pos[:, None], cache=cache)
+        return lm_head(p, h)[0, 0].float()
+
+
+def _copy_cache(cache):
+    from matryoshka_mm_torch.models.llama import KVCache
+
+    return KVCache(*(None if t is None else t.clone() for t in (
+        cache.k, cache.v, cache.valid, cache.positions, cache.write_idx,
+        cache.k_scale, cache.v_scale)), host_idx=cache.host_idx)
+
+
+def mistral_window_check(model, cfg, label, counters) -> dict:
+    """A one-shot FAMILY_LONG-token text prefill and a decode step past the
+    window: the kernels against attn_impl="reference" (cosine >= LOGIT_COS),
+    and against the same weights with sliding_window=0, which must move the
+    logits farther than the reference path does; then a counted 32-token
+    ``generate`` of that prompt (decode at slots 4,608-4,639)."""
+    import dataclasses
+
+    from matryoshka_mm_torch.generate import prefill_text
+
+    dev = model.params["llama"]["norm"].device
+    rng = np.random.default_rng(151)
+    ids = rng.integers(100, cfg.llama.vocab_size, (1, FAMILY_LONG))
+    ids[0, 0] = 1
+    ids_t = torch.as_tensor(ids, device=dev)
+    mask = torch.ones_like(ids_t, dtype=torch.bool)
+    cap = FAMILY_LONG + NEW_TOKENS
+    whole = dataclasses.replace(cfg, llama=dataclasses.replace(
+        cfg.llama, sliding_window=0))
+    out = {}
+    for name, c in (("kernel", cfg), ("reference",
+                                      cfg.with_attn_impl("reference")),
+                    ("no window", whole)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache, _ = prefill_text(model.params, c, ids_t, mask, cap)
+        torch.cuda.synchronize()
+        out[name] = (logits[0].float(), cache, time.perf_counter() - t0)
+    kernel, cache, t_kernel = out["kernel"]
+    token = kernel.argmax()[None].to(torch.int32)
+    pos = torch.full((1,), FAMILY_LONG, device=dev)
+    steps = {name: _text_step(model, c.llama, _copy_cache(cache), token, pos)
+             for name, c in (("kernel", cfg),
+                             ("reference", cfg.with_attn_impl("reference")),
+                             ("no window", whole))}
+    for what, got in (("prefill", {k: v[0] for k, v in out.items()}),
+                      ("decode", steps)):
+        cos = {k: torch.nn.functional.cosine_similarity(
+            got["kernel"], got[k], dim=0).item() for k in got}
+        diff = {k: (got["kernel"] - got[k]).abs().max().item() for k in got}
+        print(f"[{label} {FAMILY_LONG}] {what} logits of the kernels: "
+              f"cosine {cos['reference']:.6f} max|diff| "
+              f"{diff['reference']:.4f} against attn_impl='reference'; "
+              f"cosine {cos['no window']:.6f} max|diff| "
+              f"{diff['no window']:.4f} against sliding_window=0")
+        if not (cos["reference"] >= LOGIT_COS
+                and torch.isfinite(got["kernel"]).all()):
+            fail(f"{label}: the {what} past the window disagrees with the "
+                 f"reference path")
+        if not (diff["no window"] > 2 * diff["reference"]
+                and cos["no window"] < cos["reference"]):
+            fail(f"{label}: the window does not change the {what}")
+    print(f"[{label} {FAMILY_LONG}] {card_line()}: prefill ms kernels "
+          f"{t_kernel * 1e3:.1f}, reference {out['reference'][2] * 1e3:.1f}")
+    del out, steps, cache
+    torch.cuda.empty_cache()
+    L = cfg.llama.num_hidden_layers
+    want = dict.fromkeys(counters, 0)
+    want.update(flash_attention=L, decode_attention=(NEW_TOKENS - 1) * L)
+    tally = graph_tally()
+    _, launches = _counted(counters, want, f"{label} {FAMILY_LONG}",
+                           lambda: run(model, (ids.astype(np.int32), None,
+                                               None), 0, NEW_TOKENS,
+                                       spec="ver=v0_numtoks=1"))
+    check_graphs(f"{label} {FAMILY_LONG}", tally, 1, NEW_TOKENS - 2)
+    return launches
+
+
+def family_mistral(dev) -> dict:
+    """Mistral-7B widths: bf16 requests, the window at 4,608 tokens, the
+    paged batcher, then load_4bit in place.  Returns the counted
+    launches."""
+    import dataclasses
+
+    from matryoshka_mm_torch.config import LlamaConfig, LlavaConfig
+    from matryoshka_mm_torch.ops.quant import (disable_fused_proj,
+                                               quantize_llama_params)
+
+    label = "mistral"
+    cfg = dataclasses.replace(LlavaConfig.llava_v15_7b_m3(),
+                              llama=LlamaConfig.mistral_7b())
+    model = _family_model(cfg, dev, label)
+    L = cfg.llama.num_hidden_layers
+    counters = _family_counters()
+    inputs = make_inputs(cfg)
+    total = {}
+
+    # ---- bf16 requests, counted ----
+    n = len(FAMILY_MISTRAL_SCALES)
+    want = dict.fromkeys(counters, 0)
+    want.update(flash_attention=n * L,
+                decode_attention=n * (NEW_TOKENS - 1) * L)
+    tally = graph_tally()
+    outs, launches = _counted(
+        counters, want, label,
+        lambda: [run(model, inputs[1], s, NEW_TOKENS)
+                 for s in FAMILY_MISTRAL_SCALES])
+    check_graphs(label, tally, n, n * (NEW_TOKENS - 2))
+    _add(total, launches)
+    print(f"[{label}] tokens at 576: {outs[-1][0, :12].tolist()}")
+    compare_logits(prefill_logits(model, cfg, inputs[1], 576),
+                   prefill_logits(model, cfg.with_attn_impl("reference"),
+                                  inputs[1], 576), label,
+                   need_same_top=False)
+    decode_bits(model, inputs[1], 576, label)
+    for s in FAMILY_MISTRAL_SCALES:
+        time_requests(model, inputs[1], s, label, reps=(2, 1))
+    time_requests(model, inputs[4], BATCH_SCALE, label, reps=(2, 1))
+    decode_profile(model, inputs[1], 576, label, top=6)
+    print(f"[{label}] {card_line()}: max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    _add(total, mistral_window_check(model, cfg, label, counters))
+    _add(total, family_serve(model, cfg, f"{label} serve"))
+
+    # ---- load_4bit, in place ----
+    t0 = time.perf_counter()
+    quantize_llama_params(model.params, bits=4)
+    torch.cuda.synchronize()
+    label = "mistral int4"
+    print(f"[{label}] quantized on the card in {time.perf_counter() - t0:.1f}"
+          f" s: decoder {_nbytes(model.params['llama']) / 2**30:.2f} GiB")
+    steps = NEW_TOKENS - 1
+    want = dict.fromkeys(counters, 0)
+    want.update(flash_attention=L, decode_attention=steps * L,
+                int4_matmul=(4 * L + 1) + steps * (2 * L + 1),
+                quant_mlp=steps * L)
+    tally = graph_tally()
+    _, launches = _counted(counters, want, label,
+                           lambda: run(model, inputs[1], 576, NEW_TOKENS))
+    check_graphs(label, tally, 1, NEW_TOKENS - 2)
+    _add(total, launches)
+    got = prefill_logits(model, cfg, inputs[1], 576)
+    with disable_fused_proj():
+        ref = prefill_logits(model, cfg, inputs[1], 576)
+    compare_logits(got, ref, label, need_same_top=True)
+    decode_bits(model, inputs[1], 576, label)
+    time_requests(model, inputs[1], 576, label, reps=(2, 1))
+    decode_profile(model, inputs[1], 576, label, prefill=False, top=4)
+    del model
+    return total
+
+
+def family_mpt(dev) -> dict:
+    """MPT-7B widths: bf16 and int8-KV requests at 144 (alibi: no attention
+    kernel), the paged batcher, then load_4bit in place (128 products a
+    decode step, no quant_mlp).  Returns the counted launches."""
+    import dataclasses
+
+    from matryoshka_mm_torch.config import LlamaConfig, LlavaConfig
+    from matryoshka_mm_torch.models.builder import LlavaModel
+    from matryoshka_mm_torch.ops.quant import (disable_fused_proj,
+                                               quantize_llama_params)
+
+    label = "mpt"
+    cfg = dataclasses.replace(LlavaConfig.llava_v15_7b_m3(),
+                              llama=LlamaConfig.mpt_7b())
+    model = _family_model(cfg, dev, label)
+    if "lm_head" in model.params["llama"]:
+        fail("mpt: init_params made an lm_head; the head is tied")
+    L, s = cfg.llama.num_hidden_layers, FAMILY_MPT_SCALE
+    counters = _family_counters()
+    inputs = make_inputs(cfg)
+    total = {}
+    none = dict.fromkeys(counters, 0)
+
+    tally = graph_tally()
+    outs, launches = _counted(counters, none, label,
+                              lambda: run(model, inputs[1], s, NEW_TOKENS))
+    check_graphs(label, tally, 1, NEW_TOKENS - 2)
+    _add(total, launches)
+    decode_bits(model, inputs[1], s, label)
+    time_requests(model, inputs[1], s, label, reps=(2, 1))
+    time_requests(model, inputs[4], s, label, reps=(2, 1))
+    decode_profile(model, inputs[1], s, label, top=6)
+    print(f"[{label}] {card_line()}: max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    kv8 = LlavaModel(model.params, cfg.with_kv_cache_dtype("int8"))
+    out8, launches = _counted(counters, none, f"{label} kv8",
+                              lambda: run(kv8, inputs[1], s, NEW_TOKENS))
+    _add(total, launches)
+    same = int((out8[0] == outs[0]).sum())
+    print(f"[{label} kv8] tokens int8 KV {out8[0, :16].tolist()}\n"
+          f"[{label} kv8] tokens bf16 KV {outs[0][:16].tolist()}  "
+          f"({same} of {NEW_TOKENS} equal)")
+    del kv8
+
+    _add(total, family_serve(model, cfg, f"{label} serve"))
+
+    t0 = time.perf_counter()
+    quantize_llama_params(model.params, bits=4)
+    torch.cuda.synchronize()
+    label = "mpt int4"
+    head = model.params["llama"]["embed_tokens"]
+    print(f"[{label}] quantized on the card in {time.perf_counter() - t0:.1f}"
+          f" s: decoder {_nbytes(model.params['llama']) / 2**30:.2f} GiB, "
+          f"tied head {head.dtype}")
+    if head.dtype != torch.bfloat16:
+        fail(f"{label}: the tied head was quantized")
+    steps = NEW_TOKENS - 1
+    want = dict(none, int4_matmul=4 * L + steps * 4 * L)
+    tally = graph_tally()
+    _, launches = _counted(counters, want, label,
+                           lambda: run(model, inputs[1], s, NEW_TOKENS))
+    check_graphs(label, tally, 1, NEW_TOKENS - 2)
+    _add(total, launches)
+    got = prefill_logits(model, cfg, inputs[1], s)
+    with disable_fused_proj():
+        ref = prefill_logits(model, cfg, inputs[1], s)
+    compare_logits(got, ref, label, need_same_top=False)
+    decode_bits(model, inputs[1], s, label)
+    time_requests(model, inputs[1], s, label, reps=(2, 1))
+    time_requests(model, inputs[4], s, label, reps=(2, 1))
+    decode_profile(model, inputs[1], s, label, prefill=False, top=4)
+    del model
+    return total
+
+
+def families_small(dev) -> None:
+    """A small float32 model of each family (Dh = 128; Mistral with GQA 2
+    and a window of FAMILY_SMALL_WINDOW under prompts past it), the card
+    (kernels, gather path) against the same weights on the CPU (plain
+    versions): the same greedy tokens from generate, the dense and the
+    paged batcher, and chunked_prefill's argmax."""
+    import dataclasses
+
+    from matryoshka_mm_torch.config import LlamaConfig, LlavaConfig
+    from matryoshka_mm_torch.generate import (GenerationConfig,
+                                              chunked_prefill, generate,
+                                              prefill_image)
+    from matryoshka_mm_torch.models.convert import init_params
+    from matryoshka_mm_torch.models.llama import embed_tokens
+    from matryoshka_mm_torch.serve.batching import ContinuousBatcher
+
+    rng = np.random.default_rng(4)
+    ids = np.concatenate([[[1, 5, -200]], rng.integers(5, 500, (1, 80))],
+                         1).astype(np.int32)
+    ids2 = np.concatenate([[[1, 9, 11, -200]], rng.integers(5, 500, (1, 70))],
+                          1).astype(np.int32)
+    px = rng.standard_normal((2, 3, 56, 56)).astype(np.float32)
+    gen_cfg = GenerationConfig(max_new_tokens=10, decode_chunk=4,
+                               eos_token_id=-1)
+    text = rng.integers(5, 500, (2, 192)).astype(np.int64)
+    valid = np.ones((2, 192), bool)
+    valid[1, :29] = False
+    pos = np.maximum(np.cumsum(valid, axis=1) - 1, 0)
+    for arch in ("mistral", "mpt"):
+        extra = dict(num_key_value_heads=1,
+                     sliding_window=FAMILY_SMALL_WINDOW) \
+            if arch == "mistral" else dict(num_key_value_heads=2)
+        cfg = dataclasses.replace(LlavaConfig.tiny_debug(), llama=LlamaConfig(
+            arch=arch, vocab_size=512, hidden_size=256, intermediate_size=512,
+            num_hidden_layers=4, num_attention_heads=2, dtype="float32",
+            max_position_embeddings=512, **extra),
+            tokenizer_model_max_length=256)
+        params = {"cpu": init_params(cfg, "cpu", seed=5)}
+        params["card"] = _to(params["cpu"], dev)
+        got, prefill = {}, {}
+        for where, p in params.items():
+            d = torch.device("cpu") if where == "cpu" else dev
+            got[where, "generate"] = generate(
+                p, cfg, ids, px[:1], matryoshka_vis_token_scale=
+                "ver=v0_numtoks=16", gen_cfg=gen_cfg)[0].tolist()
+            for backend in ("dense", "paged"):
+                kw = dict(page_size=16) if backend == "paged" else {}
+                b = ContinuousBatcher(p, cfg, max_batch=2, prefill_len=128,
+                                      max_new_tokens=16, gen_cfg=gen_cfg,
+                                      chunk=4, backend=backend, **kw)
+                try:
+                    b._hold_admission = True
+                    reqs = [b.submit(i, px[j:j + 1], numtoks=16,
+                                     max_new_tokens=10)
+                            for j, i in enumerate((ids, ids2))]
+                    b._hold_admission = False
+                    got[where, backend] = [
+                        np.concatenate(list(b.stream(r))).tolist()
+                        for r in reqs]
+                finally:
+                    b.shutdown()
+            with torch.inference_mode():
+                logits, _ = chunked_prefill(
+                    p, cfg, embed_tokens(p["llama"], torch.as_tensor(
+                        text, device=d)), torch.as_tensor(pos, device=d),
+                    torch.as_tensor(valid, device=d), 208, chunk=64)
+                got[where, "chunked"] = logits.argmax(-1).tolist()
+                # the logits themselves: a tied random head echoes its input
+                # token, so MPT's greedy tokens say little on their own
+                prefill[where] = prefill_image(
+                    p, cfg, torch.as_tensor(ids, device=d),
+                    torch.as_tensor(px[:1], device=d), None, 16, 128,
+                    144)[0][0].float().cpu()
+        for key in ("generate", "dense", "paged", "chunked"):
+            print(f"[small {arch}] {key:8s} card {got['card', key]}\n"
+                  f"[small {arch}] {key:8s} cpu  {got['cpu', key]}")
+            if got["card", key] != got["cpu", key]:
+                fail(f"small {arch}: {key}: card tokens differ from CPU "
+                     f"tokens")
+        if got["card", "dense"][0] != got["card", "generate"]:
+            fail(f"small {arch}: the batcher's tokens differ from generate's")
+        diff = (prefill["card"] - prefill["cpu"]).abs().max().item()
+        scale = prefill["cpu"].abs().max().item()
+        print(f"[small {arch}] prefill logits card vs CPU: max|diff| "
+              f"{diff:.3e} of max|logit| {scale:.3e}")
+        if not diff <= 1e-3 * scale:
+            fail(f"small {arch}: the card's prefill logits differ from the "
+                 f"CPU's")
+
+
+def phase_families(dev) -> dict:
+    """The Mistral and MPT families at full width (random bf16 weights made
+    on the card by init_params, the llava-v1.5-7b-m3 vision half), one
+    model at a time, then the small float32 models card against CPU.
+    Returns the launch counts of the counted runs."""
+    total = {}
+    for name, fn in (("mistral", family_mistral), ("mpt", family_mpt),
+                     ("small", families_small)):
+        t0 = time.perf_counter()
+        _add(total, fn(dev) or {})
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[time] families {name} {time.perf_counter() - t0:.1f} s")
+    return total
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
@@ -4180,9 +4865,10 @@ def main(argv=()) -> int:
     if argv:
         # a subset for work on one phase: `chip_smoke.py kernels quant slice
         # qslice paged hbm serve smallinfer bwd train small ckpt anyres
-        # genmodes` runs phases 3 (attention kernels), 3 (quantized
-        # products), 4, 5, 6, 7, 8, 9, 10, 11, 12, 13 and 14 alone and
-        # prints no result line
+        # genmodes families famkernels` runs phases 3 (attention kernels), 3
+        # (quantized products), 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15 and
+        # phase 3's cases at the families' shapes alone and prints no result
+        # line
         for name in argv:
             phases = {"kernels": phase_kernels, "quant": phase_quant_kernels,
              "slice": phase_slice, "smallinfer": phase_small,
@@ -4190,7 +4876,8 @@ def main(argv=()) -> int:
              "hbm": phase_hbm, "serve": phase_serving,
              "bwd": phase_bwd_kernels, "train": phase_train,
              "small": phase_train_small, "ckpt": phase_ckpt,
-             "anyres": phase_anyres, "genmodes": phase_genmodes}
+             "anyres": phase_anyres, "genmodes": phase_genmodes,
+             "families": phase_families, "famkernels": phase_family_kernels}
             timed(phases[name], dev)
         print(f"partial run {argv}: no result")
         return 1
@@ -4216,6 +4903,8 @@ def main(argv=()) -> int:
     for k, n in timed(phase_anyres, dev).items():
         launches[k] = launches.get(k, 0) + n
     for k, n in timed(phase_genmodes, dev).items():
+        launches[k] = launches.get(k, 0) + n
+    for k, n in timed(phase_families, dev).items():
         launches[k] = launches.get(k, 0) + n
     if [m for m in sys.modules
             if m.split(".")[0] in ("jax", "matryoshka_mm_tpu")]:

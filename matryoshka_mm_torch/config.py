@@ -25,6 +25,9 @@ import torch
 from .kvconfig import parse_kv_from_string, parse_list
 
 ATTN_IMPLS = ("auto", "reference")
+# the decoder families of the reference's wrappers (llava_llama.py,
+# llava_mistral.py, llava_mpt.py)
+ARCHS = ("llama", "mistral", "mpt")
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -67,6 +70,8 @@ class LlamaConfig:
         if self.attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl={self.attn_impl!r}; expected one of "
                              f"{ATTN_IMPLS}")
+        if self.arch not in ARCHS:
+            raise ValueError(f"arch={self.arch!r}; expected one of {ARCHS}")
         if self.kv_cache_dtype not in ("", self.dtype, "int8"):
             raise ValueError(f"kv_cache_dtype={self.kv_cache_dtype!r}; "
                              f"expected '', {self.dtype!r} or 'int8'")
@@ -79,6 +84,21 @@ class LlamaConfig:
     @classmethod
     def vicuna_7b(cls, **kw):
         return cls(**kw)
+
+    @classmethod
+    def mistral_7b(cls, **kw):
+        """The JAX preset as it stands: v0.1's 4,096-slot window with
+        v0.2's ``rope_theta`` of 1e6."""
+        return cls(arch="mistral", intermediate_size=14336,
+                   num_key_value_heads=8, sliding_window=4096,
+                   rms_norm_eps=1e-6, rope_theta=1e6,
+                   max_position_embeddings=32768, **kw)
+
+    @classmethod
+    def mpt_7b(cls, **kw):
+        return cls(arch="mpt", vocab_size=50432, intermediate_size=16384,
+                   max_position_embeddings=2048, tie_word_embeddings=True,
+                   **kw)
 
     @classmethod
     def tiny_debug(cls, **kw):

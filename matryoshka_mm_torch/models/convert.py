@@ -2,13 +2,17 @@
 parameter pytree, the port's own random initialisation, and the
 conversion of HF / LLaVA state dicts (:func:`convert_llava_state`, the
 JAX ``models/convert.py`` mapping, with :func:`merge_lora` for LoRA
-adapters).
+adapters; :func:`convert_llama` and :func:`convert_mpt` for a bare HF
+decoder).
 
 Port layout (plain dicts of tensors):
 
 * ``llama``: HF key names, dense weights ``(out, in)``; ``layers`` is a
   list of per-layer dicts (the JAX leaves are stacked ``(L, ...)`` and
-  already ``(out, in)``, so they are only unstacked);
+  already ``(out, in)``, so they are only unstacked).  LLaMA and Mistral
+  layers hold ``self_attn`` / ``mlp``; MPT's hold HF MPT's ``norm_1``,
+  ``norm_2``, ``attn`` (``Wqkv``, ``out_proj``) and ``ffn`` (``up_proj``,
+  ``down_proj``), and its tree has no ``lm_head``;
 * ``vision_tower`` / ``mm_projector``: JAX dense leaves are
   ``{"kernel": (in, out), "bias"}`` and become ``{"weight": (out, in),
   "bias"}`` for ``F.linear``; ``patch_embedding`` stays the ``(3*P*P, D)``
@@ -109,10 +113,25 @@ def params_from_jax(np_tree: dict, cfg: LlavaConfig, device="cuda",
 
 def _llama_tree(lc, make) -> dict:
     """The decoder's parameter tree, each leaf ``make(kind, shape, dtype)``
-    with ``kind`` one of ``"normal"``, ``"ones"``, ``"zeros"``."""
+    with ``kind`` one of ``"normal"``, ``"ones"``, ``"zeros"``.  MPT's
+    (the JAX ``init_llama_params`` branch) has HF MPT's block names and no
+    ``lm_head``: its head is the embedding table."""
     dt = torch_dtype(lc.dtype)
     D, I = lc.hidden_size, lc.intermediate_size
     H, Hkv, Dh = lc.num_attention_heads, lc.num_key_value_heads, lc.head_dim
+    if lc.arch == "mpt":
+        return {
+            "embed_tokens": make("normal", (lc.vocab_size, D), dt),
+            "layers": [{
+                "norm_1": make("ones", (D,), dt),
+                "norm_2": make("ones", (D,), dt),
+                "attn": {"Wqkv": make("normal", (3 * D, D), dt),
+                         "out_proj": make("normal", (D, D), dt)},
+                "ffn": {"up_proj": make("normal", (I, D), dt),
+                        "down_proj": make("normal", (D, I), dt)},
+            } for _ in range(lc.num_hidden_layers)],
+            "norm": make("ones", (D,), dt),
+        }
     llama = {
         "embed_tokens": make("normal", (lc.vocab_size, D), dt),
         "layers": [{
@@ -274,6 +293,100 @@ def hf_param_path(key: str) -> Optional[tuple]:
     return None
 
 
+_MPT_KEYS = [(re.compile(p), fn) for p, fn in (
+    (r"transformer\.wte\.weight", lambda m: ("embed_tokens",)),
+    (r"transformer\.norm_f\.weight", lambda m: ("norm",)),
+    (r"transformer\.blocks\.(\d+)\.(norm_1|norm_2)\.weight",
+     lambda m: ("layers", int(m[1]), m[2])),
+    (r"transformer\.blocks\.(\d+)\.(attn)\.(Wqkv|out_proj)\.weight",
+     lambda m: ("layers", int(m[1]), m[2], m[3])),
+    (r"transformer\.blocks\.(\d+)\.(ffn)\.(up_proj|down_proj)\.weight",
+     lambda m: ("layers", int(m[1]), m[2], m[3])),
+)]
+
+
+def _llama_path(key: str) -> Optional[tuple]:
+    path = hf_param_path(key)
+    return path[1:] if path is not None and path[0] == "llama" else None
+
+
+def _mpt_path(key: str) -> Optional[tuple]:
+    for pat, fn in _MPT_KEYS:
+        m = pat.fullmatch(key)
+        if m:
+            return fn(m)
+    return None
+
+
+def _meta(kind, shape, dtype) -> torch.Tensor:
+    """A placeholder leaf (``make`` of :func:`_llama_tree`) that a state
+    dict must fill."""
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _state_leaf(key: str, t: torch.Tensor, want, device, dtype,
+                reshape=None) -> torch.Tensor:
+    """A state dict's tensor as a port leaf: copied to ``device``, its float
+    values cast to ``dtype``, reshaped, and held to the config's shape
+    ``want`` (None: any)."""
+    t = t.to(device, copy=True)      # never a view of the file
+    if t.is_floating_point():
+        t = t.to(dtype)
+    if reshape is not None:
+        t = reshape(t)
+    if want is not None and tuple(t.shape) != tuple(want):
+        raise ValueError(f"{key}: shape {tuple(t.shape)}, the config "
+                         f"needs {tuple(want)}")
+    return t
+
+
+def _check_filled(tree: dict, what: str) -> None:
+    from ..train.optimizer import named_leaves
+
+    missing = [p for p, leaf in named_leaves(tree) if leaf.is_meta]
+    if missing:
+        raise ValueError(f"{what} lacks {len(missing)} parameters of the "
+                         f"config, e.g. {missing[:4]}")
+
+
+def _convert_decoder(items, lc, path_of, device) -> dict:
+    """``(key, tensor)`` pairs of a decoder's HF state dict -> its port tree
+    on ``device``, float leaves in ``lc.dtype``; every leaf of the config
+    must come, ``lm_head`` may (else the head is the embedding table)."""
+    tree = _llama_tree(lc, _meta)
+    tree.pop("lm_head", None)
+    for key, t in items:
+        path = path_of(key)
+        if path is None:
+            continue
+        if path == ("lm_head",):
+            parent, want = tree, (lc.vocab_size, lc.hidden_size)
+        else:
+            parent = _parent(tree, path)
+            if parent is None:
+                continue        # a layer the config does not have
+            want = parent[path[-1]].shape
+        parent[path[-1]] = _state_leaf(key, t, want, device,
+                                       torch_dtype(lc.dtype))
+    _check_filled(tree, "the state dict")
+    return tree
+
+
+def convert_llama(state: Mapping[str, torch.Tensor], lc,
+                  device="cuda") -> dict:
+    """A HF ``LlamaForCausalLM`` / ``MistralForCausalLM`` state dict -> the
+    port's decoder tree (the JAX ``convert_llama``: a rename, no
+    transposes)."""
+    return _convert_decoder(state.items(), lc, _llama_path, device)
+
+
+def convert_mpt(state: Mapping[str, torch.Tensor], lc,
+                device="cuda") -> dict:
+    """A HF ``MptForCausalLM`` state dict -> the port's MPT decoder tree (the
+    JAX ``convert_mpt``; ``transformer.wte`` is also the head)."""
+    return _convert_decoder(state.items(), lc, _mpt_path, device)
+
+
 def convert_llava_state(items, cfg: LlavaConfig, device="cuda") -> dict:
     """``(key, tensor)`` pairs of a LLaVA state dict (any device) -> port
     parameters on ``device``, each tensor moved there and its float leaves
@@ -285,12 +398,9 @@ def convert_llava_state(items, cfg: LlavaConfig, device="cuda") -> dict:
     missing ``lm_head`` means tied embeddings; ``router`` and
     ``image_newline`` are kept when present.  Keys of layers the config
     does not have are skipped, as the JAX conversion skips them."""
-    def meta(kind, shape, dt):
-        return torch.empty(shape, dtype=dt, device="meta")
-
-    params = {"llama": _llama_tree(cfg.llama, meta),
-              "vision_tower": _vision_tree(cfg.vision, meta),
-              "mm_projector": _projector_tree(cfg, meta)}
+    params = {"llama": _llama_tree(cfg.llama, _meta),
+              "vision_tower": _vision_tree(cfg.vision, _meta),
+              "mm_projector": _projector_tree(cfg, _meta)}
     params["llama"].pop("lm_head", None)
     for key, t in items:
         path = hf_param_path(key)
@@ -307,23 +417,15 @@ def convert_llava_state(items, cfg: LlavaConfig, device="cuda") -> dict:
             if parent is None:
                 continue        # a layer the config does not have
             want = parent[path[-1]].shape
-        t = t.to(device, copy=True)      # never a view of the file
-        if t.is_floating_point():
-            t = t.to(torch.bfloat16)
-        if path[-1] == "patch_embedding":
-            t = t.reshape(t.shape[0], -1).T.contiguous()
-        if want is not None and t.shape != want:
-            raise ValueError(f"{key}: shape {tuple(t.shape)}, the config "
-                             f"needs {tuple(want)}")
-        parent[path[-1]] = t
+        parent[path[-1]] = _state_leaf(
+            key, t, want, device, torch.bfloat16,
+            reshape=(lambda t: t.reshape(t.shape[0], -1).T.contiguous())
+            if path[-1] == "patch_embedding" else None)
     from ..train.optimizer import named_leaves
 
     if all(leaf.is_meta for _, leaf in named_leaves(params["vision_tower"])):
         del params["vision_tower"]
-    missing = [p for p, leaf in named_leaves(params) if leaf.is_meta]
-    if missing:
-        raise ValueError(f"the checkpoint lacks {len(missing)} parameters "
-                         f"of the config, e.g. {missing[:4]}")
+    _check_filled(params, "the checkpoint")
     return params
 
 

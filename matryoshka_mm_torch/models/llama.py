@@ -1,5 +1,8 @@
-"""LLaMA decoder (Vicuna-7B family), PyTorch port of
-``matryoshka_mm_tpu/models/llama.py`` for ``arch="llama"``.
+"""The decoder families of the reference's LLaVA wrappers, PyTorch port of
+``matryoshka_mm_tpu/models/llama.py``: ``arch="llama"`` (Vicuna: RoPE,
+SwiGLU), ``"mistral"`` (the same body with GQA and a sliding window) and
+``"mpt"`` (bias-free LayerNorm, a fused ``Wqkv``, alibi, a GELU MLP and
+the head tied to the embedding table).
 
 Parameters are a plain dict whose names mirror the HF checkpoint keys (and
 the JAX pytree): dense weights are ``(out, in)`` for ``F.linear``, and
@@ -10,7 +13,12 @@ Attention: prefill (S > 1) goes through ``ops.attention.attention``, which
 reaches the flash kernel; with ``attn_impl="auto"`` every single-token
 decode step goes through the decode kernel, reading ``cache.k[l]`` in place.
 The TPU-only gates of the JAX ``_flash_decode_ok`` (the bf16 B=1 pin and the
-cache-length divisibility rule) do not apply here.
+cache-length divisibility rule) do not apply here.  Mistral's window is by
+index in the flash kernel (as in the Pallas kernel; the prefill's layouts
+are monotone) and by position in the decode kernel and the plain path.
+MPT's alibi bias sends its attention to the plain path in prefill and
+decode, as in the JAX package; its slopes and bias are made on the device
+from ``positions``, so its decode step captures like LLaMA's.
 
 The KV cache keeps the JAX layout ``(L, B, S_max, n_kv, Dh)`` with absolute
 positions per slot, so left-padded prefill and decode share one path.
@@ -48,6 +56,7 @@ decoder layer is recomputed in the backward (``torch.utils.checkpoint``);
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple, Union
 
 import torch
@@ -55,7 +64,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..config import LlamaConfig, torch_dtype
-from ..ops.attention import attention
+from ..ops.attention import attention, attention_reference
 from ..ops.decode_attention import flash_decode_attention
 from ..ops.flash_attention import FlashResiduals
 from ..ops.fused_mlp import MAX_ROWS as MLP_MAX_ROWS, quant_mlp
@@ -149,6 +158,41 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     return out.to(x.dtype)
 
 
+def layer_norm_nobias(x: torch.Tensor, weight: torch.Tensor,
+                      eps: float = 1e-5) -> torch.Tensor:
+    """Bias-free LayerNorm (MPT's ``LPLayerNorm`` with ``no_bias``) in f32,
+    cast back to the input dtype."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mean).pow(2).mean(dim=-1, keepdim=True)
+    xf = (xf - mean) * torch.rsqrt(var + eps)
+    return (xf * weight.float()).to(x.dtype)
+
+
+def alibi_slopes(num_heads: int, alibi_bias_max: float = 8.0,
+                 device=None) -> torch.Tensor:
+    """(H,) f32 alibi slopes, MPT's convention (for a head count that is not
+    a power of two, the odd-indexed slopes of the next power first, then
+    the even), made on ``device`` with no host copy."""
+    n = 2 ** math.ceil(math.log2(num_heads))
+    m = torch.arange(1, n + 1, dtype=torch.float32, device=device) \
+        * (alibi_bias_max / n)
+    slopes = 1.0 / torch.exp2(m)
+    if n != num_heads:
+        slopes = torch.cat([slopes[1::2], slopes[0::2]])[:num_heads]
+    return slopes
+
+
+def alibi_bias(num_heads: int, q_positions: torch.Tensor,
+               kv_positions: torch.Tensor) -> torch.Tensor:
+    """``-slope * max(q_pos - kv_pos, 0)`` as (B, H, Sq, Sk) f32; future
+    slots are left to the causal mask."""
+    slopes = alibi_slopes(num_heads, device=q_positions.device)
+    rel = (q_positions[:, None, :, None]
+           - kv_positions[:, None, None, :]).float()
+    return -slopes[None, :, None, None] * torch.clamp(rel, min=0)
+
+
 def embed_tokens(params: dict, input_ids: torch.Tensor) -> torch.Tensor:
     """Embedding lookup.  Ids are clamped into range first: the image
     sentinel (-200) has no row, and an out-of-range index is a device-side
@@ -204,14 +248,86 @@ def _mlp(m: dict, x: torch.Tensor) -> torch.Tensor:
     return proj(F.silu(gate) * up, m["down_proj"])
 
 
+def _mpt_ffn(f: dict, x: torch.Tensor) -> torch.Tensor:
+    """MPT's MLP: ``up_proj`` -> exact GELU -> ``down_proj``."""
+    return proj(F.gelu(proj(x, f["up_proj"])), f["down_proj"])
+
+
+def final_norm(params: dict, cfg: LlamaConfig,
+               hidden: torch.Tensor) -> torch.Tensor:
+    """The norm after the last layer: MPT's bias-free LayerNorm, else
+    RMSNorm."""
+    if cfg.arch == "mpt":
+        return layer_norm_nobias(hidden, params["norm"])
+    return rms_norm(hidden, params["norm"], cfg.rms_norm_eps)
+
+
 def lm_head(params: dict, hidden: torch.Tensor) -> torch.Tensor:
-    """Vocabulary logits in float32."""
+    """Vocabulary logits in float32 (MPT has no ``lm_head``: its head is the
+    embedding table, ``(vocab, D)``, already ``(out, in)``)."""
     return proj(hidden, params.get("lm_head", params["embed_tokens"])).float()
 
 
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
+
+def _write_slots(cache: KVCache, layer_idx: int, slots: torch.Tensor,
+                 k: torch.Tensor, v: torch.Tensor) -> None:
+    """The new tokens' ``(B, Hkv, S, Dh)`` K/V into layer ``layer_idx`` of
+    the cache at the device slots ``slots``; int8 caches quantize per
+    (slot, head)."""
+    ck, cv = cache.k[layer_idx], cache.v[layer_idx]
+    if cache.k_scale is None:
+        ck.index_copy_(1, slots, k.transpose(1, 2).to(ck.dtype))
+        cv.index_copy_(1, slots, v.transpose(1, 2).to(cv.dtype))
+        return
+    for c, cs, x in ((ck, cache.k_scale[layer_idx], k),
+                     (cv, cache.v_scale[layer_idx], v)):
+        xq, xs = _quantize_kv_slots(x.transpose(1, 2))
+        c.index_copy_(1, slots, xq)
+        cs.index_copy_(1, slots, xs)
+
+
+def _dequantized_layer(cache: KVCache, layer_idx: int, dtype: torch.dtype):
+    """Layer ``layer_idx`` of the cache as ``(B, S_max, Hkv, Dh)`` K and V in
+    ``dtype`` (an int8 cache times its scales)."""
+    ck, cv = cache.k[layer_idx], cache.v[layer_idx]
+    if cache.k_scale is None:
+        return ck, cv
+    return tuple((c.float() * cs[layer_idx][..., None]).to(dtype)
+                 for c, cs in ((ck, cache.k_scale), (cv, cache.v_scale)))
+
+
+def _mpt_layer_forward(lp: dict, hidden: torch.Tensor, *, cfg: LlamaConfig,
+                       q_positions, kv_valid, cache: Optional[KVCache],
+                       layer_idx: int,
+                       slots: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One MPT block: bias-free LayerNorm, fused ``Wqkv`` split in three,
+    attention with the alibi bias on the plain path (an int8 cache
+    dequantized first, as the JAX package does), GELU MLP."""
+    B, S, D = hidden.shape
+    H, Dh = cfg.num_attention_heads, cfg.head_dim
+    a = lp["attn"]
+
+    x = layer_norm_nobias(hidden, lp["norm_1"])
+    q, k, v = (t.reshape(B, S, H, Dh).transpose(1, 2)
+               for t in proj(x, a["Wqkv"]).chunk(3, dim=-1))
+    if cache is None:
+        kvp = q_positions
+    else:
+        _write_slots(cache, layer_idx, slots, k, v)
+        ck, cv = _dequantized_layer(cache, layer_idx, hidden.dtype)
+        k, v = ck.transpose(1, 2), cv.transpose(1, 2)
+        kvp, kv_valid = cache.positions, cache.valid
+    out = attention_reference(
+        q, k, v, causal=True, q_positions=q_positions, kv_positions=kvp,
+        kv_valid=kv_valid, bias=alibi_bias(H, q_positions, kvp))
+    out = out.transpose(1, 2).reshape(B, S, D)
+    hidden = hidden + proj(out, a["out_proj"])
+    return hidden + _mpt_ffn(lp["ffn"], layer_norm_nobias(hidden,
+                                                          lp["norm_2"]))
+
 
 def _layer_forward(lp: dict, hidden: torch.Tensor, *, cfg: LlamaConfig,
                    cos, sin, q_positions, kv_valid,
@@ -246,25 +362,18 @@ def _layer_forward(lp: dict, hidden: torch.Tensor, *, cfg: LlamaConfig,
                         sliding_window=window, impl=cfg.attn_impl,
                         flash_residuals=flash_residuals)
     else:
+        _write_slots(cache, layer_idx, slots, k, v)
         ck, cv = cache.k[layer_idx], cache.v[layer_idx]   # (B, S_max, Hkv, Dh)
         cks = cvs = None
         if cache.k_scale is not None:
-            # int8 slots with per-(slot, head) scales
-            cks, cvs = cache.k_scale[layer_idx], cache.v_scale[layer_idx]
-            for c, cs, x in ((ck, cks, k), (cv, cvs, v)):
-                xq, xs = _quantize_kv_slots(x.transpose(1, 2))
-                c.index_copy_(1, slots, xq)
-                cs.index_copy_(1, slots, xs)
-            if not (S == 1 and cfg.attn_impl == "auto"
-                    and q.device.type == "cuda"):
+            if S == 1 and cfg.attn_impl == "auto" \
+                    and q.device.type == "cuda":
+                # int8 slots read in place with their per-(slot, head) scales
+                cks, cvs = cache.k_scale[layer_idx], cache.v_scale[layer_idx]
+            else:
                 # prefill, and the CPU: this layer's cache dequantized to
                 # the activation dtype first, as the JAX package does
-                ck = (ck.float() * cks[..., None]).to(hidden.dtype)
-                cv = (cv.float() * cvs[..., None]).to(hidden.dtype)
-                cks = cvs = None
-        else:
-            ck.index_copy_(1, slots, k.transpose(1, 2).to(ck.dtype))
-            cv.index_copy_(1, slots, v.transpose(1, 2).to(cv.dtype))
+                ck, cv = _dequantized_layer(cache, layer_idx, hidden.dtype)
         if S == 1 and cfg.attn_impl == "auto":
             out = flash_decode_attention(
                 q[:, :, 0], ck, cv, cache.valid, cache.positions,
@@ -316,15 +425,13 @@ def llama_forward(
     cache: the S tokens are appended at ``cache.write_idx`` (in place, a
     device index) and attend over the whole cache; prefill (S > 1) and
     decode (S == 1) share this path."""
-    if cfg.arch != "llama":
-        raise NotImplementedError(
-            f"arch={cfg.arch!r}: only 'llama' is ported (Mistral and MPT: "
-            f"ROADMAP.md Queue 1, item 2)")
     B, S, _ = inputs_embeds.shape
     if attn_valid is None:
         attn_valid = torch.ones((B, S), dtype=torch.bool,
                                 device=inputs_embeds.device)
-    cos, sin = rope_cos_sin(position_ids, cfg.head_dim, cfg.rope_theta)
+    cos = sin = None     # MPT has no RoPE: the alibi bias encodes position
+    if cfg.arch != "mpt":
+        cos, sin = rope_cos_sin(position_ids, cfg.head_dim, cfg.rope_theta)
 
     slots = None
     if cache is not None:
@@ -344,6 +451,10 @@ def llama_forward(
     keep_flash = remat and _remat_keeps_flash(cfg.remat_policy)
     for i, lp in enumerate(params["layers"]):
         def layer(h, lp=lp, i=i, res=FlashResiduals() if keep_flash else None):
+            if cfg.arch == "mpt":
+                return _mpt_layer_forward(
+                    lp, h, cfg=cfg, q_positions=position_ids,
+                    kv_valid=kv_valid, cache=cache, layer_idx=i, slots=slots)
             return _layer_forward(
                 lp, h, cfg=cfg, cos=cos, sin=sin, q_positions=position_ids,
                 kv_valid=kv_valid, cache=cache, layer_idx=i, slots=slots,
@@ -356,4 +467,4 @@ def llama_forward(
     if cache is not None:
         cache.write_idx.add_(S)
         cache.host_idx += S
-    return rms_norm(hidden, params["norm"], cfg.rms_norm_eps), cache
+    return final_norm(params, cfg, hidden), cache

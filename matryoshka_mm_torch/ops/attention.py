@@ -68,8 +68,9 @@ def attention_reference(
         if sliding_window is not None:
             mask = mask & (rel < sliding_window)
 
-    logits = torch.where(mask, logits, torch.tensor(NEG_INF,
-                                                    device=q.device))
+    # a Python scalar, not a tensor made on the device: that copy would
+    # sync the stream, which a CUDA graph capture does not allow
+    logits = logits.masked_fill(~mask, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype), v)
     return out.to(q.dtype)

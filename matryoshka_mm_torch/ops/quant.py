@@ -170,7 +170,10 @@ def quantize_llama_params(params: dict, bits: int, min_size: int = 4096,
     JAX ``maybe_quantize`` (``load_4bit`` for ``bits=4``, ``load_8bit`` for
     ``bits=8``): the same leaves, ``lm_head`` included, leaf by leaf so
     each float leaf is freed before the next one quantizes.  ``fuse`` then
-    merges q/k/v and gate/up per layer.  Returns ``params``."""
+    merges q/k/v and gate/up per layer.  MPT's ``Wqkv``, ``out_proj``,
+    ``up_proj`` and ``down_proj`` quantize as plain leaves; its embedding
+    table, which is also its head, stays in the model dtype.  Returns
+    ``params``."""
     if bits not in (4, 8):
         raise ValueError(f"bits={bits}: expected 4 or 8")
     quant = quantize_array_int4 if bits == 4 else quantize_array
@@ -198,7 +201,9 @@ def quantize_llama_params(params: dict, bits: int, min_size: int = 4096,
     key = Q4KEY if bits == 4 else QKEY
     if fuse:
         for layer in llama["layers"]:
-            a, m = layer["self_attn"], layer["mlp"]
+            # LLaMA / Mistral layers only (the JAX guard): MPT's Wqkv is
+            # fused already and its MLP has no gate
+            a, m = layer.get("self_attn", {}), layer.get("mlp", {})
             if all(is_quantized(a.get(n)) for n in ("q_proj", "k_proj",
                                                      "v_proj")) \
                     and all(is_quantized(m.get(n)) for n in ("gate_proj",

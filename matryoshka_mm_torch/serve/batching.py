@@ -13,7 +13,8 @@ and per-request token streams come out of thread-safe queues.
 * ``backend="paged"``: the paged KV pool (``serve/paged_cache.py``): each row
   maps its tokens onto free-list pages, finished rows return their pages at
   once, and every single-token step attends through the hand-written paged
-  attention kernel when the model lies on a CUDA device.
+  attention kernel when the model lies on a CUDA device (a window config
+  and MPT through the gather path).
 
 New requests prefill into pool rows: compatible burst arrivals share ONE
 batched ``(G, L)`` prefill (``_admit_group``), the rest a batch-1 prefill.
@@ -46,8 +47,12 @@ waited on, so reading round ``k`` never waits for round ``k + 1``.
 Admissions under it stay device futures: a prefill's first token reaches the
 host through the next round's echo of its pre-round token vector.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
-item): ``adapters=`` (multi-LoRA), decoders other than ``arch="llama"``.
+All three decoder families serve on both backends (``arch`` ``"llama"``,
+``"mistral"``, ``"mpt"``); on the paged one a sliding window or MPT's alibi
+attends through the gather path, as in the JAX package
+(``paged_cache.kernel_fits``).  Not ported yet (it raises
+``NotImplementedError`` naming its ROADMAP.md item): ``adapters=``
+(multi-LoRA).
 """
 
 from __future__ import annotations
@@ -204,10 +209,6 @@ class ContinuousBatcher:
                 "multi-LoRA serving (adapters=) is not ported yet: it needs "
                 "serve/multi_lora.py (AdapterPack, pack_adapters, lora_delta) "
                 "on top of ops/lora.py (ROADMAP.md Queue 1, item 5, tag 7a)")
-        if cfg.llama.arch != "llama":
-            raise NotImplementedError(
-                f"arch={cfg.llama.arch!r}: the batcher is ported for 'llama' "
-                f"only (Mistral and MPT: ROADMAP.md Queue 1, item 2)")
         if backend not in ("dense", "paged"):
             raise ValueError(f"backend={backend!r}; expected 'dense' or "
                              f"'paged'")

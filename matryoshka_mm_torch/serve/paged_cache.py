@@ -1,5 +1,6 @@
 """Paged KV cache, PyTorch port of ``matryoshka_mm_tpu/serve/paged_cache.py``
-for ``arch="llama"``.
+for the three decoder families (``arch`` ``"llama"``, ``"mistral"``,
+``"mpt"``).
 
 Instead of one fixed ``(B, capacity)`` cache region per pool, KV storage is a
 flat pool of fixed-size **pages**; each request maps its logical token
@@ -19,7 +20,9 @@ positions onto pages through a per-row page table.
   step attends through the paged-attention kernel
   (``ops/paged_attention.py``) when ``use_kernel`` is true; a multi-token
   verify block, and ``use_kernel=False``, gather each row's pages and use
-  the plain attention.
+  the plain attention.  As in the JAX package, a sliding-window config and
+  MPT's alibi always take the gather path: the paged kernel, as the TPU's,
+  has neither a window mask nor a bias.
 * :func:`import_prefill` / :func:`import_prefill_group` /
   :func:`import_dense_cache` scatter a prefill's dense cache into pages.
 * :class:`CapturedRound`: a decode round (``paged_pool_decode``, or the
@@ -43,8 +46,9 @@ import numpy as np
 import torch
 
 from ..config import LlamaConfig, torch_dtype
-from ..models.llama import (KVCache, _mlp, apply_rope, embed_tokens, lm_head,
-                            proj, rms_norm, rope_cos_sin)
+from ..models.llama import (KVCache, _mlp, _mpt_ffn, alibi_bias, apply_rope,
+                            embed_tokens, final_norm, layer_norm_nobias,
+                            lm_head, proj, rms_norm, rope_cos_sin)
 from ..ops.attention import attention_reference
 from ..ops.paged_attention import paged_decode_attention
 from ..ops.quant import _quantize_kv_slots
@@ -229,19 +233,26 @@ def import_prefill(paged: PagedKVCache, dense: KVCache, pad: int, row_table,
 # decode
 # ---------------------------------------------------------------------------
 
+def kernel_fits(cfg: LlamaConfig) -> bool:
+    """Whether the paged attention kernel computes this config's attention:
+    it attends a row's whole length with no bias, so a sliding window and
+    MPT's alibi take the gather path (the JAX dispatch rule)."""
+    return not cfg.sliding_window and cfg.arch != "mpt"
+
+
 def _resolve_use_kernel(use_kernel: Optional[bool], cfg: LlamaConfig,
                         device: torch.device) -> bool:
-    """``None`` means "the tensors are on a CUDA device".  The paged kernel
-    attends the whole row, so a sliding-window config that resolves to the
-    kernel raises; ``use_kernel=False`` picks the gather path, which masks
-    the slots older than the window."""
+    """``None`` means "the tensors are on a CUDA device and the kernel fits
+    the config" (:func:`kernel_fits`); an explicit ``True`` for a config it
+    does not fit raises; ``False`` picks the gather path."""
     if use_kernel is None:
-        use_kernel = device.type == "cuda"
-    if use_kernel and cfg.sliding_window:
-        raise NotImplementedError(
-            f"sliding_window={cfg.sliding_window}: the paged attention "
-            f"kernel has no window mask; pass use_kernel=False for the "
-            f"gather path (ROADMAP.md Queue 1, item 2)")
+        return device.type == "cuda" and kernel_fits(cfg)
+    if use_kernel and not kernel_fits(cfg):
+        raise ValueError(
+            f"use_kernel=True: the paged attention kernel has no window "
+            f"mask and no alibi bias (arch={cfg.arch!r}, sliding_window="
+            f"{cfg.sliding_window}); use_kernel=None or False takes the "
+            f"gather path")
     return bool(use_kernel)
 
 
@@ -260,11 +271,11 @@ def _decode_core(params: dict, cfg: LlamaConfig, paged: PagedKVCache,
     stale slots beyond it are masked and overwritten by the next write.
 
     Inactive rows read nothing that counts (their output is discarded) and
-    write to the trash page 0."""
-    if cfg.arch != "llama":
-        raise NotImplementedError(
-            f"arch={cfg.arch!r}: the paged decode is ported for 'llama' only "
-            f"(Mistral and MPT: ROADMAP.md Queue 1, item 2)")
+    write to the trash page 0.  MPT's block (alibi, fused ``Wqkv``, GELU
+    MLP) has no RoPE and attends through the gather path."""
+    if use_kernel:
+        _resolve_use_kernel(True, cfg, tokens.device)
+    mpt = cfg.arch == "mpt"
     tokens = tokens if tokens.dim() == 2 else tokens[:, None]
     B, S = tokens.shape
     H, Hkv, Dh = (cfg.num_attention_heads, cfg.num_key_value_heads,
@@ -280,7 +291,8 @@ def _decode_core(params: dict, cfg: LlamaConfig, paged: PagedKVCache,
 
     hidden = embed_tokens(params, tokens)                       # (B, S, D)
     pos = row_len[:, None] + torch.arange(S, device=dev)[None]  # (B, S)
-    cos, sin = rope_cos_sin(pos, Dh, cfg.rope_theta)
+    if not mpt:
+        cos, sin = rope_cos_sin(pos, Dh, cfg.rope_theta)
 
     w_page = torch.clamp(pos // page_size, max=max_pages - 1)
     w_off = pos % page_size
@@ -307,7 +319,39 @@ def _decode_core(params: dict, cfg: LlamaConfig, paged: PagedKVCache,
                     ).to(hidden.dtype)
         return rows.transpose(1, 2)
 
+    def write_kv(l, k, v):
+        """The new tokens' (B, S, Hkv, Dh) K/V into each row's page slots
+        of layer ``l``; int8 pools quantize per (slot, head)."""
+        kl, vl = paged.k[l], paged.v[l]
+        if int8:
+            k, ks = _quantize_kv_slots(k)
+            v, vs = _quantize_kv_slots(v)
+            paged.k_scale[l].index_put_((w_page_id, w_off), ks)
+            paged.v_scale[l].index_put_((w_page_id, w_off), vs)
+        kl.index_put_((w_page_id, w_off), k.to(kl.dtype))
+        vl.index_put_((w_page_id, w_off), v.to(vl.dtype))
+        return kl, vl
+
+    def gathered(l, kl, vl):
+        return (gather_rows(kl, paged.k_scale[l] if int8 else None),
+                gather_rows(vl, paged.v_scale[l] if int8 else None))
+
     for l, lp in enumerate(params["layers"]):
+        if mpt:
+            a = lp["attn"]
+            x = layer_norm_nobias(hidden, lp["norm_1"])
+            q, k, v = (t.reshape(B, S, H, Dh)
+                       for t in proj(x, a["Wqkv"]).chunk(3, dim=-1))
+            kl, vl = write_kv(l, k, v)
+            attn = attention_reference(
+                q.transpose(1, 2), *gathered(l, kl, vl), causal=True,
+                q_positions=pos, kv_positions=kv_pos, kv_valid=kv_valid,
+                bias=alibi_bias(H, pos, kv_pos))
+            attn = attn.transpose(1, 2).reshape(B, S, H * Dh)
+            hidden = hidden + proj(attn, a["out_proj"])
+            hidden = hidden + _mpt_ffn(lp["ffn"], layer_norm_nobias(
+                hidden, lp["norm_2"]))
+            continue
         a = lp["self_attn"]
         x = rms_norm(hidden, lp["input_layernorm"], cfg.rms_norm_eps)
         if "qkv_proj" in a:
@@ -319,16 +363,7 @@ def _decode_core(params: dict, cfg: LlamaConfig, paged: PagedKVCache,
         k = apply_rope(k.reshape(B, S, Hkv, Dh).transpose(1, 2), cos, sin)
         k = k.transpose(1, 2)                                # (B, S, Hkv, Dh)
         v = v.reshape(B, S, Hkv, Dh)
-
-        # the new tokens' K/V into each row's page slots of this layer
-        kl, vl = paged.k[l], paged.v[l]
-        if int8:
-            k, ks = _quantize_kv_slots(k)
-            v, vs = _quantize_kv_slots(v)
-            paged.k_scale[l].index_put_((w_page_id, w_off), ks)
-            paged.v_scale[l].index_put_((w_page_id, w_off), vs)
-        kl.index_put_((w_page_id, w_off), k.to(kl.dtype))
-        vl.index_put_((w_page_id, w_off), v.to(vl.dtype))
+        kl, vl = write_kv(l, k, v)
 
         if use_kernel:
             attn = paged_decode_attention(
@@ -337,18 +372,15 @@ def _decode_core(params: dict, cfg: LlamaConfig, paged: PagedKVCache,
                 paged.v_scale[l] if int8 else None).reshape(B, 1, H * Dh)
         else:
             attn = attention_reference(
-                q, gather_rows(kl, paged.k_scale[l] if int8 else None),
-                gather_rows(vl, paged.v_scale[l] if int8 else None),
-                causal=True, q_positions=pos, kv_positions=kv_pos,
-                kv_valid=kv_valid,
+                q, *gathered(l, kl, vl), causal=True, q_positions=pos,
+                kv_positions=kv_pos, kv_valid=kv_valid,
                 sliding_window=cfg.sliding_window or None)
             attn = attn.transpose(1, 2).reshape(B, S, H * Dh)
         hidden = hidden + proj(attn, a["o_proj"])
         x = rms_norm(hidden, lp["post_attention_layernorm"], cfg.rms_norm_eps)
         hidden = hidden + _mlp(lp["mlp"], x)
 
-    hidden = rms_norm(hidden, params["norm"], cfg.rms_norm_eps)
-    return lm_head(params, hidden)
+    return lm_head(params, final_norm(params, cfg, hidden))
 
 
 @torch.inference_mode()

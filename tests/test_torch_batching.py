@@ -330,7 +330,7 @@ def test_sliding_window_config_refuses_the_paged_kernel(models):
     _, tcfg, params = models
     tcfg = dataclasses.replace(tcfg, llama=dataclasses.replace(
         tcfg.llama, sliding_window=6))
-    with pytest.raises(NotImplementedError, match="sliding_window"):
+    with pytest.raises(ValueError, match="gather path"):
         ContinuousBatcher(params["float"][1], tcfg, max_batch=2,
                           prefill_len=64, max_new_tokens=16, use_kernel=True,
                           **PAGED)
@@ -589,10 +589,12 @@ def test_unported_options_raise(models):
     p = params["float"][1]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ContinuousBatcher(p, tcfg, adapters={"a": {}})
+    # every decoder family is served (tests/test_torch_families_serving.py)
     mistral = dataclasses.replace(tcfg, llama=dataclasses.replace(
         tcfg.llama, arch="mistral"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ContinuousBatcher(p, mistral)
+    ContinuousBatcher(p, mistral).shutdown()
+    with pytest.raises(ValueError, match="arch"):
+        dataclasses.replace(tcfg.llama, arch="gpt2")
     with pytest.raises(ValueError, match="paged"):
         ContinuousBatcher(p, tcfg, backend="dense", speculative_k=2)
     with pytest.raises(ValueError, match="paged"):

@@ -1370,3 +1370,213 @@ def test_captured_batcher_sampling_is_seeded(dev):
     assert streams[0] == streams[1]
     assert all(len(s) == 12 and 0 <= min(s) and max(s) < cfg.llama.vocab_size
                for s in streams[0])
+
+
+# ---------------------------------------------------------------------------
+# the Mistral-7B and MPT-7B shapes (GQA 4 with a 4,096-slot window; the
+# quantized products' new N and K)
+
+def test_flash_kernel_at_a_mistral_prefill_past_the_window(dev):
+    """One 4,608-token prefill of Mistral-7B's attention (32 heads over 8
+    KV heads, Dh 128, window 4,096) in bf16 against the plain version;
+    the window changes the output of the rows past it."""
+    B, H, Hkv, S, Dh, W = 1, 32, 8, 4608, 128, 4096
+    g = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn((B, H, S, Dh), generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    k = torch.randn((B, S, Hkv, Dh), generator=g, device=dev,
+                    dtype=torch.bfloat16).transpose(1, 2)
+    v = torch.randn((B, S, Hkv, Dh), generator=g, device=dev,
+                    dtype=torch.bfloat16).transpose(1, 2)
+    valid = torch.ones((B, S), dtype=torch.bool, device=dev)
+    out, lse = tflash.flash_attention_lse(q, k, v, causal=True,
+                                          kv_valid=valid, sliding_window=W)
+    want_o, want_l = tflash.flash_attention_plain(
+        q, k, v, causal=True, kv_valid=valid, sliding_window=W)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), want_o.float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(lse, want_l, atol=1e-3, rtol=1e-3)
+    whole, _ = tflash.flash_attention_lse(q, k, v, causal=True,
+                                          kv_valid=valid)
+    assert torch.equal(whole[:, :, :W], out[:, :, :W])
+    assert float((whole[:, :, W:] - out[:, :, W:]).abs().max()) > 1e-2
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("B,S", [(1, 672), (1, 4640), (4, 4640)])
+def test_decode_kernel_at_group_4_past_the_window(dev, int8, B, S):
+    """Mistral-7B decode: 32 heads over 8 KV heads, the window of 4,096 by
+    position, rows of 672 and past 4,096 slots, at the split the rule
+    picks, against the plain version and the split plain version."""
+    H, Hkv, Dh, W = 32, 8, 128, 4096
+    g = torch.Generator(device=dev).manual_seed(1)
+    q = torch.randn((B, H, Dh), generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    kv = [torch.randn((B, S, Hkv, Dh), generator=g, device=dev,
+                      dtype=torch.bfloat16) for _ in range(2)]
+    kw = dict(sliding_window=W)
+    if int8:
+        (kq, ks), (vq, vs) = (tq._quantize_kv_slots(t) for t in kv)
+        kv, kw = [kq, vq], dict(kw, k_scale=ks, v_scale=vs)
+    valid = torch.ones((B, S), dtype=torch.bool, device=dev)
+    kv_pos = torch.arange(S, device=dev).expand(B, S)
+    q_pos = torch.full((B,), S - 1, device=dev)
+    args = (q, *kv, valid, kv_pos, q_pos)
+    got = tdec.flash_decode_attention(*args, **kw)
+    want = tdec.decode_attention_plain(*args, **kw)
+    split = tdec.decode_attention_split_plain(
+        *args, n_split=tdec.decode_splits(B, Hkv, S), **kw)
+    torch.cuda.synchronize()
+    for w in (want, split):
+        torch.testing.assert_close(got.float(), w.float(), atol=2e-2,
+                                   rtol=2e-2)
+    if S > W:
+        whole = tdec.flash_decode_attention(*args, **dict(
+            kw, sliding_window=None))
+        assert float((whole - got).abs().max()) > 1e-3
+
+
+# Mistral-7B: fused qkv (N 6,144), gate/up (28,672), down (K 14,336);
+# MPT-7B: up (N 16,384), down (K 16,384).  M = 1, 8 take the decode kernel,
+# 640 and 3008 the prefill kernel
+FAMILY_SHAPES = [(6144, 4096), (28672, 4096), (4096, 14336), (16384, 4096),
+                 (4096, 16384)]
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("N,K", FAMILY_SHAPES)
+@pytest.mark.parametrize("M", [1, 8, 640, 3008])
+def test_quant_matmul_kernel_at_the_family_shapes(dev, bits, N, K, M):
+    leaf = _quant_leaf(bits, N, K, dev)
+    x = torch.randn((M, K), device=dev, dtype=torch.bfloat16)
+    w = leaf[tq.Q4KEY if bits == 4 else tq.QKEY]
+    fn = tmm.int4_matmul if bits == 4 else tmm.int8_matmul
+    plain = tmm.int4_matmul_plain if bits == 4 else tmm.int8_matmul_plain
+    a, b = fn(x, w, leaf["scale"]), fn(x, w, leaf["scale"])
+    want = plain(x, w, leaf["scale"])
+    torch.cuda.synchronize()
+    assert a.shape == (M, N) and torch.equal(a, b)
+    assert _rel_err(a, want) <= 1e-2
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("M", [1, 8, 32])
+def test_quant_mlp_kernel_at_mistral_width(dev, bits, M):
+    """``quant_mlp`` at Mistral-7B's I = 14,336 (``i_orig`` read from the
+    fused gate/up scales as the model does)."""
+    key = tq.Q4KEY if bits == 4 else tq.QKEY
+    D, I = 4096, 14336
+    gate, up = _quant_leaf(bits, I, D, dev, 1), _quant_leaf(bits, I, D, dev, 2)
+    gateup = {key: torch.cat([gate[key], up[key]]),
+              "scale": torch.cat([gate["scale"], up["scale"]])}
+    down = _quant_leaf(bits, D, I, dev, 3)
+    x = torch.randn((M, D), device=dev, dtype=torch.bfloat16)
+    i_orig = gateup["scale"].shape[0] // 2
+    a = tmlp.quant_mlp(x, gateup, down, bits, i_orig)
+    b = tmlp.quant_mlp(x, gateup, down, bits, i_orig)
+    want = tmlp.quant_mlp_plain(x, gateup, down, bits, I)
+    torch.cuda.synchronize()
+    assert i_orig == I and torch.equal(a, b)
+    assert _rel_err(a, want) < 2e-2
+
+
+def _family_model(dev, arch, bits=0, kv=""):
+    """A 4-layer model of ``arch`` with the 7B head dim (Dh = 128), random
+    from a seed: Mistral with GQA 2 and a window of 8, MPT with alibi."""
+    import dataclasses
+
+    from matryoshka_mm_torch.config import LlamaConfig, LlavaConfig
+    from matryoshka_mm_torch.models.convert import init_params
+
+    extra = dict(num_key_value_heads=1, sliding_window=8) \
+        if arch == "mistral" else {}
+    cfg = dataclasses.replace(LlavaConfig.tiny_debug(), llama=LlamaConfig(
+        arch=arch, vocab_size=512, hidden_size=256, intermediate_size=512,
+        num_hidden_layers=4, num_attention_heads=2, dtype="bfloat16",
+        kv_cache_dtype=kv, **dict(dict(num_key_value_heads=2), **extra)))
+    params = init_params(cfg, dev, seed=3)
+    if bits:
+        tq.quantize_llama_params(params, bits)
+    return cfg, params
+
+
+@pytest.mark.parametrize("kv", ["", "int8"])
+@pytest.mark.parametrize("bits", [0, 4])
+@pytest.mark.parametrize("arch", ["mistral", "mpt"])
+def test_captured_family_generate_gives_the_eager_tokens(dev, arch, bits,
+                                                         kv):
+    """Each family's decode step captures as LLaMA's (MPT's alibi bias is
+    made from device tensors only): the eager loop's tokens and launch
+    counts; MPT launches no attention kernel, Mistral its decode kernel
+    once a layer a step."""
+    import numpy as np
+
+    from matryoshka_mm_torch.generate import GenerationConfig, generate
+    from matryoshka_mm_torch.utils.cuda_graph import CapturedStep
+
+    cfg, params = _family_model(dev, arch, bits, kv)
+    ids, px, mask = _small_prompt()
+    gen = GenerationConfig(max_new_tokens=11, decode_chunk=4,
+                           eos_token_id=-1)
+    runs = {}
+    for graph in (False, True):
+        before, replays = _counts(), CapturedStep.replays
+        dec = tdec.flash_decode_attention.launches
+        out = generate(params, cfg, ids, px, attention_mask=mask,
+                       matryoshka_vis_token_scale="ver=v0_numtoks=4",
+                       gen_cfg=gen, cuda_graph=graph)
+        runs[graph] = (out, [a - b for a, b in zip(_counts(), before)],
+                       CapturedStep.replays - replays,
+                       tdec.flash_decode_attention.launches - dec)
+    assert np.array_equal(runs[True][0], runs[False][0])
+    assert runs[True][1] == runs[False][1]
+    assert runs[True][2] == 9
+    assert runs[True][3] == (0 if arch == "mpt" else 4 * 10)
+
+
+@pytest.mark.parametrize("arch", ["mistral", "mpt"])
+def test_family_batcher_on_the_card_takes_the_gather_path(dev, arch):
+    """The paged batcher of either family attends through the gather path
+    (its captured rounds included) and launches no paged kernel; its
+    tokens equal the dense backend's in float32."""
+    import dataclasses
+
+    import numpy as np
+
+    from matryoshka_mm_torch.generate import GenerationConfig
+    from matryoshka_mm_torch.serve.batching import ContinuousBatcher
+
+    cfg, params = _family_model(dev, arch)
+    cfg = dataclasses.replace(cfg, llama=dataclasses.replace(
+        cfg.llama, dtype="float32"))
+    params = {k: v for k, v in params.items()}
+    params["llama"] = _float(params["llama"])
+    ids, px, _ = _small_prompt()
+    gen = GenerationConfig(max_new_tokens=12, decode_chunk=3,
+                           eos_token_id=-1)
+    out = {}
+    for backend in ("paged", "dense"):
+        paged = tpaged.paged_decode_attention.launches
+        b = ContinuousBatcher(params, cfg, max_batch=2, prefill_len=64,
+                              max_new_tokens=16, chunk=3, gen_cfg=gen,
+                              backend=backend, page_size=16)
+        try:
+            if backend == "paged":
+                assert b.use_kernel is False
+            reqs = [b.submit(ids[i:i + 1, 3:], px[i:i + 1], numtoks=4,
+                             max_new_tokens=12) for i in range(2)]
+            out[backend] = [np.concatenate(list(b.stream(r))) for r in reqs]
+        finally:
+            b.shutdown()
+        assert tpaged.paged_decode_attention.launches == paged
+    for p, d in zip(out["paged"], out["dense"]):
+        np.testing.assert_array_equal(p, d)
+
+
+def _float(tree):
+    if isinstance(tree, dict):
+        return {k: _float(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_float(v) for v in tree]
+    return tree.float() if tree.is_floating_point() else tree

@@ -356,13 +356,14 @@ def test_sliding_window_gather_path_equals_jax_and_kernel_refuses(models,
             tp, dataclasses.replace(tcfg, sliding_window=0), whole, tables,
             row_len, ttok, active, PAGE, use_kernel=False)
         assert (full - logits).abs().max() > 1e-2
-        with pytest.raises(NotImplementedError, match="sliding_window"):
+        with pytest.raises(ValueError, match="gather path"):
             tpc.paged_decode_step(tp, tcfg, tpaged, tables, row_len, ttok,
                                   active, PAGE, use_kernel=True)
         jtok = jnp.argmax(jlogits, -1).astype(jnp.int32)
         ttok = logits.argmax(-1).to(torch.int32)
-    with pytest.raises(NotImplementedError, match="sliding_window"):
-        tpc._resolve_use_kernel(None, tcfg, torch.device("cuda", 0))
+    # the JAX rule: a window config takes the gather path on the card too
+    assert tpc._resolve_use_kernel(None, tcfg, torch.device("cuda", 0)) \
+        is False
     assert tpc._resolve_use_kernel(None, tcfg, torch.device("cpu")) is False
 
 
@@ -480,6 +481,8 @@ def test_what_the_decode_does_not_take_raises(models):
             torch.ones((1,), dtype=torch.bool))
     with pytest.raises(ValueError, match="page_size"):
         tpc.paged_decode_step(tp, tcfg, paged, *args, PAGE * 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # MPT's alibi has no place in the paged kernel: an explicit kernel
+    # request raises (its gather path: tests/test_torch_families_serving.py)
+    with pytest.raises(ValueError, match="gather path"):
         tpc.paged_decode_step(tp, dataclasses.replace(tcfg, arch="mpt"),
-                              paged, *args, PAGE)
+                              paged, *args, PAGE, use_kernel=True)
