@@ -256,10 +256,40 @@ Phases; any failure exits non-zero, and no phase's exception is caught:
    its plain version, two launches bit-identical, timed beside the library
    or dequantize + F.linear.
 
+16. multi-LoRA serving at the full width of llava-v1.5-7b-m3 (debug://7b,
+   random bf16 weights, nothing cut) with two adapters, alpha and beta,
+   r=128 alpha=256 on every LM projection (add_lora, lora_b seeded
+   non-zero).  First s2_multiscale_forward at ViT-L/14-336 over (336, 672,
+   1008), 14 tiles: bf16 against float32 (cosine >= 0.99), 336 alone bit
+   for bit equal to clip_vision_forward, its ms.  The paged batcher of
+   phase 7 (prefix_cache=True) with adapters= answers phase 7's 12
+   requests under the adapters None / alpha / beta in turn, two requests
+   each (the burst groups per adapter and scale): exact launches
+   (paged attention L a step, quant_mlp 0), one replay a round, every
+   budget, pages returned; one prompt under each adapter (each adapter
+   changes the tokens) and alpha's repeat (its own salted chain hits, no
+   other); 8 rows of the three adapters stopped in mid-decode: a replayed
+   round bit-identical to paged_pool_decode with the pack, device ms a step
+   of the eager round with and without the pack (the delta) and of the
+   replay; each adapter's first-token logits from the batcher's prefill
+   against generate's prefill on its load_lora params with
+   attn_impl="reference" (cosine >= 0.99).  The same traffic with no
+   adapter, then again under adapters over the base quantized to int4 in
+   place with fuse=False (int4_matmul 7L + 1 = 225 a decode step and a
+   prefill).  Printed with the card's name and power limit: tok/s, TTFT,
+   ms a step, the pack's GiB, peak memory.  Then a small float32 model
+   (Dh=128) with two rank-8 adapters, card against CPU: the batcher's
+   tokens under each adapter equal its solo generate on both; bert_forward
+   at bge-small widths for 8 prompts of 42 tokens, timed; a small train
+   step with the textcls router (a tiny BERT), card against CPU within
+   1e-3.  Phase 10 also gives one warm and two timed steps under
+   remat=True, remat_policy="dots" and "names:attn" (step ms, peak memory,
+   the flash forward launched twice a step but under names:attn).
+
 With arguments (`python3 chip_smoke.py kernels quant slice qslice paged hbm
-serve smallinfer bwd train small ckpt anyres genmodes families famkernels`)
-only the build and the named phases run (famkernels: phase 3's cases at the
-families' shapes), and no result line is printed.
+serve smallinfer bwd train small ckpt anyres genmodes families famkernels
+lora`) only the build and the named phases run (famkernels: phase 3's cases
+at the families' shapes), and no result line is printed.
 
 Each kernel's record carries its bound: the larger of its bytes (inputs once,
 outputs once) over 3.35 TB/s and its operations over 989 TFLOP/s, the H100
@@ -1783,10 +1813,31 @@ def _serve(batcher, prompt, numtoks, new_tokens, **kw) -> Reader:
     return Reader(batcher, req, t)
 
 
-def serve_traffic(batcher, cfg, burst, late, label) -> dict:
+def quant_products(batcher) -> tuple:
+    """``(int4_matmul launches a decode step, a prefill; quant_mlp a decode
+    step)`` of the batcher's weights: q, k, v, o (or the fused qkv, o), the
+    MLP's gate, up, down unless ``quant_mlp`` takes it (the fused layout;
+    an adapter pack needs the unfused one), and the head.  An unquantized
+    model: 0."""
+    from matryoshka_mm_torch.ops.quant import is_quantized
+
+    layer = batcher.params["llama"]["layers"][0]
+    attn = layer.get("self_attn", layer.get("attn"))
+    if not any(is_quantized(leaf) for leaf in attn.values()):
+        return 0, 0, 0
+    L = batcher.cfg.llama.num_hidden_layers
+    n_attn = 2 if "qkv_proj" in attn else 4
+    fused_mlp = "gateup_proj" in layer["mlp"]
+    return (L * (n_attn + (0 if fused_mlp else 3)) + 1,
+            L * (n_attn + (2 if fused_mlp else 3)) + 1,
+            L if fused_mlp else 0)
+
+
+def serve_traffic(batcher, cfg, burst, late, label, lora_ids=None) -> dict:
     """The counted main-path run of the serving slice: ``burst`` requests
     at once, ``late`` ones joining while those decode; then the checks.
-    Returns the launches of every kernel on the serving path."""
+    ``lora_ids``: the adapter of each request, burst first.  Returns the
+    launches of every kernel on the serving path."""
     from matryoshka_mm_torch.ops import fused_mlp, int4_matmul
     from matryoshka_mm_torch.ops.decode_attention import flash_decode_attention
     from matryoshka_mm_torch.ops.flash_attention import flash_attention_lse
@@ -1813,14 +1864,17 @@ def serve_traffic(batcher, cfg, burst, late, label) -> dict:
     tally = graph_tally()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
+    lora = [{"lora_id": n} for n in lora_ids] if lora_ids \
+        else [{}] * (len(burst) + len(late))
     batcher._hold_admission = True          # the burst lands as one batch
-    readers = [_serve(batcher, serve_prompt(rng, cfg), n, new)
-               for n, new in burst]
+    readers = [_serve(batcher, serve_prompt(rng, cfg), n, new, **lora[i])
+               for i, (n, new) in enumerate(burst)]
     batcher._hold_admission = False
     while batcher.occupancy["rounds"] < 2 and batcher.error is None:
         time.sleep(0.002)                   # the burst is decoding now
-    for n, new in late:
-        readers.append(_serve(batcher, serve_prompt(rng, cfg), n, new))
+    for i, (n, new) in enumerate(late):
+        readers.append(_serve(batcher, serve_prompt(rng, cfg), n, new,
+                              **lora[len(burst) + i]))
         time.sleep(0.05)
     outs = [r.result() for r in readers]
     wall = time.perf_counter() - t0
@@ -1836,24 +1890,27 @@ def serve_traffic(batcher, cfg, burst, late, label) -> dict:
     sizes = [len(d["rids"]) for _, kind, d in batcher.events
              if kind == "admit_group"]
     groups = len(sizes)
-    quantized = launches["int4_matmul"] > 0
+    step_mm, prefill_mm, step_mlp = quant_products(batcher)
     # every decode step: one paged attention a layer and, with int4 weights,
-    # one quant_mlp a layer and qkv, o and lm_head through the GEMV; every
-    # prefill: one flash attention a layer and, with int4 weights, qkv, o,
-    # gateup, down and lm_head through the matmul kernel.  A prefill of
-    # more than MAX_FUSED_ROWS rows (a group of G rows of L) dequantizes its
-    # weights instead, all but the lm_head over its last positions
+    # the products of quant_products (fused: one quant_mlp a layer and qkv,
+    # o and lm_head through the GEMV; under an adapter pack, unfused: q, k,
+    # v, o, gate, up, down and lm_head); every prefill: one flash attention
+    # a layer and, with int4 weights, each projection and lm_head through
+    # the matmul kernel.  A prefill of more than MAX_FUSED_ROWS rows (a group
+    # of G rows of L) dequantizes its weights instead, all but the lm_head
+    # over its last positions
     prefill_matmuls = sum(
-        4 * n_layers + 1 if g * batcher.L <= int4_matmul.MAX_FUSED_ROWS
+        prefill_mm if g * batcher.L <= int4_matmul.MAX_FUSED_ROWS
         else 1 for g in [1] * solo + sizes)
+    quantized = step_mm > 0
     # a window config or MPT attends through the gather path: no paged
     # kernel at all
     want = {"paged_attention": steps * n_layers if batcher.use_kernel else 0,
             "flash_attention": (solo + groups) * n_layers
             if cfg.llama.arch != "mpt" else 0,
             "decode_attention": 0,
-            "quant_mlp": steps * n_layers if quantized else 0,
-            "int4_matmul": (steps * (2 * n_layers + 1) + prefill_matmuls)
+            "quant_mlp": steps * step_mlp,
+            "int4_matmul": (steps * step_mm + prefill_matmuls)
             if quantized else 0}
     print(f"[{label}] launches {launches} over {steps} decode steps, {solo} "
           f"solo and {groups} group prefills (sizes {sizes}); expected "
@@ -1865,11 +1922,15 @@ def serve_traffic(batcher, cfg, burst, late, label) -> dict:
     check_graphs(label, tally, 0,
                  steps // batcher.chunk if batcher.cuda_graph else 0)
     print(f"[{label}] admissions {batcher.admit_stats}")
-    if batcher.admit_stats["grouped"] < len(burst):
+    # under adapters the burst groups per adapter, and a lone row admits solo
+    if lora_ids is None and batcher.admit_stats["grouped"] < len(burst):
         fail(f"{label}: the burst was not admitted in groups")
+    # with the prefix cache, pages of finished rows that the index holds
+    # are kept aside (ref 0, "cached") and count as returned
     free, total = len(batcher.alloc.free), batcher.alloc.n_allocatable
-    print(f"[{label}] pages free {free} of {total}")
-    if free != total:
+    cached = len(getattr(batcher.alloc, "cached", ()))
+    print(f"[{label}] pages free {free} (+ {cached} cached) of {total}")
+    if free + cached != total:
         fail(f"{label}: pages were not returned to the free list")
     ttft = sorted(r.t_first - r.t_submit for r in readers)
     # a round's own ``ms`` spans two rounds under the pipelined loop, so the
@@ -2157,7 +2218,8 @@ def captured_round_check(batcher, label) -> None:
         want_state, want = paged_pool_decode(
             batcher.params["llama"], batcher.cfg.llama, batcher.gen_cfg,
             batcher.chunk, copy, batcher.tables, state,
-            use_kernel=batcher.use_kernel, generator=batcher._generator)
+            use_kernel=batcher.use_kernel, generator=batcher._generator,
+            lora_pack=batcher.lora_pack, lora_idx=batcher.lora_idx)
         torch.cuda.synchronize()
     same_toks = bool(torch.equal(got, want)) and all(
         torch.equal(a, b) for a, b in zip(CapturedRound._fields(got_state),
@@ -2622,6 +2684,28 @@ def phase_train(dev) -> dict:
     if launches != dict(want, flash_attention=L * len(buckets)):
         fail("train: the recompute launched the flash forward again")
 
+    # ---- the remat policies: one warm step and two timed each ----
+    for policy in ("", "dots", "names:attn"):
+        pcfg = dataclasses.replace(cfg, llama=dataclasses.replace(
+            cfg.llama, remat_policy=policy))
+        pstep = make_train_step(pcfg, tx, frozen_vision=True)
+        (state, _), _, _ = counted_step(pstep, state)       # warm
+        torch.cuda.reset_peak_memory_stats()
+        ts = []
+        for _ in range(2):
+            (state, m), t, launches = counted_step(pstep, state)
+            ts.append(t)
+        flash = L * len(buckets) * (1 if policy == "names:attn" else 2)
+        print(f"[train] {card_line()}: remat=True remat_policy="
+              f"{policy or chr(39) * 2}: step "
+              f"{statistics.median(ts) * 1e3:.1f} ms (two: "
+              f"{[round(t * 1e3, 1) for t in ts]}), loss "
+              f"{host_metrics(m)['loss']:.5f}, max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+              f"launches {launches}")
+        if launches != dict(want, flash_attention=flash):
+            fail(f"train remat_policy={policy!r}: launches {launches}")
+
     after = _frozen_checksums(params, tx.labels)
     changed = [p for p in before if before[p] != after[p]]
     print(f"[train] {len(before)} frozen leaves, {len(changed)} changed")
@@ -2662,8 +2746,9 @@ SMALL_TRAIN_TOL = 1e-3
 SMALL_MOE = "t=dense_ft=cls_obj=weightedlm_loadb=switch_alpha=0.01"
 
 
-def _small_train_run(params, cfg, opt_cfg, dev):
-    """Step-1 gradients, then two train steps' losses and grad norms."""
+def _small_train_run(params, cfg, opt_cfg, dev, text_embedder=None):
+    """Step-1 gradients, then two train steps' losses and grad norms; a
+    ``text_embedder`` gives the batch its router text embedding."""
     from matryoshka_mm_torch.train.train_step import m3_loss
     from matryoshka_mm_torch.train.trainer import (create_train_state,
                                                    host_metrics,
@@ -2674,6 +2759,9 @@ def _small_train_run(params, cfg, opt_cfg, dev):
     batch = train_batch(cfg, dev, T=40, B=2)
     batch = batch._replace(attn_mask=batch.attn_mask.clone())
     batch.attn_mask[1, 33:] = False                 # a shorter second row
+    if text_embedder is not None:
+        batch = batch._replace(text_embed=text_embedder(
+            batch.input_ids.cpu().numpy()))
     leaves = dict(named_leaves(params))
     loss, _ = m3_loss(params, cfg, batch, argmaxcost_ema=state.argmaxcost_ema,
                       frozen_vision=True)
@@ -4833,6 +4921,379 @@ def phase_families(dev) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 16: multi-LoRA serving at full width; the BERT text embedder, S2,
+# and their small models card against CPU
+# ---------------------------------------------------------------------------
+
+LORA_R, LORA_ALPHA = 128, 256.0     # the 7B LoRA recipe of phase 10
+LORA_B_STD = 0.01                   # seeded lora_b: each adapter moves logits
+LORA_NAMES = (None, "alpha", "beta")
+LORA_SALT_PROMPT = 60               # 59 + 144 = 203 tokens: 3 full pages
+BERT_PROMPTS, BERT_TOKENS = 8, 40
+S2_SCALES = (336, 672, 1008)        # 1 + 4 + 9 = 14 tiles an image
+S2_COS = 0.99
+
+
+def make_adapters(params, dev, r=LORA_R, alpha=LORA_ALPHA, seed=11) -> dict:
+    """``{name: extract_lora tree}`` of ``add_lora`` over ``params`` with
+    every ``lora_b`` drawn from a seed, so that each adapter changes the
+    model."""
+    from matryoshka_mm_torch.ops.lora import add_lora, extract_lora
+
+    out = {}
+    for i, name in enumerate(LORA_NAMES[1:]):
+        gen = torch.Generator(device=dev).manual_seed(seed + i)
+        tree = extract_lora(add_lora(params, gen, r=r, alpha=alpha))
+        for layer in tree["llama"]["layers"]:
+            for mod in layer.values():
+                for leaf in mod.values():
+                    leaf["lora_b"].normal_(0.0, LORA_B_STD, generator=gen)
+        out[name] = tree
+    return out
+
+
+def lora_first_logits(batcher, adapters, cfg, label) -> None:
+    """Each adapter's first-token logits from the batcher's prefill (its
+    load_lora tree, the kernels) against generate's prefill on load_lora
+    params with attn_impl="reference": cosine >= LOGIT_COS."""
+    import types
+
+    from matryoshka_mm_torch.ops.lora import load_lora
+    from matryoshka_mm_torch.serve.batching import _Request
+
+    rng = np.random.default_rng(12)
+    ids, px = serve_prompt(rng, cfg)
+    for name in LORA_NAMES:
+        req = _Request(0, ids, px, 144, 8, lora_id=name)
+        with torch.inference_mode():
+            got = batcher._prefill([req])[0][0].float()
+            solo = types.SimpleNamespace(
+                params=batcher.params if name is None
+                else load_lora(batcher.params, adapters[name]))
+            want = prefill_logits(solo, cfg.with_attn_impl("reference"),
+                                  (ids, px, None), 144)
+        compare_logits(got, want, f"{label} first token {name}",
+                       need_same_top=False)
+
+
+def lora_tokens_check(batcher, cfg, label) -> None:
+    """One prompt under each adapter: the adapters change the tokens; a
+    repeat of one adapter's prompt hits its own salted chain and no
+    other (the prefix cache is on)."""
+    rng = np.random.default_rng(13)
+    prompt = serve_prompt(rng, cfg, LORA_SALT_PROMPT)
+    hits0 = batcher.stats["prefix_hits"]
+    outs = {n: _serve(batcher, prompt, 144, 16, lora_id=n).result()
+            for n in LORA_NAMES}
+    after_three = batcher.stats["prefix_hits"] - hits0
+    again = _serve(batcher, prompt, 144, 16, lora_id="alpha").result()
+    hits = batcher.stats["prefix_hits"] - hits0
+    print(f"[{label}] one prompt under each adapter: {outs}; prefix hits "
+          f"after the three {after_three}, after alpha's repeat {hits}; the "
+          f"repeat gave {sum(a == b for a, b in zip(again, outs['alpha']))} "
+          f"of 16 of alpha's tokens")
+    if outs["alpha"] == outs[None] or outs["beta"] == outs[None]:
+        fail(f"{label}: an adapter does not change the tokens")
+    if after_three != 0 or hits != 1:
+        fail(f"{label}: the prefix chains are not salted by the adapter")
+
+
+def lora_round_checks(batcher, adapters, cfg, label) -> None:
+    """Stop the scheduler with 8 rows of the three adapters in mid-decode;
+    on that live pool: the replayed round against the eager round (bits),
+    the eager round's device ms a step with and without the pack."""
+    from matryoshka_mm_torch.serve.paged_cache import paged_pool_decode
+
+    rng = np.random.default_rng(14)
+    readers = [_serve(batcher, serve_prompt(rng, cfg), n, 128,
+                      lora_id=LORA_NAMES[i % 3])
+               for i, (n, _) in enumerate(SERVE_BURST)]
+    while min(len(r.tokens) for r in readers) < 24 and batcher.error is None:
+        time.sleep(0.005)
+    batcher._stop = True
+    batcher._thread.join(60)
+    if batcher._thread.is_alive() or batcher.error is not None:
+        fail(f"{label}: the scheduler did not stop cleanly")
+    torch.cuda.synchronize()
+    print(f"[{label}] live rows' adapters "
+          f"{batcher.lora_idx.tolist()}")
+    captured_round_check(batcher, label)
+    lens = batcher.lengths[batcher.active].tolist()
+    rows = len(lens)
+
+    def eager(pack):
+        return lambda: paged_pool_decode(
+            batcher.params["llama"], cfg.llama, batcher.gen_cfg,
+            batcher.chunk, batcher.paged, batcher.tables, batcher._state(),
+            use_kernel=True, generator=batcher._generator,
+            lora_pack=pack, lora_idx=batcher.lora_idx)
+
+    with torch.inference_mode():
+        base = round_profile(eager(None), batcher, rows, label + " no pack",
+                             "eager")
+        packed = round_profile(eager(batcher.lora_pack), batcher, rows,
+                               label + " pack", "eager")
+        replay = round_profile(lambda: batcher._round_graph(batcher._state()),
+                               batcher, rows, label + " pack", "replayed")
+    ms = [sum(dev_us(e) for e in k) / 1e3 / batcher.chunk
+          for k in (base, packed, replay)]
+    print(f"[{label}] {card_line()}: live rows {rows} of ~{int(np.mean(lens))} "
+          f"tokens; device ms a step: eager without the pack {ms[0]:.3f}, "
+          f"with it {ms[1]:.3f} (the delta {ms[1] - ms[0]:.3f} ms a step), "
+          f"replayed with it {ms[2]:.3f}; pack "
+          f"{batcher.lora_pack.nbytes() / 2**30:.3f} GiB")
+
+
+def lora_serve(model, adapters, cfg, label) -> dict:
+    """The counted 12-request run under the three adapters in turn, then
+    the checks; returns its launches."""
+    from matryoshka_mm_torch.generate import GenerationConfig
+    from matryoshka_mm_torch.serve.batching import ContinuousBatcher
+
+    gen_cfg = GenerationConfig(max_new_tokens=128, decode_chunk=8,
+                               eos_token_id=-1)
+    b = ContinuousBatcher(model.params, cfg, gen_cfg=gen_cfg,
+                          adapters=adapters, prefix_cache=True, **SERVE_KW)
+    print(f"[{label}] {card_line()}: ContinuousBatcher {SERVE_KW} "
+          f"prefix_cache adapters {sorted(adapters)} (r={b.lora_pack.rank}, "
+          f"pack {b.lora_pack.nbytes() / 2**30:.3f} GiB) warm-up "
+          f"{b.warmup(numtoks=144):.2f} s")
+    # the adapters in turn, two requests each: the burst forms groups of
+    # one adapter and one scale, and lone rows
+    names = [LORA_NAMES[i // 2 % 3]
+             for i in range(len(SERVE_BURST + SERVE_LATE))]
+    launches = serve_traffic(b, cfg, SERVE_BURST, SERVE_LATE, label,
+                             lora_ids=names)
+    lora_tokens_check(b, cfg, label)
+    lora_round_checks(b, adapters, cfg, label)     # stops the scheduler
+    lora_first_logits(b, adapters, cfg, label)
+    b.shutdown()
+    return launches
+
+
+def lora_small(dev) -> None:
+    """A small float32 model (Dh = 128) with two rank-8 adapters, the card
+    against the CPU: the batcher's tokens under each adapter equal that
+    adapter's solo generate on its load_lora params, on either device, and
+    the card's equal the CPU's."""
+    import dataclasses
+
+    from matryoshka_mm_torch.config import LlavaConfig
+    from matryoshka_mm_torch.generate import GenerationConfig, generate
+    from matryoshka_mm_torch.models.convert import init_params
+    from matryoshka_mm_torch.ops.lora import load_lora
+    from matryoshka_mm_torch.serve.batching import ContinuousBatcher
+
+    base = LlavaConfig.tiny_debug()
+    cfg = dataclasses.replace(base, llama=dataclasses.replace(
+        base.llama, hidden_size=256, num_attention_heads=2,
+        num_key_value_heads=2, intermediate_size=512))
+    params = {"cpu": init_params(cfg, "cpu", seed=3)}
+    params["card"] = _to(params["cpu"], dev)
+    adapters = {"cpu": make_adapters(params["cpu"], "cpu", r=8, alpha=16.0)}
+    adapters["card"] = _to(adapters["cpu"], dev)
+    rng = np.random.default_rng(15)
+    ids = rng.integers(100, 500, (1, 12)).astype(np.int32)
+    ids[0, 4] = -200
+    px = rng.standard_normal((1, 3, 56, 56)).astype(np.float32)
+    gen_cfg = GenerationConfig(max_new_tokens=10, decode_chunk=4,
+                               eos_token_id=-1)
+    served, solo = {}, {}
+    for where in ("card", "cpu"):
+        b = ContinuousBatcher(params[where], cfg, max_batch=3,
+                              prefill_len=64, max_new_tokens=16,
+                              gen_cfg=gen_cfg, chunk=4, backend="paged",
+                              page_size=16, adapters=adapters[where])
+        tally = graph_tally()
+        try:
+            b._hold_admission = True
+            reqs = [b.submit(ids, px, numtoks=4, max_new_tokens=10,
+                             lora_id=n) for n in LORA_NAMES]
+            b._hold_admission = False
+            served[where] = [np.concatenate(list(b.stream(r))).tolist()
+                             for r in reqs]
+        finally:
+            b.shutdown()
+        replays = graph_tally()[1] - tally[1]
+        if (where == "card") != (replays > 0):
+            fail(f"small lora: the {where} batcher replayed {replays} rounds")
+        solo[where] = [generate(
+            params[where] if n is None else
+            load_lora(params[where], adapters[where][n]), cfg, ids, px,
+            matryoshka_vis_token_scale="ver=v0_numtoks=4",
+            gen_cfg=gen_cfg)[0].tolist() for n in LORA_NAMES]
+        print(f"[small lora] {where} batcher {served[where]}\n"
+              f"[small lora] {where} generate {solo[where]}")
+    if not (served["card"] == solo["card"] == served["cpu"] == solo["cpu"]):
+        fail("small lora: the batcher's tokens differ from generate's or "
+             "the card's from the CPU's")
+    if served["cpu"][1] == served["cpu"][0]:
+        fail("small lora: the adapter does not change the tokens")
+
+
+def bert_check(dev) -> None:
+    """bert_forward at bge-small-en-v1.5 widths (random weights) for 8
+    prompts of ~40 tokens, timed; then the small textcls train, the card
+    against the CPU (losses and grad norms within SMALL_TRAIN_TOL)."""
+    import copy
+    import dataclasses
+
+    from matryoshka_mm_torch.config import LlavaConfig
+    from matryoshka_mm_torch.models.builder import DebugTokenizer
+    from matryoshka_mm_torch.models.convert import init_params
+    from matryoshka_mm_torch.models.text_embedder import (BertConfig,
+                                                          TextEmbedder,
+                                                          bert_forward,
+                                                          init_bert_params)
+    from matryoshka_mm_torch.train.optimizer import OptimizerConfig
+
+    class Prompts(DebugTokenizer):
+        """Renders each row as a conversation the prompt regex finds."""
+
+        def batch_decode(self, batch, skip_special_tokens=True):
+            return [f"USER: describe picture {int(r[-1])} ASSISTANT:"
+                    for r in batch]
+
+    bcfg = BertConfig.bge_small()
+    bp = init_bert_params(torch.Generator(device=dev).manual_seed(0), bcfg,
+                          device=dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    ids = torch.randint(150, bcfg.vocab_size, (BERT_PROMPTS, BERT_TOKENS + 2),
+                        generator=g, device=dev)
+    mask = torch.ones_like(ids)
+    mask[1::2, -6:] = 0                          # ragged prompts
+    with torch.no_grad():
+        out = bert_forward(bp, bcfg, ids, mask)
+        ms = time_ms(lambda i, m: bert_forward(bp, bcfg, i, m), [(ids, mask)])
+    print(f"[bert] {card_line()}: bert_forward at bge-small widths "
+          f"(12 layers, 384 wide), {BERT_PROMPTS} prompts x "
+          f"{BERT_TOKENS + 2} tokens, float32: {ms:.3f} ms; finite "
+          f"{bool(torch.isfinite(out).all())}")
+    if not torch.isfinite(out).all():
+        fail("bert_forward gave non-finite states")
+
+    base = LlavaConfig.tiny_debug(moe="t=dense_ft=textcls_obj=weightedlm")
+    cfg = dataclasses.replace(base, text_embed_dim=32,
+                              llama=dataclasses.replace(
+        base.llama, hidden_size=256, num_attention_heads=2,
+        num_key_value_heads=2, intermediate_size=512, remat=True))
+    params = init_params(cfg, "cpu", seed=4)
+    tiny = BertConfig.tiny_debug()
+    bert_cpu = init_bert_params(torch.Generator().manual_seed(0), tiny,
+                                device="cpu")
+    opt_cfg = OptimizerConfig(learning_rate=1e-3, total_steps=10)
+    seen = {}
+    for where, d, p, b in (("cpu", "cpu", params, bert_cpu),
+                           ("card", dev, _to(copy.deepcopy(params), dev),
+                            _to(bert_cpu, dev))):
+        emb = TextEmbedder(Prompts(cfg.llama.vocab_size), params=b, cfg=tiny)
+        seen[where] = _small_train_run(p, cfg, opt_cfg, d,
+                                       text_embedder=emb)[1]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(seen["card"], seen["cpu"]))
+    print(f"[small train textcls] card {[round(x, 6) for x in seen['card']]}"
+          f"\n[small train textcls] cpu  {[round(x, 6) for x in seen['cpu']]}"
+          f"\n[small train textcls] within {rel:.2e} (tolerance "
+          f"{SMALL_TRAIN_TOL})")
+    if not rel <= SMALL_TRAIN_TOL:
+        fail("small textcls train: the card leaves the CPU")
+
+
+def s2_check(params, cfg, dev) -> None:
+    """s2_multiscale_forward at ViT-L/14-336 over (336, 672, 1008): bf16
+    against float32 on the card (cosine >= S2_COS); the 336-only case
+    against clip_vision_forward bit for bit; ms of the bf16 pyramid."""
+    from matryoshka_mm_torch.models.clip import (clip_vision_forward,
+                                                 s2_multiscale_forward)
+
+    import dataclasses
+
+    vcfg = cfg.vision
+    tower = params["vision_tower"]
+    tower32 = _to_f32(tower)
+    g = torch.Generator(device=dev).manual_seed(16)
+    px = torch.randn((1, 3, max(S2_SCALES), max(S2_SCALES)), generator=g,
+                     device=dev)
+    with torch.no_grad():
+        got = s2_multiscale_forward(tower, px, vcfg, scales=S2_SCALES)
+        want = s2_multiscale_forward(tower32, px, dataclasses.replace(
+            vcfg, dtype="float32"), scales=S2_SCALES)
+        cos = torch.nn.functional.cosine_similarity(
+            got.float().flatten(), want.flatten(), dim=0).item()
+        small = px[..., :vcfg.image_size, :vcfg.image_size]
+        one = s2_multiscale_forward(tower, small, vcfg,
+                                    scales=(vcfg.image_size,))
+        same = bool(torch.equal(one, clip_vision_forward(
+            tower, small, vcfg)["patch"]))
+        ms = time_ms(lambda x: s2_multiscale_forward(tower, x, vcfg,
+                                                     scales=S2_SCALES),
+                     [(px,)], reps=5, warmup=1)
+    print(f"[s2] {card_line()}: s2_multiscale_forward {S2_SCALES} "
+          f"(14 tiles) -> {tuple(got.shape)} {got.dtype}: bf16 against "
+          f"float32 cosine {cos:.6f}; {vcfg.image_size} alone equals "
+          f"clip_vision_forward bit for bit {same}; {ms:.2f} ms in bf16")
+    if got.shape != (1, vcfg.num_patches, vcfg.hidden_size * len(S2_SCALES)) \
+            or cos < S2_COS or not same:
+        fail("s2_multiscale_forward: wrong shape, bf16 far from float32, or "
+             "the one-scale case differs from the tower")
+
+
+def phase_lora(dev) -> dict:
+    """Returns the launches of the counted runs, by kernel."""
+    from matryoshka_mm_torch.generate import GenerationConfig
+    from matryoshka_mm_torch.models.builder import load_pretrained_model
+    from matryoshka_mm_torch.ops.quant import quantize_llama_params
+    from matryoshka_mm_torch.serve.batching import ContinuousBatcher
+
+    t0 = [time.perf_counter()]
+
+    def lap(what):
+        now = time.perf_counter()
+        print(f"[time] lora {what} {now - t0[0]:.1f} s")
+        t0[0] = now
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _, model, _, _ = load_pretrained_model("debug://7b", device=str(dev))
+    cfg = model.cfg
+    adapters = make_adapters(model.params, dev)
+    lap("debug://7b and two adapters")
+    s2_check(model.params, cfg, dev)
+    lap("s2")
+    launches = {}
+    for k, n in lora_serve(model, adapters, cfg, "lora bf16").items():
+        launches[k] = launches.get(k, 0) + n
+    lap("bf16 serving")
+    # the same traffic with no adapter, for the comparison
+    plain = ContinuousBatcher(model.params, cfg, gen_cfg=GenerationConfig(
+        max_new_tokens=128, decode_chunk=8, eos_token_id=-1),
+        prefix_cache=True, **SERVE_KW)
+    try:
+        plain.warmup(numtoks=144)
+        serve_traffic(plain, cfg, SERVE_BURST, SERVE_LATE,
+                      "lora bf16 no adapters")
+    finally:
+        plain.shutdown()
+    del plain
+    torch.cuda.empty_cache()
+    lap("bf16 serving with no adapter")
+    # the int4 base, unfused so that every projection takes its delta
+    quantize_llama_params(model.params, 4, fuse=False)
+    torch.cuda.empty_cache()
+    for k, n in lora_serve(model, adapters, cfg, "lora int4").items():
+        launches[k] = launches.get(k, 0) + n
+    print(f"[lora] {card_line()}: max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del model, adapters
+    torch.cuda.empty_cache()
+    lap("int4 serving")
+    lora_small(dev)
+    lap("small model")
+    bert_check(dev)
+    lap("bert")
+    return launches
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
@@ -4865,10 +5326,10 @@ def main(argv=()) -> int:
     if argv:
         # a subset for work on one phase: `chip_smoke.py kernels quant slice
         # qslice paged hbm serve smallinfer bwd train small ckpt anyres
-        # genmodes families famkernels` runs phases 3 (attention kernels), 3
-        # (quantized products), 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15 and
-        # phase 3's cases at the families' shapes alone and prints no result
-        # line
+        # genmodes families famkernels lora` runs phases 3 (attention
+        # kernels), 3 (quantized products), 4, 5, 6, 7, 8, 9, 10, 11, 12, 13,
+        # 14, 15, phase 3's cases at the families' shapes and 16 alone and
+        # prints no result line
         for name in argv:
             phases = {"kernels": phase_kernels, "quant": phase_quant_kernels,
              "slice": phase_slice, "smallinfer": phase_small,
@@ -4877,7 +5338,8 @@ def main(argv=()) -> int:
              "bwd": phase_bwd_kernels, "train": phase_train,
              "small": phase_train_small, "ckpt": phase_ckpt,
              "anyres": phase_anyres, "genmodes": phase_genmodes,
-             "families": phase_families, "famkernels": phase_family_kernels}
+             "families": phase_families, "famkernels": phase_family_kernels,
+             "lora": phase_lora}
             timed(phases[name], dev)
         print(f"partial run {argv}: no result")
         return 1
@@ -4905,6 +5367,8 @@ def main(argv=()) -> int:
     for k, n in timed(phase_genmodes, dev).items():
         launches[k] = launches.get(k, 0) + n
     for k, n in timed(phase_families, dev).items():
+        launches[k] = launches.get(k, 0) + n
+    for k, n in timed(phase_lora, dev).items():
         launches[k] = launches.get(k, 0) + n
     if [m for m in sys.modules
             if m.split(".")[0] in ("jax", "matryoshka_mm_tpu")]:

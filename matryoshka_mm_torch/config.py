@@ -52,10 +52,12 @@ class LlamaConfig:
     # backward instead of keeping its activations
     remat: bool = False
     # what a recomputed layer keeps.  "" = nothing but the layer's input
-    # (least memory); "names:flash_out,flash_lse" = the flash forward's
-    # `out` and `lse`, so the recompute does not launch that kernel again.
-    # The JAX package's "dots" and its attn_q/attn_k/attn_v/attn_o names
-    # are not ported (ROADMAP.md Queue 1)
+    # (least memory); "dots" = the outputs of the products with no batch
+    # dims (the JAX dots_with_no_batch_dims_saveable: every projection);
+    # "names:<tag,...>" = the named tensors: attn_q / attn_k / attn_v
+    # (after rope), attn_o (the o projection's output), flash_out /
+    # flash_lse (the flash forward's out and lse, so the recompute does not
+    # launch that kernel again); "names:attn" = all six
     remat_policy: str = ""
     attn_impl: str = "auto"
     arch: str = "llama"

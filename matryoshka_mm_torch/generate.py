@@ -45,7 +45,8 @@ row, multi-image and anyres prompts, ``ver=v2`` combine-logits),
 * ``numtoks=gateprobargmax``: the M3-MoE router picks the scale of a B=1
   request (:func:`gating_probs`, the argmax over ``cfg.tokscale_list``).
 
-The S2 multi-scale tower is not ported yet (``models/clip.py``).
+The S2 multi-scale tower (``models/clip.py`` ``s2_multiscale_forward``) is
+ported as a function; neither package's ``generate`` calls it.
 """
 
 from __future__ import annotations

@@ -9,8 +9,9 @@ weight is ``{"weight": (out, in), "bias"}`` for ``F.linear``;
 ``params["layers"]`` is a list of per-layer dicts.
 
 Attention is the plain non-causal ``attention_reference`` (the JAX tower
-uses its reference path too; there is no kernel here).  The S2 multi-scale
-tower is not ported yet (ROADMAP.md Queue 1, item 3).
+uses its reference path too; there is no kernel here).
+:func:`s2_multiscale_forward` is the S2 multi-scale tower, a function that
+neither package's ``generate`` or ``train`` calls.
 """
 
 from __future__ import annotations
@@ -132,3 +133,45 @@ def feature_select(outputs: Dict[str, torch.Tensor],
     if select_feature == "cls_patch":
         return outputs["cls_patch"]
     raise ValueError(f"Unexpected select feature: {select_feature}")
+
+
+def _resize(x: torch.Tensor, size: int) -> torch.Tensor:
+    """``(B, C, H, W)`` -> ``(B, C, size, size)``, bilinear with half-pixel
+    centres and an antialiasing filter when it shrinks: the JAX
+    ``jax.image.resize(..., "bilinear")``.  Resized in float32, cast back
+    (PyTorch's CPU build has no bfloat16 antialiased resize)."""
+    if x.shape[-1] == size and x.shape[-2] == size:
+        return x
+    return F.interpolate(x.float(), size=(size, size), mode="bilinear",
+                         align_corners=False, antialias=True).to(x.dtype)
+
+
+def s2_multiscale_forward(params: dict, pixel_values: torch.Tensor,
+                          cfg: ClipVisionConfig,
+                          scales=(336, 672, 1008)) -> torch.Tensor:
+    """The multi-scale (S2) tower: for each scale ``s`` resize the ``(B, 3,
+    S_max, S_max)`` input to ``s x s``, split it into ``(s / base)^2``
+    base-size tiles, run the tower over all tiles as one batch, put the
+    tiles' patch grids back together and resize the ``(k G)^2`` grid down
+    to the base grid ``G x G``.  The scales' features are concatenated on
+    the channels -> ``(B, G * G, D * len(scales))``."""
+    base = min(scales)
+    if base != cfg.image_size:
+        raise ValueError(f"the smallest S2 scale {base} must be the tower's "
+                         f"image size {cfg.image_size}")
+    B = pixel_values.shape[0]
+    G, D = cfg.num_patches_per_side, cfg.hidden_size
+    outs = []
+    for s in sorted(scales):
+        k = s // base
+        img = _resize(pixel_values, s)
+        # (B, 3, k, base, k, base) -> (B * k * k, 3, base, base), row-major
+        tiles = img.reshape(B, 3, k, base, k, base).permute(0, 2, 4, 1, 3, 5) \
+            .reshape(B * k * k, 3, base, base)
+        feats = clip_vision_forward(params, tiles, cfg)["patch"]
+        if k > 1:
+            grid = feats.reshape(B, k, k, G, G, D).permute(0, 5, 1, 3, 2, 4) \
+                .reshape(B, D, k * G, k * G)
+            feats = _resize(grid, G).permute(0, 2, 3, 1).reshape(B, G * G, D)
+        outs.append(feats)
+    return torch.cat(outs, dim=-1)

@@ -111,6 +111,17 @@ def params_from_jax(np_tree: dict, cfg: LlavaConfig, device="cuda",
     return out
 
 
+def bert_params_from_jax(np_tree: dict, cfg, device="cuda") -> dict:
+    """The JAX text embedder's BERT parameters (every leaf a numpy array,
+    ``layers`` stacked) -> the port's ``models/text_embedder.py`` layout,
+    float32: layers unstacked, dense kernels ``(in, out)`` transposed to
+    ``(out, in)``."""
+    tree = dict(np_tree)
+    tree["layers"] = _unstack(tree["layers"], cfg.num_hidden_layers)
+    return _map(tree, lambda a, keep_dtype=False: _tensor(a, device,
+                                                          torch.float32))
+
+
 def _llama_tree(lc, make) -> dict:
     """The decoder's parameter tree, each leaf ``make(kind, shape, dtype)``
     with ``kind`` one of ``"normal"``, ``"ones"``, ``"zeros"``.  MPT's

@@ -49,19 +49,40 @@ Training (``cache=None``): the forward carries gradients and writes nothing
 in place.  A LoRA leaf (``ops/lora.py``) multiplies as ``x W^T + ((x A^T)
 B^T) * scale`` over a plain or a quantized base.  With ``cfg.remat`` each
 decoder layer is recomputed in the backward (``torch.utils.checkpoint``);
-``remat_policy="names:flash_out,flash_lse"`` keeps the flash forward's
-``out`` and ``lse`` so the recompute does not launch that kernel again.
+``cfg.remat_policy`` says what the first forward keeps (the JAX policies):
+
+* ``"dots"``: the output of every product with no batch dims (``aten.mm``
+  / ``aten.addmm``, the JAX ``dots_with_no_batch_dims_saveable``): every
+  projection, LoRA's included, so the recompute runs no projection;
+* ``"names:<tag,...>"``: ``attn_q`` / ``attn_k`` / ``attn_v`` / ``attn_o``
+  keep the products that make q, k, v (before rope, which recomputes on
+  the elementwise path) and the o projection's output; ``flash_out`` with
+  ``flash_lse`` keep the flash forward's ``out`` and ``lse`` so the
+  recompute does not launch that kernel again; ``"names:attn"`` is all six.
+
+The first two go through ``create_selective_checkpoint_contexts`` with a
+policy over the dispatched ops; a product computed inside
+:func:`checkpoint_name` carries its tags.  PyTorch's recompute re-runs
+every op it has not kept (XLA drops the ones nothing needs), so a named
+tensor is kept as the products that make it.  The quantized matmul
+kernels and the flash kernel are launched outside the dispatcher and
+recompute under every policy but the flash names.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import math
+import threading
 from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from ..config import LlamaConfig, torch_dtype
 from ..ops.attention import attention, attention_reference
@@ -346,10 +367,12 @@ def _layer_forward(lp: dict, hidden: torch.Tensor, *, cfg: LlamaConfig,
 
     x = rms_norm(hidden, lp["input_layernorm"], cfg.rms_norm_eps)
     if "qkv_proj" in a:
-        q, k, v = proj(x, a["qkv_proj"]).split([H * Dh, Hkv * Dh, Hkv * Dh],
-                                               dim=-1)
+        with checkpoint_name("attn_q", "attn_k", "attn_v"):
+            qkv = proj(x, a["qkv_proj"])
+        q, k, v = qkv.split([H * Dh, Hkv * Dh, Hkv * Dh], dim=-1)
     else:
-        q, k, v = (proj(x, a[n]) for n in ("q_proj", "k_proj", "v_proj"))
+        q, k, v = (_named_proj(x, a[n], "attn_" + n[0])
+                   for n in ("q_proj", "k_proj", "v_proj"))
     q = q.reshape(B, S, H, Dh).transpose(1, 2)
     k = k.reshape(B, S, Hkv, Dh).transpose(1, 2)
     v = v.reshape(B, S, Hkv, Dh).transpose(1, 2)
@@ -388,23 +411,72 @@ def _layer_forward(lp: dict, hidden: torch.Tensor, *, cfg: LlamaConfig,
                             impl=cfg.attn_impl)
 
     out = out.transpose(1, 2).reshape(B, S, H * Dh)
-    hidden = hidden + proj(out, a["o_proj"])
+    hidden = hidden + _named_proj(out, a["o_proj"], "attn_o")
     x = rms_norm(hidden, lp["post_attention_layernorm"], cfg.rms_norm_eps)
     return hidden + _mlp(m, x)
 
 
-def _remat_keeps_flash(policy: str) -> bool:
-    """Whether a recomputed layer keeps the flash forward's ``out`` and
-    ``lse``.  Raises on the policies that are not ported or unknown."""
+ATTN_NAMES = ("attn_q", "attn_k", "attn_v", "attn_o", "flash_out",
+              "flash_lse")
+_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_tags = threading.local()
+
+
+@contextlib.contextmanager
+def checkpoint_name(*names: str):
+    """The products dispatched inside carry ``names`` for a
+    ``names:`` remat policy (the JAX ``checkpoint_name``); outside such a
+    policy the tags are never read."""
+    prev = getattr(_tags, "names", ())
+    _tags.names = names
+    try:
+        yield
+    finally:
+        _tags.names = prev
+
+
+def _named_proj(x: torch.Tensor, leaf, name: str) -> torch.Tensor:
+    with checkpoint_name(name):
+        return proj(x, leaf)
+
+
+def _save_products(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op in _PRODUCTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _save_named(names: frozenset, ctx, op, *args, **kwargs
+                ) -> CheckpointPolicy:
+    keep = op in _PRODUCTS and not names.isdisjoint(
+        getattr(_tags, "names", ()))
+    return (CheckpointPolicy.MUST_SAVE if keep
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_plan(policy: str):
+    """``(context_fn for checkpoint, whether the flash forward's out and
+    lse are kept)`` of a remat policy; an unknown policy or tag raises
+    ``ValueError``."""
     if not policy:
-        return False
-    if policy == "names:flash_out,flash_lse":
-        return True
-    if policy == "dots" or policy.startswith("names:"):
-        raise NotImplementedError(
-            f"remat_policy={policy!r}: only '' and "
-            f"'names:flash_out,flash_lse' are ported ('dots' and the attn_* "
-            f"names: ROADMAP.md Queue 1, slice 3)")
+        return noop_context_fn, False
+    if policy == "dots":
+        return functools.partial(create_selective_checkpoint_contexts,
+                                 _save_products), False
+    if policy.startswith("names:"):
+        spec = policy[len("names:"):]
+        names = set(ATTN_NAMES if spec == "attn" else spec.split(","))
+        unknown = names - set(ATTN_NAMES)
+        if unknown:
+            raise ValueError(f"remat_policy={policy!r}: unknown names "
+                             f"{sorted(unknown)} (expected {ATTN_NAMES} or "
+                             f"'attn')")
+        keep_flash = {"flash_out", "flash_lse"} <= names
+        layer = frozenset(names - {"flash_out", "flash_lse"})
+        if not layer:
+            return noop_context_fn, keep_flash
+        return functools.partial(
+            create_selective_checkpoint_contexts,
+            functools.partial(_save_named, layer)), keep_flash
     raise ValueError(f"unknown remat_policy={policy!r} (expected '', 'dots', "
                      f"or 'names:<tag,...>')")
 
@@ -448,7 +520,8 @@ def llama_forward(
 
     hidden = inputs_embeds
     remat = cache is None and cfg.remat and torch.is_grad_enabled()
-    keep_flash = remat and _remat_keeps_flash(cfg.remat_policy)
+    context_fn, keep_flash = _remat_plan(cfg.remat_policy) if remat \
+        else (noop_context_fn, False)
     for i, lp in enumerate(params["layers"]):
         def layer(h, lp=lp, i=i, res=FlashResiduals() if keep_flash else None):
             if cfg.arch == "mpt":
@@ -462,7 +535,8 @@ def llama_forward(
 
         # no random op in a layer, so the recompute needs no RNG state
         hidden = checkpoint(layer, hidden, use_reentrant=False,
-                            preserve_rng_state=False) if remat \
+                            preserve_rng_state=False,
+                            context_fn=context_fn) if remat \
             else layer(hidden)
     if cache is not None:
         cache.write_idx.add_(S)

@@ -8,9 +8,9 @@ carry M images at its M sentinels (:func:`prepare_multimodal_multi`) or one
 LLaVA-NeXT anyres tile stack (:func:`prepare_multimodal_anyres`: each tile
 pooled to the scale, the grid reassembled, unpadded to the image's aspect
 and closed by one ``image_newline`` a row; :func:`anyres_token_count` is
-its length on the host).  The router's ``textcls`` feature needs the BERT
-text embedder, which is not ported yet (ROADMAP.md Queue 1, slice 3), and
-raises.
+its length on the host).  The router's ``textcls`` feature takes the
+prompt embedding of ``models/text_embedder.py`` as ``text_embed`` and
+raises the JAX ``ValueError`` without one.
 """
 
 from __future__ import annotations
@@ -67,10 +67,6 @@ def router_forward(params: dict, cfg: LlavaConfig,
     if kvs.get("t") == "id":
         return uniform_gating_forward(len(cfg.tokscale_list),
                                       encode_outputs["patch"])
-    if "textcls" in cfg.router_feature_types and text_embed is None:
-        raise NotImplementedError(
-            "the router's textcls feature needs the BERT text embedder, "
-            "which is not ported yet (ROADMAP.md Queue 1, slice 3)")
     router_input = build_router_input(encode_outputs,
                                       cfg.router_feature_types, text_embed)
     return dense_gating_forward(params["router"], router_input.float())

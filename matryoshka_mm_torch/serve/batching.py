@@ -50,9 +50,17 @@ host through the next round's echo of its pre-round token vector.
 All three decoder families serve on both backends (``arch`` ``"llama"``,
 ``"mistral"``, ``"mpt"``); on the paged one a sliding window or MPT's alibi
 attends through the gather path, as in the JAX package
-(``paged_cache.kernel_fits``).  Not ported yet (it raises
-``NotImplementedError`` naming its ROADMAP.md item): ``adapters=``
-(multi-LoRA).
+(``paged_cache.kernel_fits``).
+
+Multi-LoRA (``adapters={name: extract_lora tree}``, paged backend only):
+``submit(lora_id=name)`` serves a row under that adapter.  Its prefill runs
+on ``load_lora(params, tree)`` (one tree cached per adapter), its decode
+rows share the round with every other adapter's: ``lora_idx``, a device
+tensor bound into the captured round like the page table, holds each row's
+adapter index and is written in place at admission and retirement
+(``serve/multi_lora.py``).  Requests group for a batched prefill only under
+one adapter, and the prefix cache salts its page chains with the adapter's
+name.
 """
 
 from __future__ import annotations
@@ -71,7 +79,7 @@ import numpy as np
 import torch
 
 from .. import _kernels
-from ..config import LlavaConfig
+from ..config import LlavaConfig, torch_dtype
 from ..constants import IMAGE_TOKEN_INDEX
 from ..generate import (GenerationConfig, _ngram_propose, _params_device,
                         _round_up, _select_token, prefill_anyres,
@@ -79,8 +87,9 @@ from ..generate import (GenerationConfig, _ngram_propose, _params_device,
 from ..models.llama import (KVCache, embed_tokens, init_kv_cache,
                             llama_forward, lm_head)
 from ..models.llava import anyres_token_count
+from .multi_lora import pack_adapters
 from .paged_cache import (CapturedRound, PageAllocator, PoolState,
-                          _resolve_use_kernel, import_prefill,
+                          _resolve_use_kernel, check_lora_base, import_prefill,
                           import_prefill_group, init_paged_cache,
                           paged_pool_decode, paged_spec_verify)
 
@@ -107,6 +116,8 @@ class _Request:
     pixel_values: Optional[np.ndarray]
     numtoks: Optional[int]
     max_new_tokens: int
+    # multi-LoRA: the adapter's name, None for the base model
+    lora_id: Optional[str] = None
     # anyres multi-tile request: pixel_values (T_tiles, 3, H, W) and the
     # original (w, h) the unpad merge needs
     image_size: Optional[tuple] = None
@@ -204,11 +215,6 @@ class ContinuousBatcher:
                  fsm_vocab: Optional[list] = None, max_fsm_states: int = 64,
                  n_pages: Optional[int] = None, pipeline_rounds: bool = True,
                  cuda_graph: bool = True):
-        if adapters:
-            raise NotImplementedError(
-                "multi-LoRA serving (adapters=) is not ported yet: it needs "
-                "serve/multi_lora.py (AdapterPack, pack_adapters, lora_delta) "
-                "on top of ops/lora.py (ROADMAP.md Queue 1, item 5, tag 7a)")
         if backend not in ("dense", "paged"):
             raise ValueError(f"backend={backend!r}; expected 'dense' or "
                              f"'paged'")
@@ -327,6 +333,24 @@ class ContinuousBatcher:
         # sampling draws from one generator on the device, seeded 0
         self._generator = torch.Generator(device=dev).manual_seed(0)
 
+        # multi-LoRA serving (serve/multi_lora.py): per-row adapter index
+        self.lora_pack = None
+        self.lora_names: Dict[Optional[str], int] = {None: 0}
+        self.lora_idx: Optional[torch.Tensor] = None
+        self._adapter_trees = {
+            name: tree if "llama" in tree else {"llama": tree}
+            for name, tree in (adapters or {}).items()}
+        self._wrapped_cache: Dict[str, dict] = {}
+        if adapters:
+            if backend != "paged":
+                raise ValueError("multi-LoRA serving requires the paged "
+                                 "backend")
+            check_lora_base(params["llama"], cfg.llama)
+            self.lora_pack, self.lora_names = pack_adapters(
+                adapters, dtype=torch_dtype(cfg.llama.dtype), device=dev)
+            self.lora_idx = torch.zeros((max_batch,), dtype=torch.int64,
+                                        device=dev)
+
         # page-table device mirror refresh is batched to one upload per
         # decode dispatch (allocator changes only set this flag)
         self._tables_dirty = False
@@ -430,10 +454,9 @@ class ContinuousBatcher:
                lora_id: Optional[str] = None,
                image_size: Optional[tuple] = None,
                constraint_regex: Optional[str] = None) -> _Request:
-        if lora_id is not None:
-            raise KeyError(f"unknown LoRA adapter {lora_id!r}: multi-LoRA "
-                           f"serving is not ported yet (ROADMAP.md Queue 1, "
-                           f"item 7a)")
+        if lora_id is not None and lora_id not in self.lora_names:
+            raise KeyError(f"unknown LoRA adapter {lora_id!r}; loaded: "
+                           f"{sorted(k for k in self.lora_names if k)}")
         if constraint_regex is not None:
             if self.fsm_vocab is None:
                 raise ValueError(
@@ -467,7 +490,7 @@ class ContinuousBatcher:
         req = _Request(0, np.asarray(input_ids, np.int32),
                        None if pixel_values is None
                        else np.asarray(pixel_values, np.float32),
-                       numtoks, max_new_tokens,
+                       numtoks, max_new_tokens, lora_id=lora_id,
                        image_size=tuple(image_size) if image_size else None,
                        constraint=constraint_regex)
         # the lock spans the error check and the enqueue so the crash
@@ -563,11 +586,34 @@ class ContinuousBatcher:
         # a shut-down batcher object that stays referenced must not pin
         # the model and the multi-GB pools
         for attr in ("params", "paged", "pool", "fsm_allow", "fsm_trans",
-                     "_round_graph"):
+                     "_round_graph", "lora_pack", "lora_idx",
+                     "_adapter_trees", "_wrapped_cache"):
             if hasattr(self, attr):
                 setattr(self, attr, None)
 
     # ---- scheduler ----
+    def _params_for(self, req: _Request) -> dict:
+        """The parameters a request prefills on: the base tree, or its
+        adapter attached (``load_lora``, cached per adapter)."""
+        if req.lora_id is None:
+            return self.params
+        if req.lora_id not in self._wrapped_cache:
+            from ..ops.lora import load_lora
+
+            self._wrapped_cache[req.lora_id] = load_lora(
+                self.params, self._adapter_trees[req.lora_id])
+        return self._wrapped_cache[req.lora_id]
+
+    def _set_lora_rows(self, slots, names) -> None:
+        """Write the rows' adapter indices into the bound ``lora_idx`` in
+        place, ordered on the stream behind the round in flight."""
+        if self.lora_idx is None:
+            return
+        self.lora_idx.index_copy_(
+            0, torch.as_tensor(slots, dtype=torch.int64, device=self.device),
+            torch.as_tensor([self.lora_names.get(n, 0) for n in names],
+                            dtype=torch.int64, device=self.device))
+
     def _key_seq(self, req: _Request):
         """Spliced token-key sequence for prefix caching, or (None, 0) when
         the request shape isn't cacheable (multi-image).  An anyres stack
@@ -604,7 +650,8 @@ class ContinuousBatcher:
         T = len(key_seq)
         if T + 1 > self.capacity:
             return None
-        hashes = chain_hashes(key_seq, self.page_size)
+        hashes = chain_hashes(key_seq, self.page_size,
+                              salt=req.lora_id or "")
         max_h = min(len(hashes), (T - 1) // self.page_size)
         hits = self.index.lookup(hashes[:max_h])
         H = len(hits)
@@ -656,8 +703,8 @@ class ContinuousBatcher:
             device=self.device)
         valid = torch.as_tensor((np.arange(s_suf) < t_suf)[None],
                                 device=self.device)
-        logits, dense, _ = suffix_prefill(self.params, self.cfg, k_sel, v_sel,
-                                          ids_p, valid,
+        logits, dense, _ = suffix_prefill(self._params_for(req), self.cfg,
+                                          k_sel, v_sel, ids_p, valid,
                                           n_prefix + s_suf)
 
         n_total = int(self.alloc.n_alloc[slot])
@@ -715,6 +762,8 @@ class ContinuousBatcher:
         if self.fsm_state is not None:
             # deferred admissions are never constrained: free state
             self.fsm_state[sel] = 1
+        self._set_lora_rows([s for _, s in members],
+                            [r.lora_id for r, _ in members])
         for i, (req, slot) in enumerate(members):
             req.len0 = int(host_lens[i])
             req.pending = True
@@ -770,6 +819,7 @@ class ContinuousBatcher:
         self.lengths[slot] = int(length)
         self.active[slot] = True
         self.budget[slot] = req.max_new_tokens - 1
+        self._set_lora_rows([slot], [req.lora_id])
         req.slot = slot
         self.slots[slot] = req
 
@@ -787,13 +837,15 @@ class ContinuousBatcher:
                 torch.as_tensor(mask, device=self.device))
 
     def _prefill(self, reqs):
-        """One ``(G, L)`` prefill of compatible requests -> ``(logits (G, V),
-        dense cache of exactly L slots)``; an anyres request alone."""
+        """One ``(G, L)`` prefill of compatible requests (one adapter) ->
+        ``(logits (G, V), dense cache of exactly L slots)``; an anyres
+        request alone."""
         r = reqs[0]
+        params = self._params_for(r)
         if _is_anyres(r.pixel_values, r.image_size):
             s = self.cfg.vision.image_size
             return prefill_anyres(
-                self.params, self.cfg,
+                params, self.cfg,
                 torch.as_tensor(r.input_ids.astype(np.int64),
                                 device=self.device),
                 torch.as_tensor(r.pixel_values, device=self.device),
@@ -802,14 +854,14 @@ class ContinuousBatcher:
                 else self.cfg.vision.num_patches, self.L, self.L)[:2]
         ids_p, mask = self._pad_ids(reqs)
         if r.pixel_values is None:
-            logits, cache, _ = prefill_text(self.params, self.cfg, ids_p,
-                                            mask, self.L)
+            logits, cache, _ = prefill_text(params, self.cfg, ids_p, mask,
+                                            self.L)
         else:
             px = torch.as_tensor(np.concatenate(
                 [np.asarray(r.pixel_values, np.float32) for r in reqs], 0),
                 device=self.device)
             logits, cache, _ = prefill_image(
-                self.params, self.cfg, ids_p, px, mask,
+                params, self.cfg, ids_p, px, mask,
                 self._vis_tokens(reqs[0].numtoks), self.L, self.L)
         return logits, cache
 
@@ -876,8 +928,8 @@ class ContinuousBatcher:
         """Admit several compatible requests with ONE batched prefill.
 
         ``members`` is a list of ``(req, slot)`` pairs that share the
-        batched-prefill signature (all plain single-image with the same
-        numtoks, or all text-only).  Serial b=1 admissions each read the
+        batched-prefill signature (one adapter, and all plain single-image
+        with the same numtoks, or all text-only).  Serial b=1 admissions each read the
         full weights; one (G, L) prefill reads them once.  Under the paged
         backend the whole group imports with one scatter
         (paged_cache.import_prefill_group) and activates with one batched
@@ -938,10 +990,10 @@ class ContinuousBatcher:
         if req.constraint is not None:
             return None
         if req.pixel_values is None:
-            return ("text",)
+            return ("text", req.lora_id)
         if _is_anyres(req.pixel_values, req.image_size):
             return None
-        return ("img", req.numtoks)
+        return ("img", req.lora_id, req.numtoks)
 
     def _insert_dense(self, slot: int, cache: KVCache, g: int):
         """Copy row ``g`` of an ``L``-slot prefill cache into pool row
@@ -998,7 +1050,8 @@ class ContinuousBatcher:
         if key_seq is not None and len(key_seq) == T:
             reg_n = T // self.page_size
             if reg_n > 0:
-                hashes = chain_hashes(key_seq, self.page_size)
+                hashes = chain_hashes(key_seq, self.page_size,
+                                      salt=req.lora_id or "")
                 pages = self.alloc.tables[slot][:reg_n].tolist()
                 self.index.register(hashes[:reg_n], pages)
                 self.alloc.pin(pages)
@@ -1092,7 +1145,8 @@ class ContinuousBatcher:
             req.out_queue.put(None)
             return None
         return _Request(req.rid, ids, req.pixel_values, req.numtoks,
-                        remaining, image_size=req.image_size,
+                        remaining, lora_id=req.lora_id,
+                        image_size=req.image_size,
                         out_queue=req.out_queue, emitted=req.emitted,
                         constraint=req.constraint)
 
@@ -1225,7 +1279,8 @@ class ContinuousBatcher:
             return functools.partial(
                 paged_pool_decode, llama, lcfg, self.gen_cfg, self.chunk,
                 self.paged, self.tables, use_kernel=self.use_kernel,
-                generator=self._generator)
+                generator=self._generator, lora_pack=self.lora_pack,
+                lora_idx=self.lora_idx)
         return functools.partial(dense_pool_decode, llama, lcfg,
                                  self.gen_cfg, self.chunk, self.pool,
                                  generator=self._generator)
@@ -1330,7 +1385,8 @@ class ContinuousBatcher:
                     state, toks, n_emit = paged_spec_verify(
                         self.params["llama"], self.cfg.llama, self.gen_cfg,
                         self.spec_k, self.paged, self.tables, self._state(),
-                        self._propose_drafts(), use_kernel=False)
+                        self._propose_drafts(), use_kernel=False,
+                        lora_pack=self.lora_pack, lora_idx=self.lora_idx)
                     self._set_state(state)
                     self.spec_stats["verify_steps"] += 1
                     self.decode_steps += 1
@@ -1402,6 +1458,7 @@ class ContinuousBatcher:
         the end of its stream finds the row's pages on the free list."""
         if self.slots[slot] is req:
             self.slots[slot] = None
+            self._set_lora_rows([slot], [None])
         if self.backend == "paged":
             self.alloc.free_row(slot)
             self._tables_dirty = True

@@ -30,6 +30,13 @@ positions onto pages through a per-row page table.
   the counterpart of the JAX package's jitted pool decode; the batcher
   replays it on the card.  ``paged_pool_decode`` stays the plain version.
 
+**Multi-LoRA** (``serve/multi_lora.py``): with ``lora_pack`` and
+``lora_idx`` (a ``(B,)`` device tensor of adapter indices, 0 = base) every
+LLaMA projection adds its row's low-rank delta by the read-once products,
+and the MLP takes the unfused gate / up / down through ``proj`` (no
+``quant_mlp``), as in the JAX package.  Fused ``qkv_proj`` / ``gateup_proj``
+leaves and MPT (no LoRA target) raise ``ValueError``.
+
 **Inactive rows write to the trash page.**  The JAX package pushed their
 scatter index out of bounds and let XLA drop the write; an out-of-range
 index is a device assert in CUDA, so their page id becomes 0, which no
@@ -44,6 +51,7 @@ from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..config import LlamaConfig, torch_dtype
 from ..models.llama import (KVCache, _mlp, _mpt_ffn, alibi_bias, apply_rope,
@@ -53,6 +61,7 @@ from ..ops.attention import attention_reference
 from ..ops.paged_attention import paged_decode_attention
 from ..ops.quant import _quantize_kv_slots
 from ..utils.cuda_graph import CapturedStep
+from .multi_lora import AdapterPack, group_deltas, row_mask
 
 
 @dataclasses.dataclass
@@ -256,10 +265,25 @@ def _resolve_use_kernel(use_kernel: Optional[bool], cfg: LlamaConfig,
     return bool(use_kernel)
 
 
+def check_lora_base(params: dict, cfg: LlamaConfig) -> None:
+    """Multi-LoRA serving adds a delta to each LLaMA projection: MPT has
+    none of them, and fused ``qkv_proj`` / ``gateup_proj`` leaves hide
+    them."""
+    if cfg.arch == "mpt":
+        raise ValueError("multi-LoRA serving adapts the LLaMA projections; "
+                         "MPT has none (add_lora matches no leaf of it)")
+    layer = params["layers"][0]
+    if "qkv_proj" in layer["self_attn"] or "gateup_proj" in layer["mlp"]:
+        raise ValueError(
+            "multi-LoRA serving cannot target fused qkv leaves; quantize the "
+            "base with fuse=False")
+
+
 def _decode_core(params: dict, cfg: LlamaConfig, paged: PagedKVCache,
                  tables: torch.Tensor, row_len: torch.Tensor,
                  tokens: torch.Tensor, active: torch.Tensor, *,
-                 use_kernel: bool) -> torch.Tensor:
+                 use_kernel: bool, lora_pack: Optional[AdapterPack] = None,
+                 lora_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One batched paged decode step -> logits ``(B, S, V)`` f32; the pools
     advance in place.
 
@@ -272,7 +296,10 @@ def _decode_core(params: dict, cfg: LlamaConfig, paged: PagedKVCache,
 
     Inactive rows read nothing that counts (their output is discarded) and
     write to the trash page 0.  MPT's block (alibi, fused ``Wqkv``, GELU
-    MLP) has no RoPE and attends through the gather path."""
+    MLP) has no RoPE and attends through the gather path.
+
+    ``lora_pack`` / ``lora_idx``: each row adds its adapter's delta to every
+    projection (see the module docstring)."""
     if use_kernel:
         _resolve_use_kernel(True, cfg, tokens.device)
     mpt = cfg.arch == "mpt"
@@ -336,6 +363,18 @@ def _decode_core(params: dict, cfg: LlamaConfig, paged: PagedKVCache,
         return (gather_rows(kl, paged.k_scale[l] if int8 else None),
                 gather_rows(vl, paged.v_scale[l] if int8 else None))
 
+    if lora_pack is not None:
+        check_lora_base(params, cfg)
+        lmask = row_mask(lora_pack, lora_idx, hidden.dtype)
+
+    def projs(l, group, x, leaves):
+        """``x`` through each weight leaf, plus each row's adapter delta
+        under a pack."""
+        ys = [proj(x, w) for w in leaves]
+        if lora_pack is None:
+            return ys
+        return group_deltas(lora_pack, l, group, x, lmask, bases=ys)
+
     for l, lp in enumerate(params["layers"]):
         if mpt:
             a = lp["attn"]
@@ -358,7 +397,8 @@ def _decode_core(params: dict, cfg: LlamaConfig, paged: PagedKVCache,
             q, k, v = proj(x, a["qkv_proj"]).split(
                 [H * Dh, Hkv * Dh, Hkv * Dh], dim=-1)
         else:
-            q, k, v = (proj(x, a[n]) for n in ("q_proj", "k_proj", "v_proj"))
+            q, k, v = projs(l, "qkv", x, [a[n] for n in
+                                          ("q_proj", "k_proj", "v_proj")])
         q = apply_rope(q.reshape(B, S, H, Dh).transpose(1, 2), cos, sin)
         k = apply_rope(k.reshape(B, S, Hkv, Dh).transpose(1, 2), cos, sin)
         k = k.transpose(1, 2)                                # (B, S, Hkv, Dh)
@@ -376,9 +416,15 @@ def _decode_core(params: dict, cfg: LlamaConfig, paged: PagedKVCache,
                 kv_positions=kv_pos, kv_valid=kv_valid,
                 sliding_window=cfg.sliding_window or None)
             attn = attn.transpose(1, 2).reshape(B, S, H * Dh)
-        hidden = hidden + proj(attn, a["o_proj"])
+        hidden = hidden + projs(l, "o", attn, [a["o_proj"]])[0]
         x = rms_norm(hidden, lp["post_attention_layernorm"], cfg.rms_norm_eps)
-        hidden = hidden + _mlp(lp["mlp"], x)
+        if lora_pack is None:
+            hidden = hidden + _mlp(lp["mlp"], x)
+            continue
+        m = lp["mlp"]
+        gate, up = projs(l, "gateup", x, [m["gate_proj"], m["up_proj"]])
+        hidden = hidden + projs(l, "down", F.silu(gate) * up,
+                                [m["down_proj"]])[0]
 
     return lm_head(params, final_norm(params, cfg, hidden))
 
@@ -421,7 +467,9 @@ def paged_pool_decode(params: dict, cfg: LlamaConfig, gen_cfg, steps: int,
                       state: PoolState, *, use_kernel: bool,
                       generator: Optional[torch.Generator] = None,
                       fsm_allow: Optional[torch.Tensor] = None,
-                      fsm_trans: Optional[torch.Tensor] = None
+                      fsm_trans: Optional[torch.Tensor] = None,
+                      lora_pack: Optional[AdapterPack] = None,
+                      lora_idx: Optional[torch.Tensor] = None
                       ) -> Tuple[PoolState, torch.Tensor]:
     """``steps`` batched decode steps over a paged pool with sampling, EOS
     and budget -> ``(state, toks (B, steps))``; ``-1`` in ``toks`` marks
@@ -434,7 +482,8 @@ def paged_pool_decode(params: dict, cfg: LlamaConfig, gen_cfg, steps: int,
     With ``fsm_allow`` / ``fsm_trans`` (``serve/constrained.py``) each row
     carries a DFA state: the state's allow row masks the logits before the
     token is chosen and the transition table advances it, all on the
-    device."""
+    device.  ``lora_pack`` / ``lora_idx``: multi-LoRA rows
+    (:func:`_decode_core`)."""
     from ..generate import _select_token
 
     fsm = fsm_allow is not None
@@ -444,7 +493,8 @@ def paged_pool_decode(params: dict, cfg: LlamaConfig, gen_cfg, steps: int,
     toks = []
     for _ in range(steps):
         logits = _decode_core(params, cfg, paged, tables, row_len, token,
-                              active, use_kernel=use_kernel)[:, 0]
+                              active, use_kernel=use_kernel,
+                              lora_pack=lora_pack, lora_idx=lora_idx)[:, 0]
         if fsm:
             logits = torch.where(fsm_allow[fstate], logits,
                                  torch.full_like(logits, -1e30))
@@ -532,7 +582,9 @@ class CapturedRound:
 def paged_spec_verify(params: dict, cfg: LlamaConfig, gen_cfg, k: int,
                       paged: PagedKVCache, tables: torch.Tensor,
                       state: PoolState, drafts: torch.Tensor, *,
-                      use_kernel: bool = False
+                      use_kernel: bool = False,
+                      lora_pack: Optional[AdapterPack] = None,
+                      lora_idx: Optional[torch.Tensor] = None
                       ) -> Tuple[PoolState, torch.Tensor, torch.Tensor]:
     """Batched speculative verify over the paged pool (greedy only) ->
     ``(state, out (B, k + 1), n_emit (B,))``.
@@ -548,7 +600,8 @@ def paged_spec_verify(params: dict, cfg: LlamaConfig, gen_cfg, k: int,
     row_len, budget, active = state.lengths, state.budget, state.active
     block = torch.cat([state.tokens[:, None], drafts], dim=1)   # (B, k + 1)
     logits = _decode_core(params, cfg, paged, tables, row_len, block, active,
-                          use_kernel=use_kernel)
+                          use_kernel=use_kernel, lora_pack=lora_pack,
+                          lora_idx=lora_idx)
     greedy = logits.argmax(dim=-1).to(torch.int32)              # (B, k + 1)
 
     match = drafts == greedy[:, :k]

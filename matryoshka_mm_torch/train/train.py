@@ -10,7 +10,11 @@ pairs (booleans as ``True`` / ``False``), the named behaviour preset merged
 with the overrides, an ``args.json`` snapshot, model construction with the
 freeze / LoRA / quantized-base wiring, the data module, auto-resume from
 ``checkpoint-*``, gradient accumulation, the length-grouped samplers and
-the three save shapes (full / projector-only / LoRA).
+the three save shapes (full / projector-only / LoRA).  A router with the
+``textcls`` feature gets each batch's prompt embedding from a frozen BERT
+(``models/text_embedder.py``, random from seed 0: the tiny one for
+``debug://`` paths, ``bge_small`` widths otherwise), run on the device
+under ``torch.no_grad``.
 
 ``--model_name_or_path`` is ``debug://tiny`` (random weights) or any
 directory ``load_pretrained_model`` reads (a HF / LLaVA checkpoint, or
@@ -319,10 +323,18 @@ def train(attn_implementation: str = "flash", argv=None) -> TrainState:
 
     # ---- config + params ----
     cfg = build_llava_config(model_args, training_args, data_args)
+    bert_cfg = None
     if "textcls" in cfg.router_feature_types:
-        raise NotImplementedError(
-            "the router's textcls feature needs the BERT text embedder, "
-            "which is not ported yet (ROADMAP.md Queue 1, slice 3)")
+        # the frozen BERT prompt embedder of the router's textcls feature:
+        # random from seed 0 (no BGE weights here), tiny for debug:// paths;
+        # the router's input takes its width (the JAX train() keeps 384 and
+        # so cannot build a debug:// router)
+        from ..models.text_embedder import BertConfig
+
+        bert_cfg = (BertConfig.tiny_debug()
+                    if model_args.model_name_or_path.startswith("debug://")
+                    else BertConfig.bge_small())
+        cfg = dataclasses.replace(cfg, text_embed_dim=bert_cfg.hidden_size)
     os.makedirs(training_args.output_dir, exist_ok=True)
     with open(os.path.join(training_args.output_dir, "args.json"), "w") as f:
         json.dump({
@@ -421,6 +433,12 @@ def train(attn_implementation: str = "flash", argv=None) -> TrainState:
     def tensor(a, dtype=None):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
+    text_embedder = None
+    if bert_cfg is not None:
+        from ..models.text_embedder import TextEmbedder
+
+        text_embedder = TextEmbedder(tokenizer, cfg=bert_cfg, device=device)
+
     global_step = start_step
     t_start = time.time()
     done = False
@@ -438,7 +456,9 @@ def train(attn_implementation: str = "flash", argv=None) -> TrainState:
                     input_ids=tensor(raw["input_ids"], torch.int64),
                     pixel_values=tensor(raw["images"], torch.float32),
                     labels=tensor(raw["labels"], torch.int64),
-                    attn_mask=tensor(raw["attention_mask"], torch.bool))
+                    attn_mask=tensor(raw["attention_mask"], torch.bool),
+                    text_embed=None if text_embedder is None
+                    else text_embedder(raw["input_ids"]))
                 state, metrics = step_fn(state, batch)
                 global_step += 1
 

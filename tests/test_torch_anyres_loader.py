@@ -183,8 +183,18 @@ def _eval_both(monkeypatch, path, image_file, query):
     return got, want, seen
 
 
+def _crc_tokenizers(monkeypatch):
+    """Both debug tokenizers number words by CRC-32 instead of ``hash``,
+    so the prompt is the same in every process whatever PYTHONHASHSEED."""
+    from tests.test_torch_families_loader import _crc_words
+
+    for cls in (builder.DebugTokenizer, jax_builder.DebugTokenizer):
+        monkeypatch.setattr(cls, "__call__", _crc_words)
+
+
 def test_eval_model_answers_an_anyres_image_as_jax(dirs, tmp_path,
                                                    monkeypatch):
+    _crc_tokenizers(monkeypatch)
     got, want, seen = _eval_both(monkeypatch, dirs["next"],
                                  _images(tmp_path, [(500, 300)]),
                                  "What is shown?")
@@ -196,6 +206,7 @@ def test_eval_model_answers_an_anyres_image_as_jax(dirs, tmp_path,
 
 def test_eval_model_answers_two_images_under_pad_as_jax(dirs, tmp_path,
                                                         monkeypatch):
+    _crc_tokenizers(monkeypatch)
     got, want, seen = _eval_both(
         monkeypatch, dirs["pad"], _images(tmp_path, [(400, 300), (200, 260)]),
         "<image-placeholder> and <image-placeholder>: what differs?")

@@ -574,20 +574,24 @@ def test_submit_rejects_what_the_pool_cannot_take(models):
 
 
 def test_multi_lora_raises_naming_what_is_missing(models):
-    """``ops/lora.py`` is ported; what multi-LoRA serving still lacks is
-    ``serve/multi_lora.py``."""
-    _, tcfg, params = models
-    with pytest.raises(NotImplementedError) as err:
-        ContinuousBatcher(params["float"][1], tcfg, adapters={"a": {}})
-    msg = str(err.value)
-    assert "serve/multi_lora.py" in msg and "Queue 1, item 5" in msg
-    assert "needs ops/lora.py" not in msg
+    """Multi-LoRA serving is ported (tests/test_torch_multi_lora.py); on the
+    dense backend both packages refuse it with the same ``ValueError``,
+    naming the backend it needs."""
+    jcfg, tcfg, params = models
+    errors = []
+    for cls, cfg, p in ((JaxBatcher, jcfg, params["float"][0]),
+                        (ContinuousBatcher, tcfg, params["float"][1])):
+        with pytest.raises(ValueError) as err:
+            cls(p, cfg, adapters={"a": {}})
+        errors.append(str(err.value))
+    assert errors[0] == errors[1]
+    assert "paged backend" in errors[1]
 
 
 def test_unported_options_raise(models):
     _, tcfg, params = models
     p = params["float"][1]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="requires the paged backend"):
         ContinuousBatcher(p, tcfg, adapters={"a": {}})
     # every decoder family is served (tests/test_torch_families_serving.py)
     mistral = dataclasses.replace(tcfg, llama=dataclasses.replace(

@@ -1580,3 +1580,216 @@ def _float(tree):
     if isinstance(tree, list):
         return [_float(v) for v in tree]
     return tree.float() if tree.is_floating_point() else tree
+
+
+# ---------------------------------------------------------------------------
+# multi-LoRA serving: the read-once deltas, the round with a pack
+# ---------------------------------------------------------------------------
+
+def _adapters(params, dev, r=8, seed=5):
+    """Two adapters over ``params`` with seeded non-zero ``lora_b``."""
+    from matryoshka_mm_torch.ops.lora import add_lora, extract_lora
+
+    out = {}
+    for i, name in enumerate(("alpha", "beta")):
+        gen = torch.Generator(device=dev).manual_seed(seed + i)
+        tree = extract_lora(add_lora(params, gen, r=r, alpha=2.0 * r))
+        for layer in tree["llama"]["layers"]:
+            for mod in layer.values():
+                for leaf in mod.values():
+                    leaf["lora_b"].normal_(0.0, 0.02, generator=gen)
+        out[name] = tree
+    return out
+
+
+@pytest.mark.parametrize("key", [("self_attn", "q_proj"),
+                                 ("mlp", "gate_proj"), ("mlp", "down_proj")],
+                         ids=lambda k: k[1])
+def test_read_once_lora_delta_matches_the_gather_form(dev, key):
+    """At the 7B widths, r = 128, two adapters and 8 rows of indices 0, 1,
+    2: the read-once products against the gather form, both bf16, within
+    2e-2 of max|float32 gather|; index 0 exactly 0."""
+    from matryoshka_mm_torch.serve import multi_lora as tml
+
+    D, I, r = 4096, 11008, 128
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def leaf(d_out, d_in):
+        return {"lora_a": torch.randn((r, d_in), generator=g, device=dev)
+                * 0.02,
+                "lora_b": torch.randn((d_out, r), generator=g, device=dev)
+                * 0.02,
+                "lora_scale": torch.full((1, 1), 2.0, device=dev)}
+
+    def adapter():
+        shapes = {"q_proj": (D, D), "k_proj": (D, D), "v_proj": (D, D),
+                  "o_proj": (D, D), "gate_proj": (I, D), "up_proj": (I, D),
+                  "down_proj": (D, I)}
+        layer = {"self_attn": {}, "mlp": {}}
+        for mod, p in tml.PROJS:
+            layer[mod][p] = leaf(*shapes[p])
+        return {"llama": {"layers": [layer]}}
+
+    pack, _ = tml.pack_adapters({"alpha": adapter(), "beta": adapter()},
+                                dtype=torch.bfloat16)
+    idx = torch.tensor([0, 1, 2, 1, 2, 2, 0, 1], device=dev)
+    group = next(gr for gr, ks in tml.GROUPS.items() if key in ks)
+    x = torch.randn((8, 1, pack.a[group].shape[-1]), generator=g, device=dev)
+    mask = tml.row_mask(pack, idx, torch.bfloat16)
+    got = tml.group_deltas(pack, 0, group, x.bfloat16(), mask)[
+        tml.GROUPS[group].index(key)]
+    a, b, s = pack.gather_form(0, key)
+    gather = tml.lora_delta(x.bfloat16(), a, b, s, idx)
+    want = tml.lora_delta(x, a.float(), b.float(), s.float(), idx)
+    scale = float(want.abs().max())
+    assert float((got.float() - want).abs().max()) <= 2e-2 * scale
+    assert float((gather.float() - want).abs().max()) <= 2e-2 * scale
+    assert not got[idx == 0].any()
+
+
+@pytest.mark.parametrize("bits", [0, 4])
+def test_captured_round_with_a_pack_gives_the_eager_round(dev, bits):
+    """Two rounds of paged_pool_decode with an adapter pack against two
+    calls of the captured round from copies of one pool (rows of the base
+    and both adapters), then a third after the rows' indices change in
+    place: the same tokens, state and pool bytes, and the same launches.
+    bits=4: the unfused int4 base, 7L + 1 int4_matmul launches a step and
+    no quant_mlp."""
+    import functools
+
+    import numpy as np
+
+    from matryoshka_mm_torch.generate import GenerationConfig, prefill_text
+    from matryoshka_mm_torch.ops import fused_mlp
+    from matryoshka_mm_torch.serve.multi_lora import pack_adapters
+    from matryoshka_mm_torch.serve.paged_cache import (
+        CapturedRound, PoolState, import_prefill_group, init_paged_cache,
+        paged_pool_decode)
+
+    cfg, params = _small_model(dev, *CAPTURE_CASES["bf16"])
+    adapters = _adapters(params, dev)
+    if bits:
+        tq.quantize_llama_params(params, bits, fuse=False)
+    pack, _ = pack_adapters(adapters, dtype=torch.bfloat16)
+    lc, chunk, B, page = cfg.llama, 4, 3, 16
+    gen = GenerationConfig(max_new_tokens=16, decode_chunk=chunk,
+                           eos_token_id=-1)
+    g = torch.Generator(device=dev).manual_seed(2)
+    ids = torch.randint(5, lc.vocab_size, (B, 32), generator=g, device=dev)
+    mask = torch.ones((B, 32), dtype=torch.bool, device=dev)
+    tables = np.arange(1, 1 + 4 * B, dtype=np.int32).reshape(B, 4)
+
+    def pool():
+        _, dense, _ = prefill_text(params, cfg, ids, mask, 32)
+        paged = init_paged_cache(lc, 1 + 4 * B, page, device=dev)
+        import_prefill_group(paged, dense, [0, 0, 0], tables, page)
+        return paged, torch.as_tensor(tables, device=dev)
+
+    def t(x, dtype):
+        return torch.tensor(x, dtype=dtype, device=dev)
+
+    state = PoolState(t([7, 8, 9], torch.int32), t([32] * 3, torch.int32),
+                      t([16] * 3, torch.int32), t([True] * 3, torch.bool))
+    with torch.inference_mode():
+        (pa, ta), (pb, tb) = pool(), pool()
+        idx_a, idx_b = t([0, 1, 2], torch.int64), t([0, 1, 2], torch.int64)
+        eager = functools.partial(paged_pool_decode, params["llama"], lc,
+                                  gen, chunk, pa, ta, use_kernel=True,
+                                  lora_pack=pack, lora_idx=idx_a)
+        before = _counts()
+        s1, t1 = eager(state)
+        s2, t2 = eager(s1)
+        eager_counts = [a - b for a, b in zip(_counts(), before)]
+        mm_before, mlp_before = tmm.int4_matmul.launches, \
+            fused_mlp.quant_mlp.launches
+        idx_a.copy_(t([2, 0, 1], torch.int64))
+        s3, t3 = eager(s2)
+        mm_step = (tmm.int4_matmul.launches - mm_before) / chunk
+        mlp_step = fused_mlp.quant_mlp.launches - mlp_before
+        captured = CapturedRound(functools.partial(
+            paged_pool_decode, params["llama"], lc, gen, chunk, pb, tb,
+            use_kernel=True, lora_pack=pack, lora_idx=idx_b), B, chunk, dev)
+        before = _counts()
+        c1, u1 = captured(state)
+        c2, u2 = captured(c1)
+        graph_counts = [a - b for a, b in zip(_counts(), before)]
+        idx_b.index_copy_(0, t([0, 1, 2], torch.int64),
+                          t([2, 0, 1], torch.int64))
+        c3, u3 = captured(c2)
+        torch.cuda.synchronize()
+    for u, tt in ((u1, t1), (u2, t2), (u3, t3)):
+        assert torch.equal(u, tt)
+    for a, b in ((c1, s1), (c2, s2), (c3, s3)):
+        for x, y in zip(CapturedRound._fields(a), CapturedRound._fields(b)):
+            assert torch.equal(x, y.to(x.dtype))
+    assert graph_counts == eager_counts and any(eager_counts)
+    for name in ("k", "v"):
+        assert torch.equal(getattr(pa, name), getattr(pb, name)), name
+    L = lc.num_hidden_layers
+    assert mm_step == (7 * L + 1 if bits else 0) and mlp_step == 0
+
+
+def test_lora_batcher_on_the_card_gives_the_eager_streams(dev):
+    """The paged batcher with adapters over an unfused int4 base: captured
+    rounds give the streams of cuda_graph=False; int4_matmul launches 7L +
+    1 a decode step and a prefill, quant_mlp none, paged attention L a
+    step."""
+    import numpy as np
+
+    from matryoshka_mm_torch.generate import GenerationConfig
+    from matryoshka_mm_torch.ops import fused_mlp
+    from matryoshka_mm_torch.ops.paged_attention import \
+        paged_decode_attention
+    from matryoshka_mm_torch.serve.batching import ContinuousBatcher
+
+    cfg, params = _small_model(dev, *CAPTURE_CASES["bf16"])
+    adapters = _adapters(params, dev)
+    tq.quantize_llama_params(params, 4, fuse=False)
+    ids, px, _ = _small_prompt()
+    gen = GenerationConfig(max_new_tokens=16, decode_chunk=4,
+                           eos_token_id=-1)
+    L = cfg.llama.num_hidden_layers
+    streams = {}
+    for graph in (False, True):
+        b = ContinuousBatcher(params, cfg, max_batch=3, prefill_len=64,
+                              max_new_tokens=16, gen_cfg=gen, chunk=4,
+                              backend="paged", page_size=16,
+                              adapters=adapters, cuda_graph=graph)
+        counts = (tmm.int4_matmul.launches, fused_mlp.quant_mlp.launches,
+                  paged_decode_attention.launches)
+        try:
+            reqs = [b.submit(ids[:1, :], px[:1], numtoks=4,
+                             max_new_tokens=10, lora_id=n)
+                    for n in (None, "alpha", "beta")]
+            streams[graph] = [np.concatenate(list(b.stream(r))).tolist()
+                              for r in reqs]
+        finally:
+            b.shutdown()
+        mm, mlp, paged = (tmm.int4_matmul.launches - counts[0],
+                          fused_mlp.quant_mlp.launches - counts[1],
+                          paged_decode_attention.launches - counts[2])
+        # three adapters: no two requests share a prefill
+        assert b.admit_stats == {"solo": 3, "grouped": 0}
+        assert paged == b.decode_steps * L and mlp == 0
+        assert mm == (b.decode_steps + 3) * (7 * L + 1)
+    assert streams[True] == streams[False]
+    assert streams[True][0] != streams[True][1]
+
+
+def test_antialiased_resize_in_bf16_matches_float32(dev):
+    """The S2 tower's resize (``models/clip.py`` ``_resize``: bilinear,
+    antialiased when it shrinks, computed in float32) on a bf16 feature
+    grid and on bf16 pixels against the same in float32: within 2e-2 of
+    max|float32|."""
+    from matryoshka_mm_torch.models.clip import _resize
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    for shape, size in (((1, 1024, 72, 72), 24), ((1, 1024, 48, 48), 24),
+                        ((1, 3, 1008, 1008), 336), ((1, 3, 1008, 1008), 672),
+                        ((1, 3, 336, 336), 672)):
+        x = torch.randn(shape, generator=g, device=dev)
+        want = _resize(x, size)
+        got = _resize(x.bfloat16(), size)
+        assert got.dtype == torch.bfloat16 and got.shape[-1] == size
+        assert float((got.float() - want).abs().max()) <= \
+            2e-2 * float(want.abs().max())

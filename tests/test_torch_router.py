@@ -132,8 +132,10 @@ def test_router_variants_and_refusals(pair):
         got = tllava.router_forward(tparams, uniform,
                                     tllava.encode_images(tparams, uniform, px))
         assert torch.all(got == 1 / 3)
+        # textcls without a text embedding: the JAX ValueError
         text = dataclasses.replace(tcfg, router_feature_types=("textcls",))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError,
+                           match="textcls requires a text embedding"):
             tllava.router_forward(tparams, text,
                                   tllava.encode_images(tparams, text, px))
         spliced, gate = tllava.prepare_multimodal(

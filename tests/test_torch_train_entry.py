@@ -148,8 +148,13 @@ def test_argument_parsing_and_refusals(tmp_path, data):
         ttrain.train(argv=data + out + ["--tp_size", "2"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ttrain.train(argv=data + out + ["--dp_size", "4"])
-    with pytest.raises(NotImplementedError, match="textcls"):
-        ttrain.train(argv=data + out + ["--moe", "t=dense_ft=textcls"])
+    # textcls trains (tests/test_torch_text_embedder.py holds its losses
+    # against the JAX train()); here one step, on the tiny BERT's width
+    state = ttrain.train(argv=data + ["--output_dir", str(tmp_path / "tc"),
+                                      "--moe", "t=dense_ft=textcls",
+                                      "--max_steps", "1"])
+    assert state.step == 1
+    assert state.params["router"]["fc1"]["weight"].shape[1] == 32
     with pytest.raises(ValueError, match="--bits 4/8"):
         ttrain.train(argv=data + out + ["--bits", "8"])
     with pytest.raises(FileNotFoundError):      # no such checkpoint here

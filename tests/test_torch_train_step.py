@@ -268,7 +268,11 @@ def test_frozen_vision_gives_the_same_loss_and_no_vision_gradient():
     assert_grads_close({p: g for (p, _), g in zip(leaves, tg)}, jg)
 
 
-@pytest.mark.parametrize("policy", ["", "names:flash_out,flash_lse"])
+KEEPS_FLASH = ("names:flash_out,flash_lse", "names:attn")
+
+
+@pytest.mark.parametrize("policy", ["", "names:flash_out,flash_lse", "dots",
+                                    "names:attn", "names:attn_q,attn_k"])
 def test_remat_policies_give_the_gradients_of_no_remat(policy):
     from matryoshka_mm_torch.ops import flash_attention as tflash
 
@@ -294,9 +298,10 @@ def test_remat_policies_give_the_gradients_of_no_remat(policy):
             tflash.flash_attention_lse = orig
         grads[remat] = g
         forwards = LAYERS * len(tts.scale_buckets(tcfg, 24))
-        # full recompute runs every flash forward twice; keeping out and
-        # lse, once
-        assert len(calls) == forwards * (2 if remat and not policy else 1)
+        # a recompute runs every flash forward twice; keeping out and lse,
+        # once
+        assert len(calls) == forwards * (
+            2 if remat and policy not in KEEPS_FLASH else 1)
     for a, c in zip(grads[False], grads[True]):
         if a is None:
             assert c is None
@@ -305,14 +310,55 @@ def test_remat_policies_give_the_gradients_of_no_remat(policy):
 
 
 @pytest.mark.parametrize("policy,error", [
-    ("dots", NotImplementedError), ("names:attn", NotImplementedError),
-    ("names:attn_q,attn_k", NotImplementedError), ("everything", ValueError)])
+    ("everything", "unknown remat_policy"),
+    ("names:attn_q,mlp_up", "unknown names")])
 def test_remat_policies_not_ported_raise(policy, error):
     _, _, tcfg, tparams = make_pair(remat=True, remat_policy=policy)
     set_trainable(tparams)
-    with pytest.raises(error, match="ROADMAP" if error
-                       is NotImplementedError else "unknown remat_policy"):
+    with pytest.raises(ValueError, match=error):
         tts.m3_loss(tparams, tcfg, torch_batch(make_batch()))
+
+
+def _products_run(policy, remat=True):
+    """``aten.mm`` / ``aten.addmm`` dispatched over one loss and its
+    gradients (the forward, any recompute and the backward)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func in (torch.ops.aten.mm.default,
+                        torch.ops.aten.addmm.default):
+                Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    _, _, tcfg, tparams = make_pair(remat=remat, remat_policy=policy)
+    trainable = set_trainable(tparams)
+    with Count():
+        loss, _ = tts.m3_loss(tparams, tcfg, torch_batch(make_batch(seed=5)),
+                              frozen_vision=True)
+        torch.autograd.grad(loss, [t for _, t in trainable],
+                            allow_unused=True)
+    return Count.n
+
+
+@pytest.mark.parametrize("policy", ["dots", "names:attn",
+                                    "names:attn_q,attn_k"])
+def test_remat_policies_recompute_fewer_products(policy):
+    """Each policy recomputes fewer projections than ``remat=True`` alone;
+    ``dots`` none at all.  The counts: every product of the LM's forward,
+    recompute and backward."""
+    full, none = _products_run(""), _products_run("", remat=False)
+    got = _products_run(policy)
+    assert none <= got < full
+    # a full recompute re-runs 6 projections of each layer forward, one
+    # product each: q, k, v, o, gate and up (it stops before down, whose
+    # output the backward does not need)
+    forwards = LAYERS * len(tts.scale_buckets(make_pair()[2], 24))
+    assert full - none == 6 * forwards
+    kept = {"dots": 6, "names:attn": 4, "names:attn_q,attn_k": 2}[policy]
+    assert full - got == kept * forwards
 
 
 def test_a_config_without_scales_raises():

@@ -130,3 +130,28 @@ def test_prepare_multimodal(models, numtoks):
     for name in ("labels", "attn_mask", "position_ids", "lengths"):
         np.testing.assert_array_equal(getattr(got, name).numpy(),
                                       np.asarray(getattr(want, name)))
+
+
+@pytest.mark.parametrize("scales,size", [((56, 112), 112), ((56, 112, 168), 168),
+                                          ((56,), 56)])
+def test_s2_multiscale_forward(models, scales, size):
+    """``s2_multiscale_forward`` against JAX's at the shapes of
+    ``tests/test_s2.py`` (and three scales, a 3 x 3 grid shrunk by an
+    antialiased resize), float32 within 1e-4; one scale gives the tower's
+    patch features bit for bit."""
+    jcfg, jp, tcfg, tp = models
+    px = _pixels(4, size=size)
+    want = np.asarray(jclip.s2_multiscale_forward(
+        jp["vision_tower"], jnp.asarray(px), jcfg.vision, scales=scales))
+    got = tclip.s2_multiscale_forward(tp["vision_tower"],
+                                      torch.from_numpy(px), tcfg.vision,
+                                      scales=scales)
+    assert got.shape == (2, 16, 32 * len(scales)) == want.shape
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=0)
+    if len(scales) == 1:
+        one = tclip.clip_vision_forward(tp["vision_tower"],
+                                        torch.from_numpy(px), tcfg.vision)
+        assert torch.equal(got, one["patch"])
+    with pytest.raises(ValueError, match="image size"):
+        tclip.s2_multiscale_forward(tp["vision_tower"], torch.from_numpy(px),
+                                    tcfg.vision, scales=(112,))
