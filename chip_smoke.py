@@ -286,10 +286,40 @@ Phases; any failure exits non-zero, and no phase's exception is caught:
    remat=True, remat_policy="dots" and "names:attn" (step ms, peak memory,
    the flash forward launched twice a step but under names:attn).
 
+17. the serving front end at the full width of llava-v1.5-7b-m3: the
+   port's ModelWorker on debug://7b (random bf16 weights, seed 0, nothing
+   cut) with continuous_batching=True, kv_backend="paged", max_batch=8,
+   prefix_cache=True, warmup=True, limit_model_concurrency=10 and
+   kv_cache_dtype="auto" (which must pick bf16), registered with a port
+   Controller; both served by aiohttp on localhost in one event loop of
+   this process (the SGLang app as the worker's), or, where aiohttp or
+   requests does not import, driven in process through
+   Controller.worker_api_generate_stream (the line printed says which).
+   Importing the front end's modules sends sys.stdout into their logger:
+   the phase keeps the script's own.  Through the controller: phase 7's 12
+   greedy requests (8 as one burst, 4 late; scales 9 / 144 / 576; 32-64
+   new tokens; one seeded PNG each) with 2 sampled requests (temperature
+   0.7, top_p 0.9, 32 tokens) on the solo stream, each capturing its
+   decode while the batcher's rounds replay; then on the SGLang route a
+   json_schema request (the output full-matches the schema's regex) and
+   one with a stop list (no stop word in the answer); then one sampled
+   request alone.  Gates: error_code 0 on every chunk, paged-attention
+   launches during the traffic, the lone request's flash launches one a
+   layer and decode launches one a layer a step, the worker healthy at
+   the end.  Printed with the card's name and power limit: TTFT p50 / max
+   and tok/s of the 12, each sampled request's TTFT and tok/s beside the
+   batch, the host ms a 64-token request spends re-decoding its answer at
+   every chunk.  Then phase 8's small float32 model (Dh=128, a tiny CLIP
+   tower at 336 pixels) saved as a checkpoint of the port, behind a
+   batching worker and a solo worker on the card: a greedy request through
+   each, and one cli.py turn (stdin patched), give the text of the port's
+   generate.  The port's C++ image preprocessing builds with g++ and gives
+   the PIL path's bits.
+
 With arguments (`python3 chip_smoke.py kernels quant slice qslice paged hbm
 serve smallinfer bwd train small ckpt anyres genmodes families famkernels
-lora`) only the build and the named phases run (famkernels: phase 3's cases
-at the families' shapes), and no result line is printed.
+lora frontend`) only the build and the named phases run (famkernels: phase
+3's cases at the families' shapes), and no result line is printed.
 
 Each kernel's record carries its bound: the larger of its bytes (inputs once,
 outputs once) over 3.35 TB/s and its operations over 989 TFLOP/s, the H100
@@ -5294,6 +5324,709 @@ def phase_lora(dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the serving front end at full width
+# ---------------------------------------------------------------------------
+
+FRONT_MODEL = "llava-v1.5-7b-m3"
+FRONT_SAMPLED = 2               # sampled requests beside the batched ones
+FRONT_SAMPLED_KW = {"temperature": 0.7, "top_p": 0.9, "max_new_tokens": 32}
+# the debug tokenizer writes these words often: a stop list that cuts
+FRONT_STOP = ["yes", "no"]
+FRONT_SCHEMA = {"type": "object", "properties": {"B": {"type": "boolean"}}}
+FRONT_REDECODE_TOKENS = 64
+FRONT_CHUNK = 8                 # the worker's decode chunk, and its batcher's
+FRONT_TIMEOUT_S = 300
+
+
+def frontend_modules():
+    """The port's front-end modules.  Each calls ``build_logger`` when it
+    is imported, which sends ``sys.stdout`` and ``sys.stderr`` into the
+    logger: the script keeps its own, and its last lines go to the real
+    stdout."""
+    import types
+
+    saved = sys.stdout, sys.stderr
+    try:
+        from matryoshka_mm_torch.serve import (cli, controller, model_worker,
+                                               sglang_worker)
+    finally:
+        sys.stdout, sys.stderr = saved
+    return types.SimpleNamespace(cli=cli, controller=controller,
+                                 model_worker=model_worker,
+                                 sglang_worker=sglang_worker)
+
+
+def front_prompt(rng, words=PROMPT_LEN) -> str:
+    """A one-image vicuna-v1 prompt of ``words`` seeded words."""
+    from matryoshka_mm_torch.conversation import conv_templates
+
+    conv = conv_templates["llava_v1"].copy()
+    text = " ".join(f"w{int(i)}" for i in rng.integers(0, 10**6, words))
+    conv.append_message(conv.roles[0], "<image>\n" + text)
+    conv.append_message(conv.roles[1], None)
+    return conv.get_prompt()
+
+
+def front_image(rng, size=(400, 300)) -> str:
+    """A PNG of seeded pixels, base64, as a client sends it."""
+    import base64
+    import io
+
+    from PIL import Image
+
+    w, h = size
+    buf = io.BytesIO()
+    Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).save(
+        buf, format="PNG")
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+def _chunks(raw) -> list:
+    """Decoded JSON chunks of a ``\\0``-delimited byte stream."""
+    return [json.loads(c) for c in raw.split(b"\0") if c.strip()]
+
+
+class HttpFront:
+    """The controller and the worker (its SGLang app: the worker protocol
+    plus ``/generate``) served by aiohttp on localhost, both in one event
+    loop on a thread of this process; ``requests`` is the client."""
+
+    mode = "HTTP"
+
+    def __init__(self, mods, make_worker):
+        import asyncio
+        import socket
+
+        import requests
+
+        self.requests = requests
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self.loop.run_forever,
+                                       daemon=True)
+        self.thread.start()
+        self.runners = []
+        self.controller = mods.controller.Controller("shortest_queue")
+        self.ctrl_url = self._serve(mods.controller.build_app(self.controller))
+        sock = socket.socket()
+        sock.bind(("127.0.0.1", 0))
+        self.worker_url = f"http://127.0.0.1:{sock.getsockname()[1]}"
+        self.worker = make_worker(self.ctrl_url, self.worker_url)
+        self._serve(mods.sglang_worker.build_sglang_app(self.worker), sock)
+
+    def _run(self, coro):
+        import asyncio
+
+        return asyncio.run_coroutine_threadsafe(coro, self.loop).result(60)
+
+    def _serve(self, app, sock=None) -> str:
+        from aiohttp import web
+
+        async def start():
+            runner = web.AppRunner(app)
+            await runner.setup()
+            site = web.SockSite(runner, sock) if sock is not None \
+                else web.TCPSite(runner, "127.0.0.1", 0)
+            await site.start()
+            return runner
+
+        runner = self._run(start())
+        self.runners.append(runner)
+        host, port = runner.addresses[0][:2]
+        return f"http://{host}:{port}"
+
+    def stream(self, params):
+        r = self.requests.post(self.ctrl_url + "/worker_generate_stream",
+                               json=params, stream=True,
+                               timeout=FRONT_TIMEOUT_S)
+        for chunk in r.iter_lines(decode_unicode=False, delimiter=b"\0"):
+            if chunk:
+                yield json.loads(chunk)
+
+    def sglang(self, body) -> tuple:
+        r = self.requests.post(self.worker_url + "/generate", json=body,
+                               timeout=FRONT_TIMEOUT_S)
+        return r.status_code, r.json()
+
+    def status(self) -> dict:
+        return self.requests.post(self.worker_url + "/worker_get_status",
+                                  timeout=60).json()
+
+    def close(self):
+        for runner in reversed(self.runners):
+            self._run(runner.cleanup())
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(60)
+        if self.thread.is_alive():
+            fail("frontend: the server loop did not stop")
+        self.loop.close()
+
+
+class _InProcessResponse:
+    def __init__(self, payload=None, chunks=()):
+        self.status_code, self.payload, self.chunks = 200, payload, chunks
+
+    def json(self):
+        return self.payload
+
+    def iter_lines(self, decode_unicode=False, delimiter=b"\0"):
+        for chunk in self.chunks:
+            yield from (c for c in chunk.split(delimiter) if c)
+
+
+class InProcessFront:
+    """Where aiohttp or requests is missing: the same controller and worker
+    objects, the controller's ``worker_api_generate_stream`` driven
+    directly, and its POSTs to the worker (and the worker's to the
+    controller) routed to the objects by a stand-in for ``requests``."""
+
+    mode = "in-process"
+
+    class RequestException(Exception):
+        pass
+
+    def __init__(self, mods, make_worker):
+        import types
+
+        self.mods = mods
+        self.exceptions = types.SimpleNamespace(
+            RequestException=self.RequestException)
+        self.saved = sys.modules.get("requests")
+        sys.modules["requests"] = self        # what the modules import
+        self.controller = mods.controller.Controller("shortest_queue")
+        self.ctrl_url, self.worker_url = "inproc://controller", \
+            "inproc://worker"
+        self.worker = make_worker(self.ctrl_url, self.worker_url)
+
+    def post(self, url, json=None, **kw):
+        c, w = self.controller, getattr(self, "worker", None)
+        if url == self.ctrl_url + "/register_worker":
+            c.register_worker(json["worker_name"], json["check_heart_beat"],
+                              json.get("worker_status"))
+            return _InProcessResponse({})
+        if url == self.ctrl_url + "/receive_heart_beat":
+            return _InProcessResponse({"exist": c.receive_heart_beat(
+                json["worker_name"], json["queue_length"])})
+        if url == self.worker_url + "/worker_generate_stream":
+            return _InProcessResponse(chunks=w.generate_stream_gate(json))
+        if url == self.worker_url + "/worker_get_status":
+            return _InProcessResponse(w.get_status())
+        raise self.RequestException(f"no in-process route for {url}")
+
+    def stream(self, params):
+        for chunk in self.controller.worker_api_generate_stream(params):
+            yield json.loads(chunk.rstrip(b"\0"))
+
+    def sglang(self, body) -> tuple:
+        """What the SGLang app's JSON ``/generate`` answers."""
+        params = self.mods.sglang_worker._params_from_sglang(body)
+        last = _chunks(b"".join(self.worker.generate_stream_gate(params)))[-1]
+        if last["error_code"] != 0:
+            return 500, {"text": last["text"],
+                         "meta_info": {"error_code": last["error_code"]}}
+        return 200, {"text": last["text"][len(params["prompt"]):],
+                     "meta_info": {"error_code": 0}}
+
+    def status(self) -> dict:
+        return self.worker.get_status()
+
+    def close(self):
+        if self.saved is None:
+            sys.modules.pop("requests", None)
+        else:
+            sys.modules["requests"] = self.saved
+
+
+def front_client(stream, params, rec) -> threading.Thread:
+    """A client thread: takes ``stream(params)``'s chunks and keeps them,
+    the time of the first one and of the last in ``rec``."""
+
+    def go():
+        rec["t_submit"] = time.perf_counter()
+        try:
+            for chunk in stream(params):
+                if "t_first" not in rec:
+                    rec["t_first"] = time.perf_counter()
+                rec.setdefault("chunks", []).append(chunk)
+        except Exception as e:       # noqa: BLE001: read by the main thread
+            rec["error"] = repr(e)
+        rec["t_end"] = time.perf_counter()
+
+    t = threading.Thread(target=go, daemon=True)
+    t.start()
+    return t
+
+
+def front_request_checks(label, params, rec) -> str:
+    """Every chunk of a request has error_code 0 and the prompt in front;
+    returns the completion."""
+    if "error" in rec or not rec.get("chunks"):
+        fail(f"{label}: the stream failed: {rec.get('error', 'no chunk')}")
+    codes = [c["error_code"] for c in rec["chunks"]]
+    if any(codes):
+        fail(f"{label}: error codes {codes}: {rec['chunks'][-1]['text']}")
+    text = rec["chunks"][-1]["text"]
+    if not text.startswith(params["prompt"]):
+        fail(f"{label}: the answer does not continue the prompt")
+    return text[len(params["prompt"]):]
+
+
+class SoloTally:
+    """``generate.stream_generate`` wrapped: each call's yields, tokens and
+    times (the worker imports it at each request, so it gets the
+    wrapper)."""
+
+    def __init__(self):
+        import matryoshka_mm_torch.generate as G
+
+        self.module, self.orig, self.calls = G, G.stream_generate, []
+        G.stream_generate = self.wrapped
+
+    def wrapped(self, *args, **kw):
+        rec = {"t0": time.perf_counter(), "yields": 0, "tokens": 0}
+        self.calls.append(rec)
+        for ids in self.orig(*args, **kw):
+            rec["yields"] += 1
+            rec["tokens"] = int(np.shape(ids)[1])
+            rec.setdefault("t_first", time.perf_counter())
+            rec["t_end"] = time.perf_counter()
+            yield ids
+
+    def close(self):
+        self.module.stream_generate = self.orig
+
+
+class BatchTally:
+    """The worker's batcher's ``stream`` wrapped: tokens streamed."""
+
+    def __init__(self, batcher):
+        self.batcher, self.orig, self.tokens = batcher, batcher.stream, 0
+        self.lock = threading.Lock()
+        batcher.stream = self.wrapped
+
+    def wrapped(self, req):
+        for chunk in self.orig(req):
+            with self.lock:
+                self.tokens += int(np.size(chunk))
+            yield chunk
+
+    def close(self):
+        del self.batcher.stream
+
+
+def front_traffic(stream, batcher, counters, label, seed,
+                  sampled=0) -> dict:
+    """Phase 7's 12 greedy requests through ``stream``, 8 as a burst and 4
+    late, with ``sampled`` sampled requests (the solo stream, each
+    capturing its decode while the batcher's rounds replay) sent once the
+    burst decodes; returns the launches.  Each call's prompts and images
+    are new (``seed``): no prefix-cache hit between calls."""
+    rng = np.random.default_rng(seed)
+    greedy = [{"model": FRONT_MODEL, "prompt": front_prompt(rng),
+               "images": [front_image(rng)], "temperature": 0.0,
+               "max_new_tokens": new,
+               "matryoshka_vis_token_scale": f"ver=v0_numtoks={n}"}
+              for n, new in SERVE_BURST + SERVE_LATE]
+    extra = [{"model": FRONT_MODEL, "prompt": front_prompt(rng),
+              "images": [front_image(rng)],
+              "matryoshka_vis_token_scale": "ver=v0_numtoks=144",
+              **FRONT_SAMPLED_KW} for _ in range(sampled)]
+    solo, batched = SoloTally(), BatchTally(batcher)
+    recs = [{} for _ in greedy + extra]
+    rounds = batcher.occupancy["rounds"]
+    _zero(counters)
+    t0 = time.perf_counter()
+    try:
+        batcher._hold_admission = True         # the burst lands as one batch
+        threads = [front_client(stream, p, r) for p, r in
+                   zip(greedy[:len(SERVE_BURST)], recs)]
+        deadline = time.perf_counter() + 60
+        while batcher.pending.qsize() < len(SERVE_BURST):
+            if time.perf_counter() > deadline or any("error" in r
+                                                     for r in recs):
+                fail(f"{label}: {batcher.pending.qsize()} of the burst "
+                     f"reached the batcher")
+            time.sleep(0.005)
+        t_held = time.perf_counter()
+        batcher._hold_admission = False
+        while batcher.occupancy["rounds"] < rounds + 2 \
+                and batcher.error is None:
+            time.sleep(0.002)                   # the burst is decoding now
+        threads += [front_client(stream, p, r) for p, r in
+                    zip(extra, recs[len(greedy):])]
+        for i, p in enumerate(greedy[len(SERVE_BURST):]):
+            threads.append(front_client(stream, p,
+                                        recs[len(SERVE_BURST) + i]))
+            time.sleep(0.05)
+        for t in threads:
+            t.join(FRONT_TIMEOUT_S)
+            if t.is_alive():
+                fail(f"{label}: a request did not end")
+        torch.cuda.synchronize()
+    finally:
+        batcher._hold_admission = False
+        solo.close()
+        batched.close()
+    launches = _read(counters)
+    for i, (p, r) in enumerate(zip(greedy + extra, recs)):
+        front_request_checks(f"{label} request {i}", p, r)
+    g_recs, s_recs = recs[:len(greedy)], recs[len(greedy):]
+    wall = max(r["t_end"] for r in g_recs) - t0
+    ttft = sorted(r["t_first"] - r["t_submit"] for r in g_recs)
+    print(f"[{label}] {card_line()}: {len(greedy)} greedy requests, "
+          f"{batched.tokens} tokens in {wall:.3f} s: "
+          f"{batched.tokens / wall:.2f} tok/s over the batch (prefills "
+          f"included); TTFT p50 {statistics.median(ttft) * 1e3:.1f} ms max "
+          f"{ttft[-1] * 1e3:.1f} ms; the burst's 8 requests were all with "
+          f"the batcher {(t_held - t0) * 1e3:.1f} ms after the first was "
+          f"sent")
+    if len(solo.calls) != sampled:
+        fail(f"{label}: {len(solo.calls)} requests took the solo stream, "
+             f"expected the {sampled} sampled ones")
+    for i, (c, r) in enumerate(zip(solo.calls, s_recs)):
+        rate = (c["tokens"] - 1) / (c["t_end"] - c["t_first"])
+        print(f"[{label}] {card_line()}: sampled request {i} beside the "
+              f"batch: {c['tokens']} tokens, TTFT "
+              f"{(r['t_first'] - r['t_submit']) * 1e3:.1f} ms, decode "
+              f"{rate:.2f} tok/s")
+    print(f"[{label}] launches {launches}")
+    return launches
+
+
+def front_quiet_solo(front, counters, n_layers) -> dict:
+    """One sampled request through the controller with nothing else
+    running: a flash launch a layer for its prefill and a decode launch a
+    layer a decode step, as phase 4 counts them."""
+    rng = np.random.default_rng(18)
+    params = {"model": FRONT_MODEL, "prompt": front_prompt(rng),
+              "images": [front_image(rng)],
+              "matryoshka_vis_token_scale": "ver=v0_numtoks=144",
+              **FRONT_SAMPLED_KW}
+    solo, rec = SoloTally(), {}
+    _zero(counters)
+    try:
+        t = front_client(front.stream, params, rec)
+        t.join(FRONT_TIMEOUT_S)
+        torch.cuda.synchronize()
+    finally:
+        solo.close()
+    launches = _read(counters)
+    front_request_checks("frontend quiet solo", params, rec)
+    (call,) = solo.calls
+    steps = min(params["max_new_tokens"] - 1, FRONT_CHUNK * (call["yields"] - 1))
+    _held("frontend quiet solo", launches,
+          {"paged_attention": 0, "flash_attention": n_layers,
+           "decode_attention": n_layers * steps})
+    return launches
+
+
+def front_sglang(front) -> None:
+    """A constrained request and one with a stop list on the SGLang
+    route."""
+    import re as _re
+
+    from matryoshka_mm_torch.serve.constrained import regex_for_json_schema
+
+    rng = np.random.default_rng(19)
+    status, body = front.sglang({
+        "text": front_prompt(rng), "image_data": front_image(rng),
+        "matryoshka_vis_token_scale": "ver=v0_numtoks=9",
+        "sampling_params": {"temperature": 0.0, "max_new_tokens": 48,
+                            "json_schema": FRONT_SCHEMA}})
+    print(f"[frontend] SGLang json_schema: {status} {body}")
+    if status != 200 or body["meta_info"]["error_code"] != 0 or not \
+            _re.fullmatch(regex_for_json_schema(FRONT_SCHEMA), body["text"]):
+        fail("frontend: the constrained SGLang request")
+    status, body = front.sglang({
+        "text": front_prompt(rng), "image_data": front_image(rng),
+        "matryoshka_vis_token_scale": "ver=v0_numtoks=144",
+        "sampling_params": {"temperature": 0.0, "max_new_tokens": 64,
+                            "stop": FRONT_STOP}})
+    print(f"[frontend] SGLang stop {FRONT_STOP}: {status} {body}")
+    if status != 200 or body["meta_info"]["error_code"] != 0 or any(
+            s in body["text"] for s in FRONT_STOP):
+        fail("frontend: the SGLang request with a stop list")
+
+
+def front_redecode_ms(tokenizer, vocab) -> float:
+    """Host ms that one 64-token request spends in the batcher path's
+    re-decode of its whole answer at every chunk (the first token, then
+    chunks of 8), with the worker's tokenizer: median of 50."""
+    toks = np.random.default_rng(20).integers(4, vocab, FRONT_REDECODE_TOKENS)
+    pieces = [toks[:1]] + [toks[i:i + FRONT_CHUNK] for i in
+                           range(1, FRONT_REDECODE_TOKENS, FRONT_CHUNK)]
+    times = []
+    for _ in range(50):
+        t0, acc = time.perf_counter(), []
+        for chunk in pieces:
+            acc.extend(int(t) for t in np.ravel(chunk))
+            tokenizer.decode(acc, skip_special_tokens=True)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def small_front_model(dirname: Path) -> Path:
+    """Phase 8's small float32 model (Dh=128) with a tiny CLIP tower at
+    336 pixels (the front end's default image size), saved as a checkpoint
+    of the port."""
+    import dataclasses
+
+    from matryoshka_mm_torch.config import LlavaConfig
+    from matryoshka_mm_torch.models.convert import init_params
+    from matryoshka_mm_torch.utils.checkpoint import save_checkpoint
+
+    base = LlavaConfig.tiny_debug()
+    # the worker keeps room for the 576 patches of a 336-pixel image in the
+    # context, whatever the scale: 2,048 positions
+    cfg = dataclasses.replace(
+        base, llama=dataclasses.replace(
+            base.llama, hidden_size=256, num_attention_heads=2,
+            num_key_value_heads=2, intermediate_size=512,
+            max_position_embeddings=2048),
+        vision=dataclasses.replace(base.vision, image_size=336))
+    path = dirname / "llava-small-f32"
+    save_checkpoint(str(path), init_params(cfg, "cpu", seed=3), cfg)
+    return path
+
+
+def front_small(mods, dev) -> None:
+    """The small float32 model behind two workers on the card, one with
+    the paged batcher and one without: a greedy request through each path
+    and one CLI turn give the text of the port's generate."""
+    import base64
+    import builtins
+    import contextlib
+    import io
+    import tempfile
+
+    from PIL import Image
+
+    from matryoshka_mm_torch.conversation import conv_templates
+    from matryoshka_mm_torch.generate import GenerationConfig, generate
+    from matryoshka_mm_torch.mm_utils import (process_images,
+                                              tokenizer_image_token)
+
+    tmp = Path(tempfile.mkdtemp(prefix="m3_front_"))
+    try:
+        path = small_front_model(tmp)
+        rng = np.random.default_rng(21)
+        b64 = front_image(rng, (300, 240))
+        question = " ".join(f"q{int(i)}" for i in rng.integers(0, 999, 9))
+        conv = conv_templates["llava_v1"].copy()
+        conv.append_message(conv.roles[0], "<image>\n" + question)
+        conv.append_message(conv.roles[1], None)
+        prompt, new = conv.get_prompt(), 24
+        params = {"prompt": prompt, "images": [b64], "temperature": 0.0,
+                  "max_new_tokens": new,
+                  "matryoshka_vis_token_scale": "ver=v0_numtoks=9"}
+        texts = {}
+        for kind, kw in (("batcher", dict(continuous_batching=True,
+                                          kv_backend="paged", max_batch=2,
+                                          pool_prefill_len=128,
+                                          pool_max_new=64)),
+                         ("solo", {})):
+            w = mods.model_worker.ModelWorker(
+                "", "", "small", True, str(path), None, None,
+                device=str(dev), **kw)
+            try:
+                tally = SoloTally()
+                try:
+                    chunks = _chunks(b"".join(w.generate_stream_gate(params)))
+                finally:
+                    tally.close()
+                if [c["error_code"] for c in chunks] != [0] * len(chunks):
+                    fail(f"frontend small {kind}: {chunks[-1]}")
+                if (len(tally.calls) == 1) != (kind == "solo"):
+                    fail(f"frontend small: the {kind} request took the "
+                         f"wrong path")
+                texts[kind] = chunks[-1]["text"][len(prompt):]
+            finally:
+                if w.batcher is not None:
+                    w.batcher.shutdown()
+        # the port's generate on the same weights, prompt and image
+        tok, model = w.tokenizer, w.model
+        img = Image.open(io.BytesIO(base64.b64decode(b64)))
+        px = np.asarray(process_images([img], w.image_processor,
+                                       model.config), np.float32)
+        ids = np.asarray(tokenizer_image_token(prompt, tok), np.int64)[None]
+        out = generate(model.params, model.cfg, ids, px,
+                       matryoshka_vis_token_scale="ver=v0_numtoks=9",
+                       gen_cfg=GenerationConfig(
+                           max_new_tokens=new, eos_token_id=tok.eos_token_id,
+                           pad_token_id=0, decode_chunk=FRONT_CHUNK))
+        want = tok.decode([int(t) for t in out[0] if t != 0],
+                          skip_special_tokens=True)
+        # one CLI turn: the question on stdin, then end of input
+        img.save(tmp / "q.png")
+        answers = iter([question])
+        real_input, out_buf = builtins.input, io.StringIO()
+
+        def fake_input(prompt_text=""):
+            try:
+                return next(answers)
+            except StopIteration:
+                raise EOFError from None
+
+        builtins.input = fake_input
+        try:
+            with contextlib.redirect_stdout(out_buf):
+                mods.cli.main(mods.cli.parse_args([
+                    "--model-path", str(path), "--image-file",
+                    str(tmp / "q.png"), "--device", str(dev),
+                    "--conv-mode", "llava_v1", "--temperature", "0",
+                    "--max-new-tokens", str(new),
+                    "--matryoshka_vis_token_scale", "9"]))
+        finally:
+            builtins.input = real_input
+        said = out_buf.getvalue()
+        marker = f"{conv.roles[1]}: "
+        texts["cli"] = said[said.index(marker) + len(marker):].split("\n")[0]
+        print(f"[frontend small] {card_line()}: generate {want!r}; "
+              + "; ".join(f"{k} {v!r}" for k, v in texts.items()))
+        if not want or any(v != want for v in texts.values()):
+            fail("frontend small: a front-end path's text differs from "
+                 "generate's")
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def front_native() -> None:
+    """The port's C++ preprocessing builds here and gives the PIL path's
+    bits."""
+    from PIL import Image
+
+    from matryoshka_mm_torch.image_processing import ClipImageProcessor
+    from matryoshka_mm_torch.native import (clip_preprocess_native,
+                                            library_path, native_available)
+
+    t0 = time.perf_counter()
+    if not native_available():
+        fail("frontend: the native image library did not build")
+    build_s = time.perf_counter() - t0
+    proc = ClipImageProcessor()
+    rgb = np.random.default_rng(22).integers(0, 256, (412, 517, 3),
+                                             dtype=np.uint8)
+    im = proc.center_crop(proc.resize_shortest_edge(Image.fromarray(rgb)))
+    pil = ((np.asarray(im, np.float32) / 255.0
+            - np.asarray(proc.image_mean, np.float32))
+           / np.asarray(proc.image_std, np.float32)).transpose(2, 0, 1)
+    got = clip_preprocess_native(rgb, 336, 336, proc.image_mean,
+                                 proc.image_std)
+    print(f"[frontend] native {library_path().name} in {build_s:.2f} s; "
+          f"max |native - PIL| {float(np.abs(got - pil).max())}")
+    if not np.array_equal(got, pil):
+        fail("frontend: the native preprocessing differs from PIL's")
+
+
+def phase_frontend(dev) -> dict:
+    """Returns the launches of the counted runs, by kernel."""
+    from matryoshka_mm_torch.ops.decode_attention import flash_decode_attention
+    from matryoshka_mm_torch.ops.flash_attention import flash_attention_lse
+    from matryoshka_mm_torch.ops.paged_attention import paged_decode_attention
+
+    saved = sys.stdout, sys.stderr
+    t0 = [time.perf_counter()]
+
+    def lap(what):
+        now = time.perf_counter()
+        print(f"[time] frontend {what} {now - t0[0]:.1f} s")
+        t0[0] = now
+
+    counters = {"paged_attention": paged_decode_attention,
+                "flash_attention": flash_attention_lse,
+                "decode_attention": flash_decode_attention}
+    try:
+        mods = frontend_modules()
+        try:
+            import aiohttp
+            import requests
+
+            print(f"[frontend] aiohttp {aiohttp.__version__} and requests "
+                  f"{requests.__version__} import: the front end runs over "
+                  f"HTTP on localhost")
+            Front = HttpFront
+        except ImportError as e:
+            print(f"[frontend] {e}: the front end runs in process "
+                  f"(Controller.worker_api_generate_stream -> "
+                  f"ModelWorker.generate_stream_gate)")
+            Front = InProcessFront
+        front_native()
+        torch.cuda.empty_cache()
+        made = {}
+
+        def make_worker(ctrl_url, worker_url):
+            made["w"] = mods.model_worker.ModelWorker(
+                ctrl_url, worker_url, "smoke", False, "debug://7b", None,
+                FRONT_MODEL, device=str(dev), continuous_batching=True,
+                kv_backend="paged", max_batch=8, prefix_cache=True,
+                warmup=True, limit_model_concurrency=10,
+                kv_cache_dtype="auto")
+            return made["w"]
+
+        front = None
+        try:
+            front = Front(mods, make_worker)
+            worker = front.worker
+            lap("debug://7b behind the worker (made, warmed up, registered)")
+            cfg, batcher = worker.model.cfg, worker.batcher
+            kv = cfg.llama.kv_cache_dtype or "bf16"
+            print(f"[frontend] {card_line()}: kv_cache_dtype auto -> {kv} "
+                  f"(pool of {batcher.capacity} slots x {batcher.max_batch} "
+                  f"rows)")
+            if cfg.llama.kv_cache_dtype:
+                fail("frontend: kv_cache_dtype auto did not pick bf16")
+            if front.controller.list_models() != [FRONT_MODEL]:
+                fail("frontend: the worker did not register")
+            launches = front_traffic(front.stream, batcher, counters,
+                                     "frontend", 17, FRONT_SAMPLED)
+            if launches["paged_attention"] <= 0:
+                fail("frontend: the batched traffic launched no paged "
+                     "attention")
+            lap("traffic")
+            # the same traffic without the sampled requests, then straight
+            # into the worker (no HTTP, no controller): what each layer adds
+            front_traffic(front.stream, batcher, counters,
+                          "frontend greedy only", 117)
+            front_traffic(lambda p: (json.loads(c.rstrip(b"\0")) for c in
+                                     worker.generate_stream_gate(p)),
+                          batcher, counters, "frontend worker in process",
+                          217)
+            lap("traffic without the sampled requests, and in process")
+            front_sglang(front)
+            lap("SGLang requests")
+            for k, n in front_quiet_solo(front, counters,
+                                         cfg.llama.num_hidden_layers).items():
+                launches[k] += n
+            status = front.status()
+            print(f"[frontend] status {status}")
+            if not status.get("batcher", {}).get("healthy"):
+                fail("frontend: the worker is not healthy")
+            ms = front_redecode_ms(worker.tokenizer, cfg.llama.vocab_size)
+            print(f"[frontend] host re-decode of a {FRONT_REDECODE_TOKENS}-"
+                  f"token answer at every chunk: {ms:.3f} ms a request "
+                  f"(DebugTokenizer)")
+        finally:
+            worker = made.pop("w", None)
+            if worker is not None:
+                worker.no_register = True       # its heartbeat thread stops
+            if front is not None:
+                front.close()
+            if worker is not None:
+                if worker.batcher is not None:
+                    worker.batcher.shutdown()
+                worker.model = worker.batcher = None
+            gc.collect()
+            torch.cuda.empty_cache()
+        lap("7B worker")
+        front_small(mods, dev)
+        lap("small model")
+    finally:
+        sys.stdout, sys.stderr = saved
+    return launches
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
@@ -5326,10 +6059,10 @@ def main(argv=()) -> int:
     if argv:
         # a subset for work on one phase: `chip_smoke.py kernels quant slice
         # qslice paged hbm serve smallinfer bwd train small ckpt anyres
-        # genmodes families famkernels lora` runs phases 3 (attention
-        # kernels), 3 (quantized products), 4, 5, 6, 7, 8, 9, 10, 11, 12, 13,
-        # 14, 15, phase 3's cases at the families' shapes and 16 alone and
-        # prints no result line
+        # genmodes families famkernels lora frontend` runs phases 3
+        # (attention kernels), 3 (quantized products), 4, 5, 6, 7, 8, 9, 10,
+        # 11, 12, 13, 14, 15, phase 3's cases at the families' shapes, 16 and
+        # 17 alone and prints no result line
         for name in argv:
             phases = {"kernels": phase_kernels, "quant": phase_quant_kernels,
              "slice": phase_slice, "smallinfer": phase_small,
@@ -5339,7 +6072,7 @@ def main(argv=()) -> int:
              "small": phase_train_small, "ckpt": phase_ckpt,
              "anyres": phase_anyres, "genmodes": phase_genmodes,
              "families": phase_families, "famkernels": phase_family_kernels,
-             "lora": phase_lora}
+             "lora": phase_lora, "frontend": phase_frontend}
             timed(phases[name], dev)
         print(f"partial run {argv}: no result")
         return 1
@@ -5369,6 +6102,8 @@ def main(argv=()) -> int:
     for k, n in timed(phase_families, dev).items():
         launches[k] = launches.get(k, 0) + n
     for k, n in timed(phase_lora, dev).items():
+        launches[k] = launches.get(k, 0) + n
+    for k, n in timed(phase_frontend, dev).items():
         launches[k] = launches.get(k, 0) + n
     if [m for m in sys.modules
             if m.split(".")[0] in ("jax", "matryoshka_mm_tpu")]:

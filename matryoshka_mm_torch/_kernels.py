@@ -16,10 +16,16 @@ Calling convention of every entry point: pointers (tensor ``data_ptr()``
 and the CUDA stream) are ``void*``; the function returns
 ``cudaGetLastError()`` right after its launch, and :func:`check` raises if
 that is not ``cudaSuccess``.
+
+Each wrapper counts its launches in its ``launches`` attribute through
+:func:`count_launch`, which also tallies them for a CUDA graph that the
+calling thread is recording (:func:`capture_tally`), so that the counts
+stay exact while one thread captures and others launch.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -27,10 +33,38 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
 import torch
+
+_COUNT_LOCK = threading.Lock()
+_CAPTURE = threading.local()
+
+
+def count_launch(fn, n: int = 1) -> None:
+    """Add ``n`` to ``fn.launches``, a kernel wrapper's launch counter (under
+    a lock: several threads launch); while the calling thread records a
+    CUDA graph inside :func:`capture_tally`, its tally gets them too."""
+    with _COUNT_LOCK:
+        fn.launches += n
+    tally = getattr(_CAPTURE, "tally", None)
+    if tally is not None:
+        tally[fn] = tally.get(fn, 0) + n
+
+
+@contextlib.contextmanager
+def capture_tally():
+    """A dict of the launches this thread counts inside the block, by
+    wrapper: what a graph recorded here will launch at each replay."""
+    tally: dict = {}
+    _CAPTURE.tally = tally
+    try:
+        yield tally
+    finally:
+        _CAPTURE.tally = None
+
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"

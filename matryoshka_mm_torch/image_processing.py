@@ -1,10 +1,10 @@
-"""CLIP image front-end (numpy / PIL only).
+"""CLIP image front-end (numpy / PIL, and the optional C++ path).
 
 A standalone re-implementation of the preprocessing pipeline the reference
 gets from HF ``CLIPImageProcessor`` plus the LLaVA pad / anyres modes
 (reference: llava/mm_utils.py:12-182).  The port's own copy of
-``matryoshka_mm_tpu/image_processing.py``: the PIL path only (the optional
-C++ resize of the JAX package is not carried over yet, ROADMAP.md), and
+``matryoshka_mm_tpu/image_processing.py``, with its hook into the native
+resize (``native/``, the port's copy; PIL where it does not build), and
 without the on-device normalize helper.
 """
 
@@ -56,16 +56,33 @@ class ClipImageProcessor:
         return image.crop((left, top, left + cw, top + ch))
 
     def preprocess(self, image, return_tensors: str = "np"):
-        """PIL image -> normalized CHW float32 array, shaped like HF
-        output."""
+        """PIL image -> normalized CHW float32 array, shaped like HF output.
+
+        Uses the C++ fast path (native/image_ops.cpp: fused bicubic resize +
+        crop + normalize in one pass, the same bits) when it builds, PIL
+        otherwise.
+        """
         if not isinstance(image, (list, tuple)):
             images = [image]
         else:
             images = list(image)
 
+        native = None
+        if self.crop_size["height"] == self.crop_size["width"]:
+            from .native import clip_preprocess_native, native_available
+
+            if native_available():
+                native = clip_preprocess_native
+
         out = []
         for im in images:
             im = im.convert("RGB")
+            if native is not None:
+                out.append(native(np.asarray(im, np.uint8),
+                                  self.size["shortest_edge"],
+                                  self.crop_size["height"],
+                                  self.image_mean, self.image_std))
+                continue
             im = self.resize_shortest_edge(im)
             im = self.center_crop(im)
             arr = np.asarray(im, dtype=np.float32) / 255.0  # HWC

@@ -227,7 +227,7 @@ def _launch(q, k, v, kv_valid, kv_positions, q_positions, window,
             valid.stride(0), kv_pos.stride(0), int(window), Dh ** -0.5,
             _kernels.stream_ptr(q.device))
         _kernels.check("m3_decode_attention_int8", err)
-        flash_decode_attention.launches += 1
+        _kernels.count_launch(flash_decode_attention)
         return out
     err = _kernels.library().m3_decode_attention(
         _kernels.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
@@ -236,7 +236,7 @@ def _launch(q, k, v, kv_valid, kv_positions, q_positions, window,
         *k.stride()[:3], *v.stride()[:3], valid.stride(0), kv_pos.stride(0),
         int(window), Dh ** -0.5, _kernels.stream_ptr(q.device))
     _kernels.check("m3_decode_attention", err)
-    flash_decode_attention.launches += 1
+    _kernels.count_launch(flash_decode_attention)
     return out
 
 

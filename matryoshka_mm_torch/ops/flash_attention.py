@@ -407,7 +407,7 @@ def _launch(q, k, v, kv_valid, causal, window, q_offset):
         *v.stride()[:3], kv_valid.stride(0), int(causal), int(window),
         int(q_offset), Dh ** -0.5, _kernels.stream_ptr(q.device))
     _kernels.check("m3_flash_attention_fwd", err)
-    flash_attention_lse.launches += 1
+    _kernels.count_launch(flash_attention_lse)
     return out, lse
 
 
@@ -479,7 +479,7 @@ def _launch_dq(q, k, v, kv_valid, do, lse, delta, causal, window, q_offset):
     err = _kernels.library().m3_flash_attention_bwd_dq(*_bwd_args(
         q, k, v, kv_valid, do, lse, delta, (dq,), causal, window, q_offset))
     _kernels.check("m3_flash_attention_bwd_dq", err)
-    flash_attention_bwd_dq.launches += 1
+    _kernels.count_launch(flash_attention_bwd_dq)
     return dq
 
 
@@ -490,7 +490,7 @@ def _launch_dkv(q, k, v, kv_valid, do, lse, delta, causal, window, q_offset):
         q, k, v, kv_valid, do, lse, delta, (dk, dv), causal, window,
         q_offset))
     _kernels.check("m3_flash_attention_bwd_dkv", err)
-    flash_attention_bwd_dkv.launches += 1
+    _kernels.count_launch(flash_attention_bwd_dkv)
     return dk, dv
 
 

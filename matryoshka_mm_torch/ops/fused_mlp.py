@@ -143,7 +143,7 @@ def quant_mlp(x: torch.Tensor, gateup: dict, down: dict, bits: int,
     if x.device.type != "cuda":
         raise ValueError(f"quant_mlp: no kernel for {x.device}")
     out = _launch(x, gateup, down, bits, i_orig)
-    quant_mlp.launches += 1
+    _kernels.count_launch(quant_mlp)
     return out
 
 

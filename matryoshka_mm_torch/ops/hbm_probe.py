@@ -97,7 +97,7 @@ def hbm_read(x: torch.Tensor, reps: int = 1) -> torch.Tensor:
         x.data_ptr(), out.data_ptr(), x.numel() // VEC, BLOCKS, reps,
         _kernels.stream_ptr(x.device))
     _kernels.check("m3_hbm_read", err)
-    hbm_read.launches += 1
+    _kernels.count_launch(hbm_read)
     return out
 
 
@@ -121,7 +121,7 @@ def hbm_copy(x: torch.Tensor, reps: int = 1) -> torch.Tensor:
         x.data_ptr(), y.data_ptr(), x.numel() // VEC, COPY_BLOCKS, reps,
         _kernels.stream_ptr(x.device))
     _kernels.check("m3_hbm_copy", err)
-    hbm_copy.launches += 1
+    _kernels.count_launch(hbm_copy)
     return y
 
 

@@ -227,7 +227,7 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"int4_matmul: no kernel for {x.device}")
     out = _launch("int4_matmul", 4, x, packed, scale)
-    int4_matmul.launches += 1
+    _kernels.count_launch(int4_matmul)
     return out
 
 
@@ -240,7 +240,7 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"int8_matmul: no kernel for {x.device}")
     out = _launch("int8_matmul", 8, x, q, scale)
-    int8_matmul.launches += 1
+    _kernels.count_launch(int8_matmul)
     return out
 
 

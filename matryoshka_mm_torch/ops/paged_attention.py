@@ -236,7 +236,7 @@ def _launch(q, k_pages, v_pages, page_tables, row_len, k_scale, v_scale,
         k_pages.stride(1), k_pages.stride(2), *sc_strides, tables.stride(0), Dh ** -0.5,
         _kernels.stream_ptr(q.device))
     _kernels.check("m3_paged_attention", err)
-    paged_decode_attention.launches += 1
+    _kernels.count_launch(paged_decode_attention)
     return out
 
 

@@ -219,6 +219,18 @@ def quantize_llama_params(params: dict, bits: int, min_size: int = 4096,
 _FUSED_PROJ_ENABLED = [True]
 
 
+def tree_nbytes(tree) -> int:
+    """Bytes of every tensor in a parameter tree of dicts and lists, each
+    as stored (a packed int4 matrix counts its ``K/2`` bytes a row)."""
+    if isinstance(tree, dict):
+        return sum(tree_nbytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_nbytes(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    return 0
+
+
 @contextlib.contextmanager
 def disable_fused_proj():
     """Quantized projections dequantize and multiply inside this block."""

@@ -24,24 +24,37 @@ every replay: such values live in device tensors instead (the KV cache's
   what it does to the buffers stands.
 * Capture: ``capture_error_mode="thread_local"``, so that a batcher can
   capture on its scheduler thread while other threads submit requests.
+  Captures are serialised by a process-wide lock (warm-up included), and
+  the warm-up waits for its own stream only: a device-wide synchronize in
+  one thread while another records fails with "operation not permitted
+  when stream is capturing" and invalidates that capture, as two sampled
+  requests of the serving worker, each capturing its decode, would.
 * Random numbers: a ``torch.Generator`` passed in is registered with the
   graph (``register_generator_state``); each replay draws new numbers from
   it, and the same seed gives the same draws.
 * Launch counters: each kernel wrapper counts its launches in a Python
   attribute (``flash_decode_attention.launches``, ...), which moves while
   a step is recorded and not when it is replayed.  The capture's own
-  increments are taken back and each replay adds them again, so a count
-  says how many kernels ran, captured or not.
+  increments, those of the recording thread alone
+  (``_kernels.capture_tally``: other threads may launch meanwhile, as the
+  serving worker's batcher does beside a request's own decode), are taken
+  back and each replay adds them again, so a count says how many kernels
+  ran, captured or not.
 * Errors: a failed capture or replay raises.  Nothing falls back to the
   eager step.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import Callable, Optional
 
 import torch
+
+from .. import _kernels
+
+_CAPTURE_LOCK = threading.Lock()
 
 
 def launch_counters() -> tuple:
@@ -83,39 +96,38 @@ class CapturedStep:
         self.step = step
         self.stream = torch.cuda.Stream(device)
         current = torch.cuda.current_stream(device)
-        self.stream.wait_stream(current)
-        with torch.cuda.stream(self.stream):
-            t0 = time.perf_counter()
-            step()
-            torch.cuda.synchronize(device)
-            self.warmup_ms = (time.perf_counter() - t0) * 1e3
-        if rewind is not None:
-            rewind()
-
-        counters = launch_counters()
-        before = [fn.launches for fn in counters]
-        self.graph = torch.cuda.CUDAGraph()
-        if generator is not None:
-            self.graph.register_generator_state(generator)
-        t0 = time.perf_counter()
-        with torch.cuda.stream(self.stream):
-            self.graph.capture_begin(capture_error_mode="thread_local")
-            try:
+        with _CAPTURE_LOCK:
+            self.stream.wait_stream(current)
+            with torch.cuda.stream(self.stream):
+                t0 = time.perf_counter()
                 step()
-            except BaseException:
+                self.stream.synchronize()
+                self.warmup_ms = (time.perf_counter() - t0) * 1e3
+            if rewind is not None:
+                rewind()
+
+            self.graph = torch.cuda.CUDAGraph()
+            if generator is not None:
+                self.graph.register_generator_state(generator)
+            t0 = time.perf_counter()
+            with torch.cuda.stream(self.stream), \
+                    _kernels.capture_tally() as tally:
+                self.graph.capture_begin(capture_error_mode="thread_local")
                 try:
-                    self.graph.capture_end()
-                except Exception:       # noqa: BLE001: the step's error wins
-                    pass
-                raise
-            self.graph.capture_end()
-        current.wait_stream(self.stream)
-        self.capture_ms = (time.perf_counter() - t0) * 1e3
+                    step()
+                except BaseException:
+                    try:
+                        self.graph.capture_end()
+                    except Exception:   # noqa: BLE001: the step's error wins
+                        pass
+                    raise
+                self.graph.capture_end()
+            current.wait_stream(self.stream)
+            self.capture_ms = (time.perf_counter() - t0) * 1e3
         # the capture ran no kernel: take its counts back, replays add them
-        self.counts = [(fn, fn.launches - b)
-                       for fn, b in zip(counters, before) if fn.launches != b]
+        self.counts = [(fn, n) for fn, n in tally.items() if n]
         for fn, n in self.counts:
-            fn.launches -= n
+            _kernels.count_launch(fn, -n)
         CapturedStep.captures += 1
         CapturedStep.capture_s += self.capture_ms / 1e3
         CapturedStep.warmup_s += self.warmup_ms / 1e3
@@ -124,5 +136,5 @@ class CapturedStep:
         """Run the recorded step once more, on the current stream."""
         self.graph.replay()
         for fn, n in self.counts:
-            fn.launches += n
+            _kernels.count_launch(fn, n)
         CapturedStep.replays += 1

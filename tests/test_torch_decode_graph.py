@@ -21,6 +21,7 @@ cases (captured against eager, bit for bit) are in
 """
 
 import contextlib
+import time
 import dataclasses
 
 import jax
@@ -35,6 +36,7 @@ from matryoshka_mm_tpu.generate import (GenerationConfig as JaxGenConfig,
 from matryoshka_mm_tpu.models.llava import (LlavaConfig as JaxLlavaConfig,
                                             init_llava_params)
 from matryoshka_mm_tpu.serve.prefix_cache import _suffix_prefill_fn
+from matryoshka_mm_torch import _kernels
 from matryoshka_mm_torch.config import LlavaConfig
 from matryoshka_mm_torch.constants import IMAGE_TOKEN_INDEX
 from matryoshka_mm_torch.generate import (DecodeGraph, GenerationConfig,
@@ -303,6 +305,9 @@ class _FakeStream:
     def wait_stream(self, other):
         pass
 
+    def synchronize(self):
+        pass
+
 
 @pytest.fixture
 def fake_cuda(monkeypatch):
@@ -314,7 +319,11 @@ def fake_cuda(monkeypatch):
                         lambda device=None: _FakeStream())
     monkeypatch.setattr(torch.cuda, "stream",
                         lambda s: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: None)
+    # a device-wide synchronize while another thread records invalidates
+    # that capture: none may happen here
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda device=None: _FakeGraph.log.append(
+                            "device synchronize"))
     return _FakeGraph.log
 
 
@@ -332,7 +341,7 @@ def test_captured_step_counts_each_replay_as_the_eager_step(fake_cuda,
 
     def step():             # what the wrappers' counters do in one step
         for fn, n in zip(fns, per_step):
-            fn.launches += n
+            _kernels.count_launch(fn, n)
         host["slots"] += 1
 
     def rewind():
@@ -363,6 +372,60 @@ def test_captured_step_counts_each_replay_as_the_eager_step(fake_cuda,
     finally:
         for fn, n in zip(fns, saved):
             fn.launches = n
+
+
+def test_a_capture_keeps_the_launches_of_other_threads(fake_cuda):
+    """While one thread records a step, another launches kernels (the
+    serving worker's batcher beside a request's own decode): the capture
+    takes back its own launches only, and its replays add only those."""
+    import threading
+
+    from matryoshka_mm_torch.ops import decode_attention, paged_attention
+
+    mine = decode_attention.flash_decode_attention
+    other = paged_attention.paged_decode_attention
+    saved = mine.launches, other.launches
+    calls = {"n": 0}
+
+    def batcher_round():
+        _kernels.count_launch(other, 256)
+
+    def step():
+        calls["n"] += 1
+        _kernels.count_launch(mine, 32)
+        if calls["n"] == 2:          # another thread launches mid-capture
+            t = threading.Thread(target=batcher_round)
+            t.start()
+            t.join(timeout=10)
+            assert not t.is_alive()
+
+    try:
+        mine.launches = other.launches = 0
+        cap = cuda_graph.CapturedStep(step, "cuda")
+        assert cap.counts == [(mine, 32)]
+        assert (mine.launches, other.launches) == (32, 256)
+        cap.replay()
+        assert (mine.launches, other.launches) == (64, 256)
+    finally:
+        mine.launches, other.launches = saved
+
+
+def test_captures_of_two_threads_do_not_overlap(fake_cuda):
+    """Two threads that capture at once (two sampled requests of the
+    serving worker) record one after the other."""
+    import threading
+
+    def step():
+        time.sleep(0.05)
+
+    threads = [threading.Thread(target=cuda_graph.CapturedStep,
+                                args=(step, "cuda")) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=10)
+        assert not t.is_alive()
+    assert fake_cuda == ["begin thread_local", "end"] * 2
 
 
 def test_a_failed_capture_raises_and_ends_the_capture(fake_cuda):

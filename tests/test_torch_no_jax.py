@@ -87,6 +87,52 @@ print("OK", losses)
 """
 
 
+_FRONTEND = """
+import json, sys
+sys.modules["jax"] = None
+sys.modules["matryoshka_mm_tpu"] = None
+import matryoshka_mm_torch.serve.register_worker
+import matryoshka_mm_torch.serve.web_server
+import matryoshka_mm_torch.serve.cli
+import matryoshka_mm_torch.models.make_delta, matryoshka_mm_torch.models.consolidate
+import matryoshka_mm_torch.models.utils, matryoshka_mm_torch.utils.wandb_shim
+from matryoshka_mm_torch.serve import controller, model_worker, sglang_worker, test_message
+from matryoshka_mm_torch.utils import profiling
+from matryoshka_mm_torch import native
+sys.stdout, sys.stderr = sys.__stdout__, sys.__stderr__
+w = model_worker.ModelWorker("", "", "t", True, "debug://tiny", None, None,
+                             device="cpu", continuous_batching=True,
+                             max_batch=2, kv_backend="paged")
+c = controller.Controller("shortest_queue", start_expiry_thread=False)
+c.register_worker("http://w", False, w.get_status())
+assert c.get_worker_address("tiny") == "http://w"
+params = sglang_worker._params_from_sglang(
+    {"text": "USER: hi ASSISTANT:", "sampling_params": {"max_new_tokens": 4}})
+rows = [json.loads(x) for x in b"".join(w.generate_stream_gate(params)).split(b"\\0") if x]
+w.batcher.shutdown()
+assert rows and all(r["error_code"] == 0 for r in rows), rows
+with profiling.trace(sys.argv[1]):
+    pass
+assert native.native_available() in (True, False)
+assert not [m for m in sys.modules
+            if m.split(".")[0] in ("jax", "jaxlib", "matryoshka_mm_tpu")
+            if sys.modules[m] is not None]
+print("OK", rows[-1]["text"])
+"""
+
+
+def test_frontend_runs_with_jax_blocked(tmp_path):
+    """The front end's modules import, and a worker answers a request
+    through its paged batcher, with ``jax`` and ``matryoshka_mm_tpu`` made
+    unimportable."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", _FRONTEND,
+                           str(tmp_path / "trace")], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("OK")
+
+
 def test_tiny_generate_runs_with_jax_blocked():
     """``generate`` and one request through the paged batcher, with ``jax``
     and ``matryoshka_mm_tpu`` made unimportable."""
@@ -110,7 +156,7 @@ def test_train_steps_run_with_jax_blocked():
 
 def _port_files():
     return sorted(p for p in PORT.rglob("*") if p.suffix in (
-        ".py", ".cu", ".cuh")) + [REPO / "chip_smoke.py"]
+        ".py", ".cu", ".cuh", ".cpp")) + [REPO / "chip_smoke.py"]
 
 
 FORBIDDEN = {

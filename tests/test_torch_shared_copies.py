@@ -1,7 +1,8 @@
 """The port's own copies of the framework-free modules (constants, kvconfig,
-conversation, mm_utils, image_processing, train/data, train/sampler) give
-what the JAX package's originals give.  Everything here is exact: the copies run the same numpy /
-PIL code."""
+conversation, mm_utils, image_processing with its native hook, igvlm/grid,
+train/data, train/sampler) give what the JAX package's originals give.
+Everything here is exact: the copies run the same numpy / PIL / C++
+code."""
 
 import numpy as np
 import pytest
@@ -82,11 +83,66 @@ def test_tokenizer_image_token_equal(prompt):
 
 
 def _pil_only(monkeypatch):
-    """The JAX package's processor takes its optional C++ path when a
-    compiler is around; the copy carries the PIL path only."""
+    """Both processors take their optional C++ path when a compiler is
+    around: here they take the PIL path."""
+    import matryoshka_mm_torch.native as tnative
     import matryoshka_mm_tpu.native as native
 
     monkeypatch.setattr(native, "native_available", lambda: False)
+    monkeypatch.setattr(tnative, "native_available", lambda: False)
+
+
+@pytest.mark.parametrize("size", [(80, 64), (336, 336), (500, 340)])
+def test_clip_preprocess_native_hook_exact(size, monkeypatch):
+    """The port's processor takes its native path where the JAX package's
+    does, with the same bits, which are the PIL path's."""
+    from PIL import Image
+
+    import matryoshka_mm_torch.native as tnative
+    import matryoshka_mm_tpu.native as native
+
+    if not (native.native_available() and tnative.native_available()):
+        pytest.skip("no C++ compiler here")
+    calls = []
+    real = tnative.clip_preprocess_native
+    monkeypatch.setattr(tnative, "clip_preprocess_native",
+                        lambda *a: calls.append(a) or real(*a))
+    arr = np.random.default_rng(sum(size)).integers(
+        0, 256, (size[1], size[0], 3)).astype(np.uint8)
+    img = Image.fromarray(arr)
+    want = jip.ClipImageProcessor().preprocess(img)["pixel_values"]
+    got = tip.ClipImageProcessor().preprocess(img)["pixel_values"]
+    assert len(calls) == 1
+    np.testing.assert_array_equal(got, want)
+    _pil_only(monkeypatch)
+    np.testing.assert_array_equal(
+        tip.ClipImageProcessor().preprocess(img)["pixel_values"], got)
+    assert len(calls) == 1
+
+
+def test_grid_copy_equal(tmp_path):
+    cv2 = pytest.importorskip("cv2")
+    from matryoshka_mm_torch.igvlm import grid as tgrid
+    from matryoshka_mm_tpu.igvlm import grid as jgrid
+
+    rng = np.random.default_rng(3)
+    frames = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+              for h, w in ((40, 60), (48, 64), (40, 50), (30, 70), (44, 44))]
+    for n in (1, 2, 5):
+        assert tgrid.default_max_per_row(n) == jgrid.default_max_per_row(n)
+        np.testing.assert_array_equal(tgrid.create_grid_view(frames[:n]),
+                                      jgrid.create_grid_view(frames[:n]))
+    path = str(tmp_path / "v.avi")
+    out = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"MJPG"), 10, (64, 48))
+    for i in range(20):
+        out.write(np.full((48, 64, 3), 10 * i, np.uint8))
+    out.release()
+    for kw in ({}, {"ts": (0.5, 1.5)}):
+        got = tgrid.extract_frames(path, 6, **kw)
+        want = jgrid.extract_frames(path, 6, **kw)
+        assert len(got) == len(want) == 6
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
 
 
 @pytest.mark.parametrize("size", [(80, 64), (336, 336), (500, 340)])
