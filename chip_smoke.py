@@ -316,9 +316,31 @@ Phases; any failure exits non-zero, and no phase's exception is caught:
    generate.  The port's C++ image preprocessing builds with g++ and gives
    the PIL path's bits.
 
+18. the eval layer at the full width of llava-v1.5-7b-m3 (debug://7b,
+   random bf16 weights, nothing cut), run as a user runs it: each
+   generator through its build_parser().parse_args and eval_model.  16
+   POPE-style questions ("Is there a {object} in the image?\nAnswer the
+   question using a single word or phrase.", conv mode llava_v1) over 8
+   seeded JPEGs at COCO sizes through model_vqa_loader at
+   ver=v0_numtoks=144 with 32 new tokens, at --batch-size 1 and 8, then at
+   --batch-size 8 at scales 1 and 576 (a two-point scale sweep); each
+   answers file scored by eval_pope against seeded yes/no labels.  Gates:
+   every question answered once, every line with the JAX layout's keys,
+   exact flash (32 a generate call) and decode launches (32 a decode
+   step, replays included), one capture a generate call.  Printed with
+   the card's name and power limit: questions/s and generated tok/s over
+   the generate calls, TTFT p50 / max, the decode graphs' warm-up and
+   capture ms and their share of the wall clock, POPE F1 and accuracy
+   (meaningless on random weights).  Then phase 8's small float32 model
+   (Dh=128, a CLIP tower at 336 pixels): the loader's answers at
+   --batch-size 1 equal those at 8, --num-chunks 2 merged equal the
+   whole run, and model_vqa, model_vqa_science (an image row and a
+   text-only row) and model_vqa_qbench answer 2 questions each.
+   model_vqa_mmbench and model_qa are left to the CPU tests.
+
 With arguments (`python3 chip_smoke.py kernels quant slice qslice paged hbm
 serve smallinfer bwd train small ckpt anyres genmodes families famkernels
-lora frontend`) only the build and the named phases run (famkernels: phase
+lora frontend eval`) only the build and the named phases run (famkernels: phase
 3's cases at the families' shapes), and no result line is printed.
 
 Each kernel's record carries its bound: the larger of its bytes (inputs once,
@@ -6027,6 +6049,310 @@ def phase_frontend(dev) -> dict:
     return launches
 
 
+EVAL_SIZES = ((640, 480), (500, 375), (640, 427), (427, 640))   # COCO's
+EVAL_OBJECTS = ("dog", "car", "person", "chair", "bottle", "cup", "clock",
+                "bird")
+EVAL_IMAGES = 8
+EVAL_QUESTIONS = 16
+POPE_PROMPT = ("Is there a {} in the image?\nAnswer the question using a "
+               "single word or phrase.")
+# (label, --batch-size, scale): B=1 and B=8 at 144, then a two-point sweep
+EVAL_RUNS = (("b1 144", 1, 144), ("b8 144", 8, 144), ("b8 1", 8, 1),
+             ("b8 576", 8, 576))
+EVAL_NEW_TOKENS = 32
+EVAL_MODEL = "debug://7b"
+EVAL_KEYS = {"question_id", "prompt", "text", "answer_id", "model_id",
+             "metadata"}
+
+
+def eval_data(root: Path, seed=18) -> dict:
+    """POPE-style data from a seed: EVAL_IMAGES JPEGs at COCO sizes,
+    EVAL_QUESTIONS questions (two an image) with POPE's prompt, the yes/no
+    labels in question order, and the files the other generators read."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    images = root / "val2014"
+    images.mkdir()
+    names = []
+    for i in range(EVAL_IMAGES):
+        w, h = EVAL_SIZES[i % len(EVAL_SIZES)]
+        # blocks of colour, upsampled: a photo's low frequencies, not noise
+        small = rng.integers(0, 256, (h // 16, w // 16, 3), dtype=np.uint8)
+        names.append(f"COCO_val2014_{i:012d}.jpg")
+        Image.fromarray(small).resize((w, h), Image.BILINEAR).save(
+            images / names[-1], quality=90)
+    questions, labels = [], []
+    for i in range(EVAL_QUESTIONS):
+        obj = EVAL_OBJECTS[(3 * i) % len(EVAL_OBJECTS)]
+        questions.append({"question_id": i, "image": names[i // 2],
+                          "text": POPE_PROMPT.format(obj),
+                          "category": "random"})
+        labels.append({"question_id": i,
+                       "label": "yes" if rng.random() < 0.5 else "no"})
+
+    def jsonl(name, rows):
+        with open(root / name, "w") as f:
+            for r in rows:
+                f.write(json.dumps(r) + "\n")
+        return str(root / name)
+
+    science = root / "science.json"
+    with open(science, "w") as f:
+        json.dump([{"id": "s0", "image": names[0], "conversations": [
+                        {"from": "human", "value": "<image>\nWhich animal "
+                         "is shown?\nOptions: (A) cat (B) dog"}]},
+                   {"id": "s1", "conversations": [
+                       {"from": "human", "value": "What is two plus two?\n"
+                        "Options: (A) 3 (B) 4"}]}], f)
+    qbench = root / "qbench.json"
+    with open(qbench, "w") as f:
+        json.dump([{"img_path": names[i], "question": "How is the clarity "
+                    "of the image?", "candidates": ["good", "poor"]}
+                   for i in range(2)], f)
+    return {"images": str(images), "questions": jsonl("pope.jsonl",
+                                                      questions),
+            "two": jsonl("two.jsonl", questions[:2]),
+            "labels": jsonl("labels.jsonl", labels),
+            "science": str(science), "qbench": str(qbench)}
+
+
+class EvalTally:
+    """Wraps ``LlavaModel.generate`` and ``generate._decode_loop`` while
+    open: each generate call's start, its first token on the host (the
+    decode loop's first yield, after the prefill's sync), its end, its
+    rows and columns, its generated tokens (non-pad) and the ms its decode
+    graph's warm-up and capture took."""
+
+    def __enter__(self):
+        from matryoshka_mm_torch import generate as gen
+        from matryoshka_mm_torch.models import builder
+        from matryoshka_mm_torch.utils.cuda_graph import CapturedStep
+
+        self.calls = []
+        self._real = (builder.LlavaModel.generate, gen._decode_loop)
+        real_generate, real_loop = self._real
+        calls = self.calls
+
+        def graph_ms():
+            return (CapturedStep.warmup_s + CapturedStep.capture_s) * 1e3
+
+        def generate(model, *a, **kw):
+            rec = {"t0": time.perf_counter(), "graph_ms": -graph_ms()}
+            calls.append(rec)
+            out = real_generate(model, *a, **kw)
+            rec["t1"] = time.perf_counter()
+            rec["graph_ms"] += graph_ms()
+            rec["rows"], rec["cols"] = out.shape
+            rec["tokens"] = int((out != kw.get("pad_token_id", 0)).sum())
+            return out
+
+        def decode_loop(*a, **kw):
+            it = real_loop(*a, **kw)
+            first = next(it)
+            calls[-1]["first"] = time.perf_counter()
+            yield first
+            yield from it
+
+        builder.LlavaModel.generate = generate
+        gen._decode_loop = decode_loop
+        return self
+
+    def __exit__(self, *exc):
+        from matryoshka_mm_torch import generate as gen
+        from matryoshka_mm_torch.models import builder
+
+        builder.LlavaModel.generate, gen._decode_loop = self._real
+
+
+def read_answers(path, label) -> list:
+    with open(path) as f:
+        rows = [json.loads(line) for line in f]
+    for r in rows:
+        if not EVAL_KEYS <= set(r):
+            fail(f"{label}: an answer line lacks {EVAL_KEYS - set(r)}")
+    return rows
+
+
+def eval_loader_run(label, argv, data, counters, n_layers) -> dict:
+    """One ``model_vqa_loader`` run of the POPE questions on EVAL_MODEL,
+    scored by ``eval_pope``; gates and prints; returns its launches."""
+    import contextlib
+    import io
+
+    from matryoshka_mm_torch.eval import eval_pope, model_vqa_loader
+    from matryoshka_mm_torch.utils.cuda_graph import CapturedStep
+
+    args = model_vqa_loader.build_parser().parse_args(argv)
+    for c in counters.values():
+        c.launches = 0
+    graph0 = (CapturedStep.captures, CapturedStep.warmup_s,
+              CapturedStep.capture_s)
+    t0 = time.perf_counter()
+    with EvalTally() as tally:
+        model_vqa_loader.eval_model(args)
+    wall = time.perf_counter() - t0
+    launches = _read(counters)
+    calls = tally.calls
+    rows = read_answers(args.answers_file, label)
+    ids = sorted(r["question_id"] for r in rows)
+    if ids != list(range(EVAL_QUESTIONS)):
+        fail(f"{label}: answers for {ids}, want every one of "
+             f"{EVAL_QUESTIONS} questions once")
+    want = {"flash_attention": n_layers * len(calls),
+            "decode_attention": n_layers * sum(c["cols"] - 1
+                                               for c in calls)}
+    print(f"[eval {label}] launches {launches} expected {want}")
+    if launches != want or min(launches.values()) <= 0:
+        fail(f"eval {label}: the loader did not go through the flash and "
+             f"decode kernels as expected")
+    captures = CapturedStep.captures - graph0[0]
+    warm_ms = (CapturedStep.warmup_s - graph0[1]) * 1e3
+    cap_ms = (CapturedStep.capture_s - graph0[2]) * 1e3
+    if captures != len(calls):
+        fail(f"eval {label}: {captures} captures for {len(calls)} calls")
+    span = calls[-1]["t1"] - calls[0]["t0"]
+    tokens = sum(c["tokens"] for c in calls)
+    ttft = sorted((c["first"] - c["t0"]) * 1e3 for c in calls)
+    # each call's warm-up + capture against its own wall; the run's first
+    # call, the cold one, apart
+    later = calls[1:] or calls
+    share = statistics.median(c["graph_ms"] / 1e3 / (c["t1"] - c["t0"])
+                              for c in later)
+    per_call = (
+        f"a call after the first: warm-up + capture median "
+        f"{statistics.median(c['graph_ms'] for c in later):.2f} ms, "
+        f"{share:.1%} of its wall (first call {calls[0]['graph_ms']:.2f} "
+        f"ms, TTFT {(calls[0]['first'] - calls[0]['t0']) * 1e3:.2f} ms)")
+    answers = sorted(rows, key=lambda r: r["question_id"])
+    with contextlib.redirect_stdout(io.StringIO()):
+        pope = eval_pope.eval_pope(answers, data["labels"])
+    print(f"[eval {label}] {card_line()}: {len(calls)} generate calls of "
+          f"{calls[0]['rows']}-{max(c['rows'] for c in calls)} rows; "
+          f"eval_model {wall:.3f} s (load included), generate calls "
+          f"{span:.3f} s: {EVAL_QUESTIONS / span:.2f} questions/s, "
+          f"{tokens / span:.1f} generated tok/s ({tokens} tokens); TTFT "
+          f"p50 {statistics.median(ttft):.2f} ms (a call's start to its "
+          f"first token on the host) max {ttft[-1]:.2f} ms; warm-up "
+          f"{warm_ms:.2f} ms + capture {cap_ms:.2f} ms of the decode "
+          f"graphs = {(warm_ms + cap_ms) / 1e3 / span:.1%} of the generate "
+          f"calls' wall ({captures} captures); {per_call}; POPE F1 "
+          f"{pope['f1']:.4f} "
+          f"accuracy {pope['accuracy']:.4f} yes ratio "
+          f"{pope['yes_ratio']:.4f} (random weights)")
+    return launches
+
+
+def eval_small(root: Path, data: dict, dev) -> None:
+    """Phase 8's small float32 model (Dh=128, a CLIP tower at 336 pixels)
+    on the card: gate 1, the loader's answers at --batch-size 1 and 8
+    equal; gate 2, two chunks merged equal the whole run; model_vqa,
+    model_vqa_science (an image row and a text-only row) and
+    model_vqa_qbench answer 2 questions each."""
+    from matryoshka_mm_torch.eval import (model_vqa, model_vqa_loader,
+                                          model_vqa_qbench,
+                                          model_vqa_science)
+
+    path = str(small_front_model(root))
+    common = ["--model-path", path, "--device", str(dev), "--image-folder",
+              data["images"], "--matryoshka_vis_token_scale",
+              "ver=v0_numtoks=36"]
+
+    def loader(name, *extra):
+        out = str(root / f"{name}.jsonl")
+        model_vqa_loader.eval_model(model_vqa_loader.build_parser()
+                                    .parse_args(common + [
+                                        "--question-file",
+                                        data["questions"],
+                                        "--answers-file", out,
+                                        "--max_new_tokens", "16", *extra]))
+        return {r["question_id"]: r["text"]
+                for r in read_answers(out, f"eval small {name}")}
+
+    b1, b8 = loader("small-b1"), loader("small-b8", "--batch-size", "8")
+    print(f"[eval small] float32, {card_line()}: answers at batch 1 "
+          f"{'equal' if b1 == b8 else 'DIFFER from'} batch 8 "
+          f"({len(b1)} questions; first {b1[0]!r})")
+    if len(b1) != EVAL_QUESTIONS or b1 != b8:
+        fail("eval small: the loader's answers at --batch-size 1 and 8 "
+             "differ")
+    merged = {}
+    for k in range(2):
+        merged.update(loader(f"small-chunk{k}", "--batch-size", "8",
+                             "--num-chunks", "2", "--chunk-idx", str(k)))
+    print(f"[eval small] two chunks merged "
+          f"{'equal' if merged == b1 else 'DIFFER from'} the whole run")
+    if merged != b1:
+        fail("eval small: --num-chunks 2 merged differs from the whole run")
+    for mod, argv, n in (
+            (model_vqa, ["--question-file", data["two"], "--temperature",
+                         "0"], 2),
+            (model_vqa_science, ["--question-file", data["science"],
+                                 "--temperature", "0",
+                                 "--single-pred-prompt"], 2),
+            (model_vqa_qbench, ["--questions-file", data["qbench"]], 2)):
+        name = mod.__name__.rsplit(".", 1)[1]
+        out = str(root / f"{name}.jsonl")
+        t0 = time.perf_counter()
+        mod.eval_model(mod.build_parser().parse_args(
+            common + argv + ["--answers-file", out]))
+        with open(out) as f:
+            rows = [json.loads(line) for line in f]
+        print(f"[eval small] {name}: {len(rows)} answers in "
+              f"{time.perf_counter() - t0:.2f} s, first "
+              f"{str(rows[0].get('text', rows[0].get('response')))[:40]!r}")
+        if len(rows) != n:
+            fail(f"eval small: {name} gave {len(rows)} answers, want {n}")
+    try:
+        import pandas
+        have = f"pandas {pandas.__version__} imports here"
+    except ImportError:
+        have = "pandas does not import here"
+    print(f"[eval small] model_vqa_mmbench ({have}) and model_qa (sampled) "
+          f"are held to the JAX package by the CPU tests "
+          f"(tests/test_torch_eval_generators.py), not here")
+
+
+def phase_eval(dev) -> dict:
+    """Returns the launches of the counted 7B runs, by kernel."""
+    import tempfile
+
+    from matryoshka_mm_torch.config import LlavaConfig
+    from matryoshka_mm_torch.ops.decode_attention import flash_decode_attention
+    from matryoshka_mm_torch.ops.flash_attention import flash_attention_lse
+
+    counters = {"flash_attention": flash_attention_lse,
+                "decode_attention": flash_decode_attention}
+    n_layers = LlavaConfig.llava_v15_7b_m3().llama.num_hidden_layers
+    t0 = [time.perf_counter()]
+
+    def lap(what):
+        now = time.perf_counter()
+        print(f"[time] eval {what} {now - t0[0]:.1f} s")
+        t0[0] = now
+
+    launches = {k: 0 for k in counters}
+    with tempfile.TemporaryDirectory(prefix="m3_eval_") as tmp:
+        root = Path(tmp)
+        data = eval_data(root)
+        for label, bs, scale in EVAL_RUNS:
+            out = str(root / f"answers-{label.replace(' ', '-')}.jsonl")
+            _add(launches, eval_loader_run(label, [
+                "--model-path", EVAL_MODEL, "--device", str(dev),
+                "--image-folder", data["images"], "--question-file",
+                data["questions"], "--answers-file", out, "--temperature",
+                "0", "--conv-mode", "llava_v1", "--batch-size", str(bs),
+                "--max_new_tokens", str(EVAL_NEW_TOKENS),
+                "--matryoshka_vis_token_scale",
+                f"ver=v0_numtoks={scale}"], data, counters, n_layers))
+            gc.collect()
+            torch.cuda.empty_cache()
+            lap(f"{EVAL_MODEL} {label}")
+        eval_small(root, data, dev)
+        lap("small model")
+    return launches
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
@@ -6059,10 +6385,10 @@ def main(argv=()) -> int:
     if argv:
         # a subset for work on one phase: `chip_smoke.py kernels quant slice
         # qslice paged hbm serve smallinfer bwd train small ckpt anyres
-        # genmodes families famkernels lora frontend` runs phases 3
+        # genmodes families famkernels lora frontend eval` runs phases 3
         # (attention kernels), 3 (quantized products), 4, 5, 6, 7, 8, 9, 10,
-        # 11, 12, 13, 14, 15, phase 3's cases at the families' shapes, 16 and
-        # 17 alone and prints no result line
+        # 11, 12, 13, 14, 15, phase 3's cases at the families' shapes, 16,
+        # 17 and 18 alone and prints no result line
         for name in argv:
             phases = {"kernels": phase_kernels, "quant": phase_quant_kernels,
              "slice": phase_slice, "smallinfer": phase_small,
@@ -6072,7 +6398,8 @@ def main(argv=()) -> int:
              "small": phase_train_small, "ckpt": phase_ckpt,
              "anyres": phase_anyres, "genmodes": phase_genmodes,
              "families": phase_families, "famkernels": phase_family_kernels,
-             "lora": phase_lora, "frontend": phase_frontend}
+             "lora": phase_lora, "frontend": phase_frontend,
+             "eval": phase_eval}
             timed(phases[name], dev)
         print(f"partial run {argv}: no result")
         return 1
@@ -6104,6 +6431,8 @@ def main(argv=()) -> int:
     for k, n in timed(phase_lora, dev).items():
         launches[k] = launches.get(k, 0) + n
     for k, n in timed(phase_frontend, dev).items():
+        launches[k] = launches.get(k, 0) + n
+    for k, n in timed(phase_eval, dev).items():
         launches[k] = launches.get(k, 0) + n
     if [m for m in sys.modules
             if m.split(".")[0] in ("jax", "matryoshka_mm_tpu")]:

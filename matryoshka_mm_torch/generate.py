@@ -439,6 +439,11 @@ class DecodeGraph:
         # with it, for a step that does not run then
         self.cache.host_idx -= 1
 
+    def release(self) -> None:
+        """Destroy the captured graph (``CapturedStep.release``)."""
+        if self.graph is not None:
+            self.graph.release()
+
     @torch.inference_mode()
     def run(self, steps: int) -> torch.Tensor:
         """``steps`` decode steps on the card with no host sync -> the
@@ -480,22 +485,28 @@ def _decode_loop(params, cfg, gen_cfg: GenerationConfig, cache, first,
                         finished, generator, combine) \
         if cuda_graph and first.device.type == "cuda" \
         and gen_cfg.max_new_tokens > 1 else None
-    while steps_done < gen_cfg.max_new_tokens:
-        nsteps = min(gen_cfg.decode_chunk, gen_cfg.max_new_tokens - steps_done)
-        if graph is None:
-            token, lengths, finished, toks = decode_chunk(
-                params, cfg, gen_cfg, cache, token, lengths, finished,
-                nsteps, generator, combine=combine)
-        else:
-            toks, finished = graph.run(nsteps), graph.finished
-        steps_done += nsteps
-        out_tokens.append(toks.cpu().numpy())     # one sync per chunk
-        out = np.concatenate(out_tokens, axis=1)
-        yield _trim(out, gen_cfg)
-        if bool(finished.all()):
-            break
-        if stopping_criteria is not None and stopping_criteria(list(out[0])):
-            break
+    try:
+        while steps_done < gen_cfg.max_new_tokens:
+            nsteps = min(gen_cfg.decode_chunk,
+                         gen_cfg.max_new_tokens - steps_done)
+            if graph is None:
+                token, lengths, finished, toks = decode_chunk(
+                    params, cfg, gen_cfg, cache, token, lengths, finished,
+                    nsteps, generator, combine=combine)
+            else:
+                toks, finished = graph.run(nsteps), graph.finished
+            steps_done += nsteps
+            out_tokens.append(toks.cpu().numpy())     # one sync per chunk
+            out = np.concatenate(out_tokens, axis=1)
+            yield _trim(out, gen_cfg)
+            if bool(finished.all()):
+                break
+            if stopping_criteria is not None and \
+                    stopping_criteria(list(out[0])):
+                break
+    finally:
+        if graph is not None:      # while no other thread captures
+            graph.release()
 
 
 def _trim(tokens: np.ndarray, gen_cfg: GenerationConfig) -> np.ndarray:

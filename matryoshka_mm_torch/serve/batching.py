@@ -583,6 +583,8 @@ class ContinuousBatcher:
             raise RuntimeError(
                 f"ContinuousBatcher.shutdown: the scheduler thread did not "
                 f"end within {timeout} s; its device state is kept")
+        if self._round_graph is not None:
+            self._round_graph.release()
         # a shut-down batcher object that stays referenced must not pin
         # the model and the multi-GB pools
         for attr in ("params", "paged", "pool", "fsm_allow", "fsm_trans",

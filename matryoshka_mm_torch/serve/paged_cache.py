@@ -558,6 +558,11 @@ class CapturedRound:
     def _fields(state: PoolState) -> tuple:
         return state.tokens, state.lengths, state.budget, state.active
 
+    def release(self) -> None:
+        """Destroy the captured round (``CapturedStep.release``)."""
+        if self.graph is not None:
+            self.graph.release()
+
     def _rewind(self) -> None:
         if self.cache is not None:
             self.cache.host_idx -= self.steps

@@ -42,6 +42,15 @@ every replay: such values live in device tensors instead (the KV cache's
   ran, captured or not.
 * Errors: a failed capture or replay raises.  Nothing falls back to the
   eager step.
+* Release: destroying a graph is an API call that is illegal while any
+  thread records ("operation not permitted when stream is capturing"
+  from ``CUDAGraph::reset``), and it invalidates that capture.  A
+  ``CapturedStep`` keeps no reference to its step after the capture, so
+  it forms no reference cycle with the object whose method it recorded
+  and is freed where that object is dropped, not by the cycle collector
+  in whatever thread it next runs; :meth:`CapturedStep.release` destroys
+  the graph under the capture lock, and its owners call it when they are
+  done with it.
 """
 
 from __future__ import annotations
@@ -93,7 +102,6 @@ class CapturedStep:
         if device.type != "cuda":
             raise ValueError(f"CapturedStep: CUDA graphs need a CUDA device, "
                              f"got {device}")
-        self.step = step
         self.stream = torch.cuda.Stream(device)
         current = torch.cuda.current_stream(device)
         with _CAPTURE_LOCK:
@@ -132,8 +140,16 @@ class CapturedStep:
         CapturedStep.capture_s += self.capture_ms / 1e3
         CapturedStep.warmup_s += self.warmup_ms / 1e3
 
+    def release(self) -> None:
+        """Destroy the graph now, while no thread records one; replaying
+        it afterwards raises."""
+        with _CAPTURE_LOCK:
+            self.graph = None
+
     def replay(self) -> None:
         """Run the recorded step once more, on the current stream."""
+        if self.graph is None:
+            raise RuntimeError("CapturedStep.replay: the graph was released")
         self.graph.replay()
         for fn, n in self.counts:
             _kernels.count_launch(fn, n)

@@ -443,6 +443,48 @@ def test_a_failed_capture_raises_and_ends_the_capture(fake_cuda):
         cuda_graph.CapturedStep(step, "cpu")
 
 
+def test_a_graph_is_freed_with_its_owner_and_released_under_the_lock(
+        fake_cuda, monkeypatch):
+    """Destroying a graph while any thread records fails ("operation not
+    permitted when stream is capturing", from ``CUDAGraph::reset``) and
+    invalidates that capture.  A ``CapturedStep`` keeps no reference to
+    the step it recorded, so the object whose method that is forms no
+    cycle with it and goes, graph and all, where it is dropped rather than
+    when the cycle collector next runs, in any thread; ``release``
+    destroys the graph under the capture lock."""
+    import gc
+    import weakref
+
+    destroyed = []
+
+    class Graph(_FakeGraph):
+        def __del__(self):
+            destroyed.append(cuda_graph._CAPTURE_LOCK.locked())
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", Graph)
+
+    class Owner:                 # as DecodeGraph and CapturedRound hold it
+        def __init__(self):
+            self.graph = cuda_graph.CapturedStep(self.step, "cuda")
+
+        def step(self):
+            pass
+
+    gc.disable()
+    try:
+        owner = Owner()
+        ref = weakref.ref(owner)
+        del owner
+        assert ref() is None and destroyed == [False]
+        cap = Owner().graph
+        cap.release()
+        assert destroyed == [False, True]
+        with pytest.raises(RuntimeError, match="released"):
+            cap.replay()
+    finally:
+        gc.enable()
+
+
 def test_kv_cache_takes_an_int_write_slot_and_keeps_both_counts():
     cfg = LlavaConfig.tiny_debug().llama
     cache = init_kv_cache(cfg, 2, 8, device="cpu")

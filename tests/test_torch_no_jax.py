@@ -121,6 +121,57 @@ print("OK", rows[-1]["text"])
 """
 
 
+_EVAL = """
+import json, sys
+sys.modules["jax"] = None
+sys.modules["matryoshka_mm_tpu"] = None
+import numpy as np
+from PIL import Image
+import matryoshka_mm_torch.eval.model_vqa, matryoshka_mm_torch.eval.model_vqa_science
+import matryoshka_mm_torch.eval.model_vqa_qbench, matryoshka_mm_torch.eval.model_vqa_mmbench
+import matryoshka_mm_torch.eval.model_qa, matryoshka_mm_torch.eval.converters
+import matryoshka_mm_torch.eval.eval_mme, matryoshka_mm_torch.eval.eval_textvqa
+import matryoshka_mm_torch.eval.eval_science_qa, matryoshka_mm_torch.eval.copy_predictions
+import matryoshka_mm_torch.eval.caption_metrics, matryoshka_mm_torch.eval.math_judge
+import matryoshka_mm_torch.eval.eval_mmvet, matryoshka_mm_torch.eval.eval_science_qa_gpt4
+import matryoshka_mm_torch.eval.qa_baseline_gpt35, matryoshka_mm_torch.eval.summarize_gpt_review
+import matryoshka_mm_torch.eval.webpage_report
+from matryoshka_mm_torch.eval import eval_pope, model_vqa_loader
+rng = np.random.default_rng(0)
+Image.fromarray(rng.integers(0, 256, (48, 64, 3), np.uint8)).save("x.png")
+with open("q.jsonl", "w") as f, open("labels.jsonl", "w") as g:
+    for i in range(3):
+        f.write(json.dumps({"question_id": i, "image": "x.png",
+                            "text": "Is there a dog in the image?"}) + "\\n")
+        g.write(json.dumps({"question_id": i, "label": "yes"}) + "\\n")
+model_vqa_loader.eval_model(model_vqa_loader.build_parser().parse_args([
+    "--model-path", "debug://tiny", "--device", "cpu", "--image-folder", ".",
+    "--question-file", "q.jsonl", "--answers-file", "a.jsonl",
+    "--batch-size", "2", "--max_new_tokens", "3",
+    "--matryoshka_vis_token_scale", "ver=v0_numtoks=4"]))
+answers = [json.loads(l) for l in open("a.jsonl")]
+assert sorted(a["question_id"] for a in answers) == [0, 1, 2], answers
+scores = eval_pope.eval_pope(answers, "labels.jsonl")
+assert 0.0 <= scores["accuracy"] <= 1.0, scores
+assert not [m for m in sys.modules
+            if m.split(".")[0] in ("jax", "jaxlib", "matryoshka_mm_tpu")
+            if sys.modules[m] is not None]
+print("OK", scores)
+"""
+
+
+def test_eval_loader_and_pope_run_with_jax_blocked(tmp_path):
+    """Every eval module imports, ``model_vqa_loader.eval_model`` answers
+    on ``debug://tiny`` on the CPU and ``eval_pope`` scores its answers,
+    with ``jax`` and ``matryoshka_mm_tpu`` made unimportable."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", _EVAL], cwd=tmp_path,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.splitlines()[-1].startswith("OK")
+
+
 def test_frontend_runs_with_jax_blocked(tmp_path):
     """The front end's modules import, and a worker answers a request
     through its paged batcher, with ``jax`` and ``matryoshka_mm_tpu`` made
