@@ -336,12 +336,36 @@ Phases; any failure exits non-zero, and no phase's exception is caught:
    --batch-size 1 equal those at 8, --num-chunks 2 merged equal the
    whole run, and model_vqa, model_vqa_science (an image row and a
    text-only row) and model_vqa_qbench answer 2 questions each.
-   model_vqa_mmbench and model_qa are left to the CPU tests.
+   model_vqa_mmbench and model_qa are left to the CPU tests;
+19. the lmms-eval harness and the IG-VLM pipeline at the full width of
+   llava-v1.5-7b-m3 (debug://7b, random bf16 weights, nothing cut), after a
+   line saying that yaml, pandas and cv2 import.  The shipped pope task
+   (its prompt and scoring hooks) over phase 18's 16 questions and 8 JPEGs
+   as a local JSON with 32 new tokens: simple_evaluate(model="llava",
+   batch_size=8, ver=v0_numtoks=144), gates exact flash (32 a generate
+   call) and decode launches (31 x 32 a call, replays included), one
+   capture a call, 16 samples, POPE metrics in [0, 1]; the adapter's
+   loglikelihood on 8 image requests at scales 144 and 576, gates 32 flash
+   launches a request and no decode launch, finite logprobs, one request's
+   scored logits against attn_impl="reference" (cosine >= 0.99); the
+   llava_sglang adapter's in-process worker (paged batcher, prefix cache,
+   parallel=8, max_batch=8) over the 16 questions, gates paged-attention
+   launches > 0, every response a string, and after close() no new thread
+   alive and the device memory back within 256 MiB; IG-VLM's
+   eval_llava_multiplechoice run over 2 seeded 640 x 480 mp4s of 8 frames
+   (8 new tokens), gates a prediction a video and exact flash and decode
+   launches.  Printed with the card's name and power limit: questions/s
+   and generated tok/s, loglikelihood requests/s and ms a request per
+   scale, llava_sglang questions/s, s a video.  Then phase 8's small
+   float32 model: generate_until at batch 8 equals batch 1, a second
+   llava_sglang run in the process answers as the llava adapter, and
+   loglikelihood on the card equals the CPU's within 1e-4.
 
 With arguments (`python3 chip_smoke.py kernels quant slice qslice paged hbm
 serve smallinfer bwd train small ckpt anyres genmodes families famkernels
-lora frontend eval`) only the build and the named phases run (famkernels: phase
-3's cases at the families' shapes), and no result line is printed.
+lora frontend eval harness`) only the build and the named phases run
+(famkernels: phase 3's cases at the families' shapes), and no result line is
+printed.
 
 Each kernel's record carries its bound: the larger of its bytes (inputs once,
 outputs once) over 3.35 TB/s and its operations over 989 TFLOP/s, the H100
@@ -6353,6 +6377,401 @@ def phase_eval(dev) -> dict:
     return launches
 
 
+HARNESS_MODEL = "debug://7b"
+HARNESS_SCALE = 144
+HARNESS_NEW_TOKENS = 32
+HARNESS_BATCH = 8
+HARNESS_LL_SCALES = (144, 576)
+HARNESS_LL_REQUESTS = 8           # a scale
+HARNESS_VIDEO_SIZE = (640, 480)
+HARNESS_VIDEO_FRAMES = 8
+HARNESS_VIDEOS = 2
+HARNESS_VIDEO_TOKENS = 8          # eval_llava_multiplechoice's answers
+HARNESS_SMALL_DOCS = 8
+HARNESS_SMALL_TOL = 1e-4          # loglikelihood, card against CPU, float32
+# the small model splices at most 128 positions (its
+# tokenizer_model_max_length): a scale that leaves the continuation in
+# (at 144 the splice drops it and the adapter raises ValueError)
+HARNESS_SMALL_LL_SCALE = 36
+HARNESS_MEM_SLACK = 256 << 20     # bytes a closed worker may leave allocated
+
+
+def harness_task(root: Path, data: dict, name: str) -> dict:
+    """The shipped ``pope`` task over phase 18's questions and JPEGs (its
+    prompt, post prompt and scoring hooks), as a local JSON, with
+    HARNESS_NEW_TOKENS new tokens; registered under ``name``."""
+    from matryoshka_mm_torch.lmms_eval.api.registry import (get_task,
+                                                            register_task)
+
+    with open(data["questions"]) as f, open(data["labels"]) as g:
+        docs = [{"question": q["text"].split("\n")[0], "answer": lab["label"],
+                 "image": q["image"]}
+                for q, lab in zip(map(json.loads, f), map(json.loads, g))]
+    path = root / f"{name}.json"
+    path.write_text(json.dumps(docs))
+    cfg = dict(get_task("pope"), task=name, dataset_path=str(path),
+               dataset_kwargs={"image_folder": data["images"]},
+               generation_kwargs={"max_new_tokens": HARNESS_NEW_TOKENS,
+                                  "temperature": 0.0})
+    register_task(name, cfg)
+    return cfg
+
+
+def _harness_counters() -> dict:
+    from matryoshka_mm_torch.ops.decode_attention import flash_decode_attention
+    from matryoshka_mm_torch.ops.flash_attention import flash_attention_lse
+    from matryoshka_mm_torch.ops.paged_attention import paged_decode_attention
+
+    return {"flash_attention": flash_attention_lse,
+            "decode_attention": flash_decode_attention,
+            "paged_attention": paged_decode_attention}
+
+
+def _generate_gates(label, calls, launches, n_layers, captures,
+                    new_tokens) -> None:
+    """Exact flash (n_layers a generate call) and decode launches
+    (n_layers a decode step, replays included), every call decoding
+    ``new_tokens`` and capturing its step once."""
+    cols = [c["cols"] for c in calls]
+    want = {"flash_attention": n_layers * len(calls),
+            "decode_attention": n_layers * (new_tokens - 1) * len(calls),
+            "paged_attention": 0}
+    print(f"[harness {label}] {len(calls)} generate calls of "
+          f"{[c['rows'] for c in calls]} rows and {cols} tokens; launches "
+          f"{launches} expected {want}; {captures} captures")
+    if launches != want or cols != [new_tokens] * len(calls):
+        fail(f"harness {label}: not the flash and decode launches of "
+             f"{len(calls)} generate calls of {new_tokens} tokens each")
+    if captures != len(calls):
+        fail(f"harness {label}: {captures} captures for {len(calls)} calls")
+
+
+def harness_generate(task, counters, n_layers) -> dict:
+    """``simple_evaluate`` over the 16-doc task on the 7B model at batch
+    HARNESS_BATCH; returns its launches."""
+    from matryoshka_mm_torch.lmms_eval.evaluator import simple_evaluate
+    from matryoshka_mm_torch.utils.cuda_graph import CapturedStep
+
+    _zero(counters)
+    captures = CapturedStep.captures
+    t0 = time.perf_counter()
+    with EvalTally() as tally:
+        res = simple_evaluate(
+            model="llava",
+            model_args=f"pretrained={HARNESS_MODEL},"
+                       f"batch_size={HARNESS_BATCH},device=cuda",
+            tasks=[task["task"]],
+            matryoshka_vis_token_scale=f"ver=v0_numtoks={HARNESS_SCALE}",
+            log_samples=True)
+    wall = time.perf_counter() - t0
+    launches = _read(counters)
+    calls = tally.calls
+    _generate_gates("generate_until", calls, launches, n_layers,
+                    CapturedStep.captures - captures, HARNESS_NEW_TOKENS)
+    agg = res["results"][task["task"]]
+    samples = res["samples"][task["task"]]
+    f1, acc = agg["pope_metrics/f1"], agg["pope_metrics/accuracy"]
+    if len(samples) != EVAL_QUESTIONS or agg["samples"] != EVAL_QUESTIONS:
+        fail(f"harness generate_until: {len(samples)} samples, want "
+             f"{EVAL_QUESTIONS}")
+    if not all(isinstance(s["resps"][0], str) for s in samples) or not (
+            0.0 <= f1 <= 1.0 and 0.0 <= acc <= 1.0):
+        fail(f"harness generate_until: responses or POPE metrics out of "
+             f"range ({agg})")
+    span = calls[-1]["t1"] - calls[0]["t0"]
+    tokens = sum(c["tokens"] for c in calls)
+    print(f"[harness generate_until] {card_line()}: simple_evaluate "
+          f"{wall:.3f} s (model load included); generate calls {span:.3f} "
+          f"s: {EVAL_QUESTIONS / span:.2f} questions/s, {tokens / span:.1f} "
+          f"generated tok/s ({tokens} tokens); POPE F1 {f1:.4f} accuracy "
+          f"{acc:.4f} (random weights); first response "
+          f"{samples[0]['resps'][0][:40]!r}")
+    return launches
+
+
+def _ll_requests(task, n) -> list:
+    """``loglikelihood`` requests over the first ``n`` docs of ``task``:
+    the prompt with its image, and the label as a sentence."""
+    from PIL import Image
+
+    from matryoshka_mm_torch.lmms_eval.api.instance import Instance
+    from matryoshka_mm_torch.lmms_eval.api.task import ConfigurableTask
+
+    t = ConfigurableTask(task)
+    folder = Path(task["dataset_kwargs"]["image_folder"])
+    out = []
+    for i, doc in enumerate(t.docs()[:n]):
+        obj = doc["question"].split()[3]
+        cont = (f" {doc['answer'].capitalize()}, there is "
+                f"{'a' if doc['answer'] == 'yes' else 'no'} {obj} in the "
+                f"image.")
+        image = Image.open(folder / doc["image"]).convert("RGB")
+        out.append(Instance("loglikelihood", doc,
+                            (t.doc_to_text(doc), cont, image), 0,
+                            task["task"], i))
+    return out
+
+
+def harness_loglikelihood(task, counters, n_layers) -> dict:
+    """The llava adapter's ``loglikelihood`` on the 7B model,
+    HARNESS_LL_REQUESTS requests with an image at each of
+    HARNESS_LL_SCALES; one request's logits against
+    attn_impl="reference"; returns the launches."""
+    from matryoshka_mm_torch.lmms_eval.api.registry import get_model
+
+    lm = get_model("llava")(pretrained=HARNESS_MODEL, device="cuda")
+    reqs = _ll_requests(task, HARNESS_LL_REQUESTS)
+    total = {}
+    for scale in HARNESS_LL_SCALES:
+        lm.matryoshka_vis_token_scale = f"ver=v0_numtoks={scale}"
+        lm.loglikelihood(reqs[:1])          # the scale's first call, untimed
+        _zero(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = lm.loglikelihood(reqs)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = _read(counters)
+        _held(f"harness loglikelihood {scale}", launches, {
+            "flash_attention": n_layers * len(reqs), "decode_attention": 0,
+            "paged_attention": 0})
+        _add(total, launches)
+        lps = [lp for lp, _ in out]
+        if not np.isfinite(lps).all():
+            fail(f"harness loglikelihood {scale}: a logprob is not finite "
+                 f"({lps})")
+        print(f"[harness loglikelihood {scale}] {card_line()}: "
+              f"{len(reqs)} requests in {dt:.3f} s: {len(reqs) / dt:.2f} "
+              f"requests/s, {dt / len(reqs) * 1e3:.2f} ms a request; "
+              f"logprobs {min(lps):.2f} .. {max(lps):.2f}, greedy "
+              f"{sum(g for _, g in out)} of {len(out)}")
+    got, labels = lm.request_logits(reqs[0])
+    cfg = lm.model.cfg
+    lm.model.cfg = cfg.with_attn_impl("reference")
+    want, _ = lm.request_logits(reqs[0])
+    lm.model.cfg = cfg
+    rows = torch.nonzero(labels[0, 1:] >= 0).flatten()
+    cos = torch.nn.functional.cosine_similarity(
+        got[0, rows].flatten(), want[0, rows].flatten(), dim=0).item()
+    print(f"[harness loglikelihood] kernel vs attn_impl=\"reference\" "
+          f"logits over the {len(rows)} scored positions at scale "
+          f"{HARNESS_LL_SCALES[-1]}: cosine {cos:.6f} (gate >= {LOGIT_COS})")
+    if cos < LOGIT_COS:
+        fail(f"harness loglikelihood: kernel logits cosine {cos:.6f} "
+             f"against the reference attention")
+    return total
+
+
+def harness_sglang(task, counters, model, label) -> tuple:
+    """The llava_sglang adapter with its in-process worker (paged batcher,
+    prefix cache) over ``task``; after ``close()`` no thread of the run is
+    alive and the device memory is back where it was.  Returns (launches,
+    responses)."""
+    from matryoshka_mm_torch.lmms_eval.evaluator import simple_evaluate
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    threads = set(threading.enumerate())
+    mem0 = torch.cuda.memory_allocated()
+    _zero(counters)
+    t0 = time.perf_counter()
+    res = simple_evaluate(
+        model="llava_sglang",
+        model_args=f"pretrained={model},parallel={HARNESS_BATCH},"
+                   f"max_batch={HARNESS_BATCH},device=cuda",
+        tasks=[task["task"]],
+        matryoshka_vis_token_scale=f"ver=v0_numtoks={HARNESS_SCALE}",
+        log_samples=True)
+    wall = time.perf_counter() - t0
+    launches = _read(counters)
+    resps = [s["resps"][0] for s in res["samples"][task["task"]]]
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = [t.name for t in threading.enumerate()
+            if t not in threads and t.is_alive()]
+    mem = torch.cuda.memory_allocated() - mem0
+    print(f"[harness sglang {label}] {card_line()}: {len(resps)} questions "
+          f"in {wall:.3f} s (worker load included): "
+          f"{len(resps) / wall:.2f} questions/s; launches {launches}; after "
+          f"close() {len(left)} new threads alive, {mem / 2**20:.1f} MiB "
+          f"more allocated than before")
+    if launches["paged_attention"] <= 0:
+        fail(f"harness sglang {label}: no paged-attention launch")
+    if res["results"][task["task"]]["samples"] != len(resps) or not all(
+            isinstance(r, str) for r in resps):
+        fail(f"harness sglang {label}: responses {resps}")
+    if left or mem > HARNESS_MEM_SLACK:
+        fail(f"harness sglang {label}: close() left threads {left} or "
+             f"{mem} bytes behind")
+    return launches, resps
+
+
+def harness_videos(root: Path, seed=19) -> tuple:
+    """HARNESS_VIDEOS seeded mp4s (blocks of colour drifting frame to
+    frame) and a multiple-choice QA csv over them."""
+    import cv2
+    import pandas as pd
+
+    rng = np.random.default_rng(seed)
+    vdir = root / "videos"
+    vdir.mkdir()
+    w, h = HARNESS_VIDEO_SIZE
+    rows = []
+    for v in range(HARNESS_VIDEOS):
+        out = cv2.VideoWriter(str(vdir / f"v{v}.mp4"),
+                              cv2.VideoWriter_fourcc(*"mp4v"), 10, (w, h))
+        small = rng.integers(0, 256, (h // 32, w // 32, 3), dtype=np.uint8)
+        for i in range(HARNESS_VIDEO_FRAMES):
+            out.write(cv2.resize(np.roll(small, i, axis=1), (w, h),
+                                 interpolation=cv2.INTER_LINEAR))
+        out.release()
+        rows.append({"question_id": v, "video_name": f"v{v}.mp4",
+                     "question": "What moves across the frames",
+                     "options": "A. a block of colour\nB. nothing",
+                     "answer": "A"})
+    qa = root / "videos.csv"
+    pd.DataFrame(rows).to_csv(qa, index=False)
+    return vdir, qa
+
+
+def harness_igvlm(root: Path, counters, n_layers) -> dict:
+    """eval_llava_multiplechoice's run over the seeded videos on the 7B
+    model; returns its launches."""
+    from matryoshka_mm_torch.igvlm import eval_llava_multiplechoice as mc
+    from matryoshka_mm_torch.utils.cuda_graph import CapturedStep
+
+    vdir, qa = harness_videos(root)
+    args = mc.build_parser().parse_args([
+        "--path_qa_pair_csv", str(qa), "--path_video", str(vdir),
+        "--path_result", str(root / "videos-preds.csv"), "--model-path",
+        HARNESS_MODEL, "--device", "cuda"])
+    _zero(counters)
+    captures = CapturedStep.captures
+    t0 = time.perf_counter()
+    with EvalTally() as tally:
+        df, acc = mc.run(args)
+    wall = time.perf_counter() - t0
+    calls = tally.calls
+    preds = list(df["pred"])
+    if len(preds) != HARNESS_VIDEOS or not all(
+            isinstance(p, str) and not p.startswith("ERROR") for p in preds):
+        fail(f"harness igvlm: predictions {preds}")
+    launches = _read(counters)
+    _generate_gates("igvlm", calls, launches, n_layers,
+                    CapturedStep.captures - captures, HARNESS_VIDEO_TOKENS)
+    span = sum(c["t1"] - c["t0"] for c in calls)
+    print(f"[harness igvlm] {card_line()}: {HARNESS_VIDEOS} videos of "
+          f"{HARNESS_VIDEO_FRAMES} frames at {HARNESS_VIDEO_SIZE}, 6-frame "
+          f"grids at the full 576 tokens: run {wall:.3f} s (load "
+          f"included), generate {span / len(calls):.3f} s a video, "
+          f"{wall / HARNESS_VIDEOS:.3f} s a video end to end; preds "
+          f"{preds}; accuracy {acc['accuracy']:.2f} (random weights)")
+    return launches
+
+
+def harness_small(root: Path, data: dict, counters) -> None:
+    """Phase 8's small float32 model: the llava adapter's answers at batch
+    HARNESS_BATCH equal batch 1 on the card; a second llava_sglang run in
+    this process answers as the llava adapter; ``loglikelihood`` on the
+    card equals the CPU's within HARNESS_SMALL_TOL."""
+    from matryoshka_mm_torch.lmms_eval.api.instance import Instance
+    from matryoshka_mm_torch.lmms_eval.api.registry import (get_model,
+                                                            register_task)
+    from matryoshka_mm_torch.lmms_eval.evaluator import simple_evaluate
+
+    path = str(small_front_model(root))
+    task = harness_task(root, data, "pope_harness_small")
+    resps = {}
+    for bs in (1, HARNESS_BATCH):
+        res = simple_evaluate(
+            model="llava",
+            model_args=f"pretrained={path},batch_size={bs},device=cuda",
+            tasks=[task["task"]], limit=HARNESS_SMALL_DOCS,
+            matryoshka_vis_token_scale=f"ver=v0_numtoks={HARNESS_SCALE}",
+            log_samples=True)
+        resps[bs] = [s["resps"][0] for s in res["samples"][task["task"]]]
+    same = resps[1] == resps[HARNESS_BATCH]
+    print(f"[harness small] float32, {card_line()}: generate_until at batch "
+          f"{HARNESS_BATCH} {'equals' if same else 'DIFFERS from'} batch 1 "
+          f"over {len(resps[1])} docs (first {resps[1][0]!r})")
+    if not same or len(resps[1]) != HARNESS_SMALL_DOCS:
+        fail("harness small: generate_until at batch 8 differs from batch 1")
+    task8 = dict(task, task="pope_harness_small8")
+    path8 = root / "pope_harness_small8.json"
+    path8.write_text(json.dumps(json.loads(
+        Path(task["dataset_path"]).read_text())[:HARNESS_SMALL_DOCS]))
+    task8["dataset_path"] = str(path8)
+    register_task(task8["task"], task8)
+    _, served = harness_sglang(task8, counters, path, "small, second run")
+    print(f"[harness small] llava_sglang answers "
+          f"{'equal' if served == resps[1] else 'DIFFER from'} the llava "
+          f"adapter's")
+    if served != resps[1]:
+        fail(f"harness small: llava_sglang answered {served}, the llava "
+             f"adapter {resps[1]}")
+    args = [r.arguments for r in _ll_requests(task, 3)]
+    args[2] = args[2][:2] + (None,)             # a text-only request
+    scale = f"ver=v0_numtoks={HARNESS_SMALL_LL_SCALE}"
+    got, want = (get_model("llava")(
+        pretrained=path, device=d, matryoshka_vis_token_scale=scale)
+        .loglikelihood([Instance("loglikelihood", {}, a, 0, "ll", i)
+                        for i, a in enumerate(args)])
+        for d in ("cuda", "cpu"))
+    err = max(abs(g[0] - w[0]) / abs(w[0]) for g, w in zip(got, want))
+    flags = [g[1] for g in got] == [w[1] for w in want]
+    print(f"[harness small] loglikelihood card vs CPU over 2 image requests "
+          f"at {HARNESS_SMALL_LL_SCALE} and 1 text-only: logprobs "
+          f"{[round(g[0], 4) for g in got]}, greatest relative error {err:.2e} (gate "
+          f"{HARNESS_SMALL_TOL}), greedy flags "
+          f"{'equal' if flags else 'DIFFER'}")
+    if err > HARNESS_SMALL_TOL or not flags:
+        fail("harness small: loglikelihood on the card differs from the CPU")
+
+
+def phase_harness(dev) -> dict:
+    """Returns the launches of the counted 7B runs, by kernel."""
+    import importlib
+    import tempfile
+
+    from matryoshka_mm_torch.config import LlavaConfig
+
+    have = []
+    for name in ("yaml", "pandas", "cv2"):
+        mod = importlib.import_module(name)
+        have.append(f"{name} {mod.__version__}")
+    print(f"[harness] {', '.join(have)} import here: the task corpus loads "
+          f"from its YAML files, IG-VLM reads its csv and videos")
+    frontend_modules()     # the worker's modules, imported keeping stdout
+    counters = _harness_counters()
+    n_layers = LlavaConfig.llava_v15_7b_m3().llama.num_hidden_layers
+    t0 = [time.perf_counter()]
+
+    def lap(what):
+        gc.collect()
+        torch.cuda.empty_cache()
+        now = time.perf_counter()
+        print(f"[time] harness {what} {now - t0[0]:.1f} s")
+        t0[0] = now
+
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="m3_harness_") as tmp:
+        root = Path(tmp)
+        data = eval_data(root)
+        task = harness_task(root, data, "pope_harness")
+        _add(launches, harness_generate(task, counters, n_layers))
+        lap("generate_until")
+        _add(launches, harness_loglikelihood(task, counters, n_layers))
+        lap("loglikelihood")
+        _add(launches, harness_sglang(task, counters, HARNESS_MODEL,
+                                      "7b")[0])
+        lap("llava_sglang")
+        _add(launches, harness_igvlm(root, counters, n_layers))
+        lap("igvlm")
+        harness_small(root, data, counters)
+        lap("small model")
+    return launches
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
@@ -6385,10 +6804,10 @@ def main(argv=()) -> int:
     if argv:
         # a subset for work on one phase: `chip_smoke.py kernels quant slice
         # qslice paged hbm serve smallinfer bwd train small ckpt anyres
-        # genmodes families famkernels lora frontend eval` runs phases 3
-        # (attention kernels), 3 (quantized products), 4, 5, 6, 7, 8, 9, 10,
-        # 11, 12, 13, 14, 15, phase 3's cases at the families' shapes, 16,
-        # 17 and 18 alone and prints no result line
+        # genmodes families famkernels lora frontend eval harness` runs
+        # phases 3 (attention kernels), 3 (quantized products), 4, 5, 6, 7,
+        # 8, 9, 10, 11, 12, 13, 14, 15, phase 3's cases at the families'
+        # shapes, 16, 17, 18 and 19 alone and prints no result line
         for name in argv:
             phases = {"kernels": phase_kernels, "quant": phase_quant_kernels,
              "slice": phase_slice, "smallinfer": phase_small,
@@ -6399,7 +6818,7 @@ def main(argv=()) -> int:
              "anyres": phase_anyres, "genmodes": phase_genmodes,
              "families": phase_families, "famkernels": phase_family_kernels,
              "lora": phase_lora, "frontend": phase_frontend,
-             "eval": phase_eval}
+             "eval": phase_eval, "harness": phase_harness}
             timed(phases[name], dev)
         print(f"partial run {argv}: no result")
         return 1
@@ -6433,6 +6852,8 @@ def main(argv=()) -> int:
     for k, n in timed(phase_frontend, dev).items():
         launches[k] = launches.get(k, 0) + n
     for k, n in timed(phase_eval, dev).items():
+        launches[k] = launches.get(k, 0) + n
+    for k, n in timed(phase_harness, dev).items():
         launches[k] = launches.get(k, 0) + n
     if [m for m in sys.modules
             if m.split(".")[0] in ("jax", "matryoshka_mm_tpu")]:

@@ -13,16 +13,29 @@ paths the port does not have yet (tensor parallelism) are left out.
   when they lie on the CPU;
 * ``"reference"``: the plain masked-softmax attention, chosen explicitly
   (parity tests and the kernel-off comparison of ``chip_smoke.py``).
+
+``ModelConfig`` is the named model-behaviour preset registry of the JAX
+package's ``config/__init__.py``: every dict of ``model_config.py`` under
+``pretune_`` and ``finetune_`` names.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import List, Optional, Tuple
 
 import torch
 
-from .kvconfig import parse_kv_from_string, parse_list
+from ..kvconfig import parse_kv_from_string, parse_list
+from .model_config import MODEL_CONFIG_DICTS
+
+ModelConfig = {}
+for _name, _cfg in MODEL_CONFIG_DICTS.items():
+    for _finetune_type in ("pretune", "finetune"):
+        _d = copy.deepcopy(_cfg)
+        _d["use_alternative"] = _d.get("use_alternative", True)
+        ModelConfig[f"{_finetune_type}_{_name}"] = _d
 
 ATTN_IMPLS = ("auto", "reference")
 # the decoder families of the reference's wrappers (llava_llama.py,

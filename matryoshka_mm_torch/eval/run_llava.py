@@ -41,6 +41,10 @@ def load_image(image_file: str):
     return Image.open(image_file).convert("RGB")
 
 
+def load_images(image_files: List[str]):
+    return [load_image(f) for f in image_files]
+
+
 def pick_conv_mode(model_name: str) -> str:
     name = model_name.lower()
     if "llama-2" in name:

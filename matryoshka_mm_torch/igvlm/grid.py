@@ -1,8 +1,8 @@
 """Frame extraction and grid composition (reference:
 IG-VLM/vision_processor/fps_extractor.py, gridview_generator.py:15-57);
-the port's own copy of the two functions of
-``matryoshka_mm_tpu/igvlm/grid.py`` that the web server's video upload
-needs.  ``cv2`` is imported where it is used.
+the port's own copy of ``matryoshka_mm_tpu/igvlm/grid.py``, used by the
+web server's video upload and the IG-VLM pipeline.  ``cv2`` is imported
+where it is used.
 """
 
 from __future__ import annotations
@@ -67,3 +67,11 @@ def create_grid_view(images: List[np.ndarray],
     rows = [resized[i:i + max_per_row]
             for i in range(0, len(resized), max_per_row)]
     return np.vstack([np.hstack(r) for r in rows])
+
+
+def video_to_grid_image(video_path: str, frame_fixed_number: int = 6):
+    """video file -> PIL grid image, the full IG-VLM vision front-end."""
+    from PIL import Image
+
+    frames = extract_frames(video_path, frame_fixed_number)
+    return Image.fromarray(create_grid_view(frames))

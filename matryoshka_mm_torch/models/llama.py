@@ -542,3 +542,14 @@ def llama_forward(
         cache.write_idx.add_(S)
         cache.host_idx += S
     return final_norm(params, cfg, hidden), cache
+
+
+def llama_logits(params: dict, cfg: LlamaConfig, input_ids: torch.Tensor,
+                 position_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Convenience text-only forward: ids -> float32 logits (B, S, V)."""
+    if position_ids is None:
+        B, S = input_ids.shape
+        position_ids = torch.arange(S, device=input_ids.device).expand(B, S)
+    h = embed_tokens(params, input_ids)
+    h, _ = llama_forward(params, cfg, h, position_ids=position_ids)
+    return lm_head(params, h)

@@ -523,8 +523,15 @@ def build_app(worker: ModelWorker):
     async def model_details(request):
         return web.json_response({"context_length": worker.context_len})
 
+    async def drop_model_semaphore(app):
+        # the semaphore binds itself to this app's event loop: a later app
+        # of the same process, on another loop, makes its own
+        global model_semaphore
+        model_semaphore = None
+
     app = web.Application(client_max_size=64 * 1024 * 1024)
     app.add_routes(routes)
+    app.on_cleanup.append(drop_model_semaphore)
     return app
 
 

@@ -160,6 +160,63 @@ print("OK", scores)
 """
 
 
+_HARNESS = """
+import json, sys
+sys.modules["jax"] = None
+sys.modules["matryoshka_mm_tpu"] = None
+import numpy as np
+from PIL import Image
+import matryoshka_mm_torch.lmms_eval.__main__, matryoshka_mm_torch.lmms_eval.logging_utils
+import matryoshka_mm_torch.lmms_eval.models.llava_sglang, matryoshka_mm_torch.lmms_eval.models.gpt4v
+import matryoshka_mm_torch.igvlm.eval_llava_multiplechoice, matryoshka_mm_torch.igvlm.eval_llava_openended
+import matryoshka_mm_torch.igvlm.eval_llava_textgeneration_openended
+import matryoshka_mm_torch.igvlm.eval_gpt4v_multiplechoice, matryoshka_mm_torch.igvlm.eval_gpt4v_openended
+import matryoshka_mm_torch.igvlm.eval_gpt4v_textgeneration_openended
+import matryoshka_mm_torch.config.model_config
+from matryoshka_mm_torch.eval.run_llava import load_images
+from matryoshka_mm_torch.igvlm.grid import video_to_grid_image
+from matryoshka_mm_torch.models.llama import llama_logits
+from matryoshka_mm_torch.lmms_eval import register_task, simple_evaluate
+from matryoshka_mm_torch.lmms_eval.api.registry import list_tasks
+from matryoshka_mm_torch.lmms_eval.evaluator import check_integrity
+assert len(list_tasks()) == 46 and check_integrity() == []
+Image.fromarray(np.random.default_rng(0).integers(
+    0, 256, (48, 64, 3), np.uint8)).save("x.png")
+assert load_images(["x.png"])[0].size == (64, 48)
+json.dump([{"question": "Is there a dog?", "answer": "no", "image": "x.png"},
+           {"question": "Is there a cat?", "answer": "yes", "image": "x.png"}],
+          open("docs.json", "w"))
+register_task("toy", {"task": "toy", "dataset_path": "docs.json",
+    "doc_to_visual": "image", "doc_to_text": "{question}",
+    "doc_to_target": "answer", "dataset_kwargs": {"image_folder": "."},
+    "generation_kwargs": {"max_new_tokens": 3, "temperature": 0.0},
+    "metric_list": [{"metric": "exact_match"}]})
+res = simple_evaluate(model="llava",
+                      model_args="pretrained=debug://tiny,device=cpu,batch_size=2",
+                      tasks=["toy"], matryoshka_vis_token_scale="ver=v0_numtoks=4",
+                      log_samples=True)
+assert res["results"]["toy"]["samples"] == 2, res
+assert all(isinstance(s["resps"][0], str) for s in res["samples"]["toy"])
+assert not [m for m in sys.modules
+            if m.split(".")[0] in ("jax", "jaxlib", "matryoshka_mm_tpu")
+            if sys.modules[m] is not None]
+print("OK", res["results"]["toy"])
+"""
+
+
+def test_harness_and_igvlm_run_with_jax_blocked(tmp_path):
+    """Every lmms-eval and IG-VLM module imports, the task corpus loads
+    clean, and ``simple_evaluate`` answers a local task on ``debug://tiny``
+    on the CPU, with ``jax`` and ``matryoshka_mm_tpu`` made
+    unimportable."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", _HARNESS], cwd=tmp_path,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.splitlines()[-1].startswith("OK")
+
+
 def test_eval_loader_and_pope_run_with_jax_blocked(tmp_path):
     """Every eval module imports, ``model_vqa_loader.eval_model`` answers
     on ``debug://tiny`` on the CPU and ``eval_pope`` scores its answers,

@@ -1,6 +1,8 @@
 """The port's own copies of the framework-free modules (constants, kvconfig,
 conversation, mm_utils, image_processing with its native hook, igvlm/grid,
-train/data, train/sampler) give what the JAX package's originals give.
+train/data, train/sampler) give what the JAX package's originals give, and
+its copied data (the lmms-eval task corpus, the metric and filter tables,
+the IG-VLM judge rubrics, config/model_config.py) equals the originals.
 Everything here is exact: the copies run the same numpy / PIL / C++
 code."""
 
@@ -277,3 +279,81 @@ def test_samplers_equal(kw):
     assert orders[0] == orders[1] and sorted(orders[0]) == list(range(37))
     assert tsamp.split_to_even_chunks(list(range(10)), lengths[:10], 3) == \
         jsamp.split_to_even_chunks(list(range(10)), lengths[:10], 3)
+
+
+# ---------------------------------------------------------------------------
+# the harness's task corpus and tables, the IG-VLM rubrics, model presets
+# ---------------------------------------------------------------------------
+
+def _task_files(pkg):
+    import importlib
+    from pathlib import Path
+
+    here = Path(importlib.import_module(f"{pkg}.lmms_eval.tasks").__file__)
+    return sorted(p.name for p in here.parent.glob("*.yaml")), here.parent
+
+
+def test_task_corpus_copied():
+    """Every task file of the port is the JAX YAML, byte for byte, and
+    loads to the same config."""
+    yaml = pytest.importorskip("yaml")
+    names, tdir = _task_files("matryoshka_mm_torch")
+    jnames, jdir = _task_files("matryoshka_mm_tpu")
+    assert names == jnames and len(names) == 46
+    for n in names:
+        assert (tdir / n).read_text() == (jdir / n).read_text(), n
+        assert yaml.safe_load((tdir / n).read_text()) == \
+            yaml.safe_load((jdir / n).read_text())
+
+
+def test_metric_tables_and_rubrics_copied():
+    from matryoshka_mm_torch.igvlm import evaluation as tev
+    from matryoshka_mm_torch.lmms_eval.api import metrics as tm
+    from matryoshka_mm_torch.lmms_eval.filters import FILTER_REGISTRY as tfr
+    from matryoshka_mm_torch.lmms_eval.tasks import task_utils as ttu
+    from matryoshka_mm_tpu.igvlm import evaluation as jev
+    from matryoshka_mm_tpu.lmms_eval.api import metrics as jm
+    from matryoshka_mm_tpu.lmms_eval.filters import FILTER_REGISTRY as jfr
+    from matryoshka_mm_tpu.lmms_eval.tasks import task_utils as jtu
+
+    assert {k: f.__name__ for k, f in tm.METRICS.items()} == \
+        {k: f.__name__ for k, f in jm.METRICS.items()}
+    assert sorted(tm.AGGREGATIONS) == sorted(jm.AGGREGATIONS)
+    assert {k: f.__name__ for k, f in tfr.items()} == \
+        {k: f.__name__ for k, f in jfr.items()}
+    assert {k.name: v for k, v in tev._RUBRICS.items()} == \
+        {k.name: v for k, v in jev._RUBRICS.items()}
+    assert tev._CONSISTENCY_RUBRIC == jev._CONSISTENCY_RUBRIC
+    assert tev._DICT_CONTRACT == jev._DICT_CONTRACT
+    for name in ("_LLAVA_BENCH_RUBRIC", "_MMMU_DOMAINS", "_CMMMU_DOMAINS",
+                 "_OPTION_LETTERS", "_MATHVISTA_KEYS"):
+        assert getattr(ttu, name) == getattr(jtu, name), name
+
+
+def test_model_config_presets_copied():
+    from matryoshka_mm_torch import config as tcfg
+    from matryoshka_mm_torch.config import model_config as tmc
+    from matryoshka_mm_tpu import config as jcfg
+    from matryoshka_mm_tpu.config import model_config as jmc
+
+    assert tmc.MODEL_CONFIG_DICTS == jmc.MODEL_CONFIG_DICTS
+    assert tcfg.ModelConfig == jcfg.ModelConfig
+    assert sorted(tcfg.ModelConfig) == ["finetune_v0", "finetune_v4",
+                                        "pretune_v0", "pretune_v4"]
+
+
+def test_video_to_grid_image_copied(tmp_path):
+    cv2 = pytest.importorskip("cv2")
+    from matryoshka_mm_torch.igvlm import grid as tgrid
+    from matryoshka_mm_tpu.igvlm import grid as jgrid
+
+    path = str(tmp_path / "v.mp4")
+    out = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 10, (32, 24))
+    rng = np.random.default_rng(4)
+    for _ in range(7):
+        out.write(rng.integers(0, 256, (24, 32, 3), dtype=np.uint8))
+    out.release()
+    for n in (1, 4, 6):
+        np.testing.assert_array_equal(
+            np.asarray(tgrid.video_to_grid_image(path, n)),
+            np.asarray(jgrid.video_to_grid_image(path, n)))
