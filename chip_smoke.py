@@ -360,10 +360,36 @@ Phases; any failure exits non-zero, and no phase's exception is caught:
    float32 model: generate_until at batch 8 equals batch 1, a second
    llava_sglang run in the process answers as the llava adapter, and
    loglikelihood on the card equals the CPU's within 1e-4.
+20. tensor-parallel inference (parallel/tp_decode.py), two ranks over gloo
+   with both on this card (NCCL refuses two ranks on one device).  First
+   the kernels at a 7B rank's shapes at tp = 2 and 4: int4_matmul /
+   int8_matmul at fused qkv 6,144 / 3,072, o K 2,048 / 1,024, gate/up
+   11,008 / 5,504, down K 5,504 / 2,752 and lm_head 16,000 / 8,000 rows for
+   M in {1, 8, 640}, quant_mlp at I = 5,504 and 2,752 for M in {1, 8, 32},
+   flash (640 queries, 672 slots) and decode attention (672 slots) at 16
+   and 8 heads, each against its plain version, two launches
+   bit-identical, M = 1 and the attention timed.  Then phase 8's small
+   float32 model on a TPEngine: greedy tokens (one image a row, left-padded
+   B=2, and text only) equal one card's and the CPU's, prefill logits
+   within 1e-5 of one card's, sampled tokens under a seed equal one card's
+   eager decode.  Then debug://7b through load_pretrained_model(tp_size=2,
+   tp_devices=[cuda:0, cuda:0], tp_backend="gloo") in bf16 at scales 144
+   and 576 with 32 greedy tokens: each rank launches what one card does
+   (32 flash launches a prefill, 32 decode launches a step), prefill
+   logits cosine >= 0.99 against one card's generate on the same weights;
+   the same weights under load_4bit (144, 576) and load_8bit (144) with
+   fuse=False: per rank 2L + 1 = 65 quantized products and 32 quant_mlp
+   launches a decode step, 4L + 1 a prefill, logits against one card, and
+   every rank's o and down K-shards dequantized equal the whole weight's
+   columns bit for bit.  Printed with the card's name and power limit:
+   each rank's peak memory, TTFT and ms a decode step at tp = 2 in bf16
+   and int4 with the collectives' share of a step (torch.profiler's tp.*
+   ranges on rank 0) beside one card's, as facts about two ranks sharing
+   one card over gloo.
 
 With arguments (`python3 chip_smoke.py kernels quant slice qslice paged hbm
 serve smallinfer bwd train small ckpt anyres genmodes families famkernels
-lora frontend eval harness`) only the build and the named phases run
+lora frontend eval harness tp`) only the build and the named phases run
 (famkernels: phase 3's cases at the families' shapes), and no result line is
 printed.
 
@@ -4492,22 +4518,34 @@ def family_quant_cases(dev) -> dict:
     and 8, against their plain versions, two launches bit-identical, each
     timed beside dequantize + F.linear (``dequant_linear_ms``).  Returns the
     largest error by kernel."""
+    return quant_shape_cases(dev, FAMILY_QUANT_SHAPES, FAMILY_QUANT_ROWS,
+                             (FAMILY_MLP,), (1, 8), seed=16)
+
+
+def quant_shape_cases(dev, shapes: dict, rows, mlps, mlp_rows, seed: int,
+                      timed_rows=None) -> dict:
+    """int4_matmul / int8_matmul at each ``(N, K)`` of ``shapes`` for every
+    M of ``rows`` and quant_mlp at each ``(D, I)`` of ``mlps`` for every M
+    of ``mlp_rows``, against their plain versions, two launches
+    bit-identical; the rows of ``timed_rows`` (all by default) timed, the
+    products beside dequantize + F.linear.  Returns the largest error by
+    kernel."""
     from matryoshka_mm_torch.ops import fused_mlp as mlp
     from matryoshka_mm_torch.ops import int4_matmul as mm
     from matryoshka_mm_torch.ops import quant
 
     linear = torch.nn.functional.linear
-    gen = torch.Generator(device=dev).manual_seed(16)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     errs = {"int4_matmul": 0.0, "int8_matmul": 0.0, "quant_mlp": 0.0}
     for bits, name in ((4, "int4_matmul"), (8, "int8_matmul")):
         fn, plain = getattr(mm, name), getattr(mm, f"{name}_plain")
         quantize = quant.quantize_array_int4 if bits == 4 \
             else quant.quantize_array
         key = quant.Q4KEY if bits == 4 else quant.QKEY
-        for shape, (N, K) in FAMILY_QUANT_SHAPES.items():
+        for shape, (N, K) in shapes.items():
             leaf = quantize(_rand((N, K), gen, dev).mul_(0.02))
             w, sc = leaf[key], leaf["scale"]
-            for M in FAMILY_QUANT_ROWS:
+            for M in rows:
                 x = _rand((M, K), gen, dev)
                 got = fn(x, w, sc)
                 err, rel = _rel_err(got, plain(x, w, sc))
@@ -4517,6 +4555,11 @@ def family_quant_cases(dev) -> dict:
                     fail(f"{name} {shape} M={M}: rel {rel:.2e}, two "
                          f"launches the same {same}")
                 errs[name] = max(errs[name], err)
+                if timed_rows is not None and M not in timed_rows:
+                    print(f"[{name} {shape} {N}x{K} M={M}] "
+                          f"max|out-plain|={err:.3e} rel {rel:.2e}, two "
+                          f"launches bit-identical")
+                    continue
                 ops = rotations(x, w, sc)
                 ms = time_ms(fn, ops)
                 dq = time_ms(lambda x, w, sc: linear(x, quant.dequantize_array(
@@ -4536,40 +4579,47 @@ def family_quant_cases(dev) -> dict:
                       f"kernel's time)")
                 del ops
             del w, sc, leaf
-    D, I = FAMILY_MLP
-    for bits in (4, 8):
-        quantize = quant.quantize_array_int4 if bits == 4 \
-            else quant.quantize_array
-        key = quant.Q4KEY if bits == 4 else quant.QKEY
-        gate = quantize(_rand((I, D), gen, dev).mul_(0.02))
-        up = quantize(_rand((I, D), gen, dev).mul_(0.02))
-        gu = {key: torch.cat([gate[key], up[key]]),
-              "scale": torch.cat([gate["scale"], up["scale"]])}
-        down = quantize(_rand((D, I), gen, dev).mul_(0.02))
-        del gate, up
-        i_orig = gu["scale"].shape[0] // 2       # as models/llama.py reads it
-        for M in (1, 8):
-            x = _rand((M, D), gen, dev)
-            got = mlp.quant_mlp(x, gu, down, bits, i_orig)
-            err, rel = _rel_err(got, mlp.quant_mlp_plain(x, gu, down, bits,
-                                                         I))
-            same = torch.equal(got, mlp.quant_mlp(x, gu, down, bits, i_orig))
-            torch.cuda.synchronize()
-            if rel > MLP_TOL or not same or i_orig != I:
-                fail(f"quant_mlp int{bits} I={I} M={M}: rel {rel:.2e}, two "
-                     f"launches the same {same}")
-            errs["quant_mlp"] = max(errs["quant_mlp"], err)
-            ops = rotations(x, gu[key], gu["scale"], down[key], down["scale"])
-            ms = time_ms(lambda x, gq, gs, dq_, ds: mlp.quant_mlp(
-                x, {key: gq, "scale": gs}, {key: dq_, "scale": ds}, bits, I),
-                ops)
-            t = (nbytes(*ops[0]) + M * D * 2) / HBM_BYTES_S * 1e3
-            print(f"[quant_mlp int{bits} I={I} M={M}] {card_line()}: "
-                  f"max|out-plain|={err:.3e} rel {rel:.2e}, two launches "
-                  f"bit-identical; kernel {ms:.4f} ms ({100 * t / ms:.0f}% "
-                  f"of the byte bound {t:.4f} ms)")
-            del ops
-        del gu, down
+    for D, I in mlps:
+        for bits in (4, 8):
+            quantize = quant.quantize_array_int4 if bits == 4 \
+                else quant.quantize_array
+            key = quant.Q4KEY if bits == 4 else quant.QKEY
+            gate = quantize(_rand((I, D), gen, dev).mul_(0.02))
+            up = quantize(_rand((I, D), gen, dev).mul_(0.02))
+            gu = {key: torch.cat([gate[key], up[key]]),
+                  "scale": torch.cat([gate["scale"], up["scale"]])}
+            down = quantize(_rand((D, I), gen, dev).mul_(0.02))
+            del gate, up
+            i_orig = gu["scale"].shape[0] // 2   # as models/llama.py reads it
+            for M in mlp_rows:
+                x = _rand((M, D), gen, dev)
+                got = mlp.quant_mlp(x, gu, down, bits, i_orig)
+                err, rel = _rel_err(got, mlp.quant_mlp_plain(x, gu, down,
+                                                             bits, I))
+                same = torch.equal(got, mlp.quant_mlp(x, gu, down, bits,
+                                                      i_orig))
+                torch.cuda.synchronize()
+                if rel > MLP_TOL or not same or i_orig != I:
+                    fail(f"quant_mlp int{bits} I={I} M={M}: rel {rel:.2e}, "
+                         f"two launches the same {same}")
+                errs["quant_mlp"] = max(errs["quant_mlp"], err)
+                if timed_rows is not None and M not in timed_rows:
+                    print(f"[quant_mlp int{bits} I={I} M={M}] "
+                          f"max|out-plain|={err:.3e} rel {rel:.2e}, two "
+                          f"launches bit-identical")
+                    continue
+                ops = rotations(x, gu[key], gu["scale"], down[key],
+                                down["scale"])
+                ms = time_ms(lambda x, gq, gs, dq_, ds: mlp.quant_mlp(
+                    x, {key: gq, "scale": gs}, {key: dq_, "scale": ds}, bits,
+                    I), ops)
+                t = (nbytes(*ops[0]) + M * D * 2) / HBM_BYTES_S * 1e3
+                print(f"[quant_mlp int{bits} I={I} M={M}] {card_line()}: "
+                      f"max|out-plain|={err:.3e} rel {rel:.2e}, two launches "
+                      f"bit-identical; kernel {ms:.4f} ms "
+                      f"({100 * t / ms:.0f}% of the byte bound {t:.4f} ms)")
+                del ops
+            del gu, down
     return errs
 
 
@@ -6772,6 +6822,440 @@ def phase_harness(dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 20: tensor-parallel inference, two ranks over gloo on one card
+# ---------------------------------------------------------------------------
+
+TP_RANKS = 2
+TP_SCALES = (144, 576)
+# (label, bits, scales) of the quantized engines
+TP_QUANT_RUNS = (("int4", 4, (144, 576)), ("int8", 8, (144,)))
+# the local shapes of a 7B rank: fused qkv, o (K sharded), gate/up, down
+# (K sharded), the vocabulary-sharded lm_head
+TP_SHAPES = {f"tp{tp} {name}": shape for tp, shapes in (
+    (2, {"qkv": (6144, 4096), "o": (4096, 2048), "gateup": (11008, 4096),
+         "down": (4096, 5504), "lm_head": (16000, 4096)}),
+    (4, {"qkv": (3072, 4096), "o": (4096, 1024), "gateup": (5504, 4096),
+         "down": (4096, 2752), "lm_head": (8000, 4096)}))
+    for name, shape in shapes.items()}
+TP_ROWS = (1, 8, 640)           # a decode step, a batch of 8, a prefill at 576
+TP_MLPS = ((4096, 5504), (4096, 2752))   # quant_mlp (D, I) at tp = 2 and 4
+TP_MLP_ROWS = (1, 8, 32)
+TP_HEADS = (16, 8)              # a rank's heads at tp = 2 and 4
+TP_SMALL_TOL = 1e-5             # float32 logits: the TP sums in another order
+TP_PROFILE_TOKENS = 9           # the profiled run: 8 decode steps
+TP_FORCED_STEPS = 4             # 7B decode steps held against one card's
+
+
+def tp_attention_cases(dev) -> dict:
+    """The flash forward (640 queries against 672 slots, left-padded) and
+    the decode kernel (672 slots) at a rank's heads, bf16, against their
+    plain versions, two launches bit-identical, timed."""
+    from matryoshka_mm_torch.ops import decode_attention as dec
+    from matryoshka_mm_torch.ops import flash_attention as fl
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    Dh, Sq, Sk, pad = 128, 640, 672, 23
+    errs = {"flash_attention": 0.0, "decode_attention": 0.0}
+    for H in TP_HEADS:
+        q = _rand((1, H, Sq, Dh), gen, dev)
+        k = _rand((1, Sk, H, Dh), gen, dev).transpose(1, 2)
+        v = _rand((1, Sk, H, Dh), gen, dev).transpose(1, 2)
+        valid = torch.zeros((1, Sk), dtype=torch.bool, device=dev)
+        valid[0, pad:Sq] = True
+        out, lse = fl.flash_attention_lse(q, k, v, kv_valid=valid)
+        again, _ = fl.flash_attention_lse(q, k, v, kv_valid=valid)
+        ref_o, ref_l = fl.flash_attention_plain(q, k, v, kv_valid=valid)
+        torch.cuda.synchronize()
+        err = (out.float() - ref_o.float()).abs().max().item()
+        lerr = (lse - ref_l).abs().max().item()
+        if not (torch.allclose(out.float(), ref_o.float(), atol=FLASH_TOL,
+                               rtol=FLASH_TOL) and lerr <= LSE_TOL
+                and torch.equal(out, again)):
+            fail(f"flash at {H} heads: max err {err:.3e}, lse {lerr:.3e}, "
+                 f"two launches the same {torch.equal(out, again)}")
+        fms = time_ms(lambda *a: fl.flash_attention_lse(*a, kv_valid=valid),
+                      rotations(q, k, v))
+        errs["flash_attention"] = max(errs["flash_attention"], err)
+
+        qd = _rand((1, H, Dh), gen, dev)
+        kc, vc = _rand((1, Sk, H, Dh), gen, dev), _rand((1, Sk, H, Dh), gen,
+                                                         dev)
+        kv_pos = torch.arange(Sk, device=dev, dtype=torch.int32)[None]
+        q_pos = torch.tensor([Sq - 1], device=dev, dtype=torch.int32)
+        args = (qd, kc, vc, valid, kv_pos, q_pos)
+        got = dec.flash_decode_attention(*args)
+        same = torch.equal(got, dec.flash_decode_attention(*args))
+        want = dec.decode_attention_plain(*args)
+        torch.cuda.synchronize()
+        derr = (got.float() - want.float()).abs().max().item()
+        if not (torch.allclose(got.float(), want.float(), atol=FLASH_TOL,
+                               rtol=FLASH_TOL) and same):
+            fail(f"decode at {H} heads: max err {derr:.3e}, two launches "
+                 f"the same {same}")
+        dms = time_ms(dec.flash_decode_attention, rotations(*args))
+        errs["decode_attention"] = max(errs["decode_attention"], derr)
+        n_split = dec.decode_splits(1, H, Sk, dec._sm_count(dev.index or 0))
+        print(f"[tp kernels H={H}] {card_line()}: flash max|out-plain|="
+              f"{err:.3e} max|lse-plain|={lerr:.3e} {fms:.4f} ms; decode "
+              f"n_split={n_split} max|out-plain|={derr:.3e} {dms:.4f} ms; "
+              f"two launches bit-identical")
+    return errs
+
+
+def _tree_copy(tree):
+    """The dicts and lists of a parameter tree anew, its tensors shared: a
+    tree to quantize in place while the float one stays whole."""
+    if isinstance(tree, dict):
+        return {k: _tree_copy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_copy(v) for v in tree]
+    return tree
+
+
+def _k_shard_mismatches(state, leaves) -> list:
+    """On a rank: the layers whose o or down shard does not dequantize to
+    the columns of the whole weight (``leaves``: each layer's (o, down)
+    quantized leaves, handed over as CUDA IPC handles) bit for bit."""
+    from matryoshka_mm_torch.ops.quant import dequantize_array
+
+    bad = []
+    for i, (o, down) in enumerate(leaves):
+        layer = state.local["layers"][i]
+        for whole, shard in ((o, layer["self_attn"]["o_proj"]),
+                             (down, layer["mlp"]["down_proj"])):
+            w = dequantize_array(whole)
+            k = w.shape[1] // state.tp
+            if not torch.equal(dequantize_array(shard),
+                               w[:, state.rank * k:(state.rank + 1) * k]):
+                bad.append(i)
+    return bad
+
+
+def _peak_gib(state) -> float:
+    return torch.cuda.max_memory_allocated(state.device) / 2**30
+
+
+def _tp_launches(eng, label, want) -> dict:
+    """Every rank's launch counters against ``want`` (the counts of one
+    card, per rank); returns them summed over the ranks."""
+    counts = eng.launch_counts()
+    for r, c in enumerate(counts):
+        print(f"[tp {label}] rank {r} launches {c}")
+        if c != want:
+            fail(f"tp {label}: rank {r} launched {c}, one card {want}")
+    return {k: sum(c[k] for c in counts) for k in want}
+
+
+def _coll_ms(fn) -> tuple:
+    """``(wall ms, ms inside the TP collectives)`` of ``fn`` on rank 0,
+    the second from ``torch.profiler``'s ``tp.*`` ranges."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    coll = sum(e.cpu_time_total for e in prof.key_averages()
+               if e.key.startswith("tp."))
+    return wall * 1e3, coll / 1e3
+
+
+def tp_timings(model, inputs, label, full) -> None:
+    """TTFT and ms a decode step of TP generate at scale 144 (two ranks
+    sharing this card over gloo; ``full``: the wall s of the counted
+    NEW_TOKENS request there), the collectives' share of a decode step
+    from the profiler, and one card's generate on the same weights."""
+    from matryoshka_mm_torch.generate import generate
+
+    n = TP_SCALES[0]
+    ttft = statistics.median(_wall(lambda: run(model, inputs, n, 1))
+                             for _ in range(2))
+    step = (full - ttft) / (NEW_TOKENS - 1) * 1e3
+    w1, c1 = _coll_ms(lambda: run(model, inputs, n, 1))
+    w9, c9 = _coll_ms(lambda: run(model, inputs, n, TP_PROFILE_TOKENS))
+    share = (c9 - c1) / (w9 - w1)
+    ids, px, mask = inputs
+
+    def solo(tokens):
+        generate(model.params, model.cfg, ids, px, attention_mask=mask,
+                 matryoshka_vis_token_scale=f"ver=v0_numtoks={n}",
+                 gen_cfg=_gcfg(tokens))
+        torch.cuda.synchronize()
+
+    s_ttft = statistics.median(_wall(lambda: solo(1)) for _ in range(2))
+    s_full = _wall(lambda: solo(NEW_TOKENS))
+    s_step = (s_full - s_ttft) / (NEW_TOKENS - 1) * 1e3
+    print(f"[tp {label}] {card_line()}: two ranks sharing this card over "
+          f"gloo, scale {n}, B=1: TTFT {ttft * 1e3:.2f} ms, {step:.2f} ms a "
+          f"decode step ({1e3 / step:.2f} tok/s); the collectives "
+          f"{(c9 - c1) / (TP_PROFILE_TOKENS - 1):.2f} ms of "
+          f"{(w9 - w1) / (TP_PROFILE_TOKENS - 1):.2f} ms a profiled step "
+          f"({100 * share:.1f}%, rank 0's host time in tp.* ranges); one "
+          f"card on the same weights: TTFT {s_ttft * 1e3:.2f} ms, "
+          f"{s_step:.2f} ms a step (captured).  Facts about two ranks on "
+          f"one card over gloo, not about NCCL across cards")
+
+
+def _gcfg(tokens, **kw):
+    from matryoshka_mm_torch.generate import GenerationConfig
+
+    return GenerationConfig(max_new_tokens=tokens, eos_token_id=-1, **kw)
+
+
+def tp_small(dev) -> None:
+    """Phase 8's small float32 model (Dh = 128, 2 heads: one a rank), two
+    ranks over gloo on this card against one card and the CPU."""
+    import dataclasses
+
+    from matryoshka_mm_torch.config import LlavaConfig
+    from matryoshka_mm_torch.generate import generate, prefill_image
+    from matryoshka_mm_torch.models.convert import init_params
+    from matryoshka_mm_torch.parallel.tp_decode import TPEngine
+
+    base = LlavaConfig.tiny_debug()
+    cfg = dataclasses.replace(base, llama=dataclasses.replace(
+        base.llama, hidden_size=256, num_attention_heads=2,
+        num_key_value_heads=2, intermediate_size=512))   # Dh = 128
+    params_cpu = init_params(cfg, "cpu", seed=3)
+    params_dev = _to(params_cpu, dev)
+    rng = np.random.default_rng(1)
+    ids = rng.integers(100, 500, (2, 12)).astype(np.int32)
+    ids[:, 4] = -200
+    ids[1, :3] = 0
+    mask = ids != 0
+    px = rng.standard_normal((2, 3, 56, 56)).astype(np.float32)
+    spec = "ver=v0_numtoks=4"
+    greedy = _gcfg(10, decode_chunk=4)
+    sampled = _gcfg(10, decode_chunk=4, do_sample=True, temperature=0.8,
+                    top_p=0.9)
+    eng = TPEngine(params_dev, cfg, TP_RANKS, devices=[dev] * TP_RANKS,
+                   backend="gloo")
+    try:
+        for what, p, m in (("image", px, mask), ("text", None, mask)):
+            got = eng.generate(ids, p, attention_mask=m,
+                               matryoshka_vis_token_scale=spec,
+                               gen_cfg=greedy)
+            card = generate(params_dev, cfg, ids, p, attention_mask=m,
+                            matryoshka_vis_token_scale=spec, gen_cfg=greedy)
+            cpu = generate(params_cpu, cfg, ids, p, attention_mask=m,
+                           matryoshka_vis_token_scale=spec, gen_cfg=greedy)
+            print(f"[tp small {what}] tp {got.tolist()}\n[tp small {what}] "
+                  f"one card {card.tolist()}\n[tp small {what}] cpu "
+                  f"{cpu.tolist()}")
+            if not (np.array_equal(got, card) and np.array_equal(got, cpu)):
+                fail(f"tp small {what}: TP greedy tokens differ from one "
+                     f"card's or the CPU's")
+        L = 64
+        want = prefill_image(params_dev, cfg, torch.as_tensor(
+            ids, dtype=torch.int64, device=dev), torch.as_tensor(
+            px, device=dev), torch.as_tensor(mask, device=dev), 4, L,
+            L + 1)[0]
+        got = eng.prefill(ids, px, attention_mask=mask,
+                          matryoshka_vis_token_scale=spec)
+        err = (got - want).abs().max().item()
+        print(f"[tp small] prefill logits max|tp - one card| = {err:.3e} "
+              f"(limit {TP_SMALL_TOL})")
+        if err > TP_SMALL_TOL:
+            fail("tp small: prefill logits differ from one card's")
+        outs = {}
+        for name, fn in (
+                ("tp", lambda g: eng.generate(
+                    ids, px, attention_mask=mask,
+                    matryoshka_vis_token_scale=spec, gen_cfg=sampled,
+                    generator=g)),
+                ("eager", lambda g: generate(
+                    params_dev, cfg, ids, px, attention_mask=mask,
+                    matryoshka_vis_token_scale=spec, gen_cfg=sampled,
+                    generator=g, cuda_graph=False)),
+                ("captured", lambda g: generate(
+                    params_dev, cfg, ids, px, attention_mask=mask,
+                    matryoshka_vis_token_scale=spec, gen_cfg=sampled,
+                    generator=g))):
+            outs[name] = fn(torch.Generator(device=dev).manual_seed(7))
+        print(f"[tp small sampled] tp {outs['tp'].tolist()}; one card eager "
+              f"equal {np.array_equal(outs['tp'], outs['eager'])}, captured "
+              f"equal {np.array_equal(outs['tp'], outs['captured'])}")
+        if not np.array_equal(outs["tp"], outs["eager"]):
+            fail("tp small: sampled tokens differ from one card's")
+    finally:
+        eng.close()
+
+
+def one_card_forced(params, cfg, inputs, numtoks, tokens) -> torch.Tensor:
+    """One card's teacher-forced logits (B, k + 1, V) f32: the prefill's
+    last position, then an eager decode step on each column of ``tokens``
+    (B, k), as ``TPEngine.forced_logits``."""
+    from matryoshka_mm_torch.generate import (GenerationConfig, _decode_step,
+                                              _round_up, prefill_image)
+
+    dev = params["llama"]["embed_tokens"].device
+    ids, px, mask = inputs
+    L = _round_up(ids.shape[1] - 1 + numtoks, 64)
+    with torch.inference_mode():
+        logits, cache, lengths = prefill_image(
+            params, cfg, torch.as_tensor(ids, dtype=torch.int64, device=dev),
+            torch.as_tensor(px, device=dev),
+            None if mask is None else torch.as_tensor(mask, device=dev),
+            numtoks, L, L + tokens.shape[1])
+        out = [logits]
+        finished = torch.zeros(ids.shape[0], dtype=torch.bool, device=dev)
+        for tok in torch.as_tensor(tokens, device=dev).unbind(1):
+            out.append(_decode_step(params, cfg, GenerationConfig(), cache,
+                                    tok, lengths, finished, None)[3])
+            lengths = lengths + 1
+    return torch.stack(out, 1).float()
+
+
+def tp_7b(dev) -> dict:
+    """debug://7b through load_pretrained_model(tp_size=2) with both ranks
+    on this card over gloo: bf16 at TP_SCALES, then the same weights under
+    load_4bit and load_8bit (fuse=False), each with exact launches per
+    rank, prefill logits against one card, and the timings."""
+    from matryoshka_mm_torch.models.builder import (LlavaModel,
+                                                    load_pretrained_model)
+    from matryoshka_mm_torch.ops.quant import quantize_llama_params
+    from matryoshka_mm_torch.parallel.tp_decode import TPEngine
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    _, model, _, _ = load_pretrained_model(
+        "debug://7b", device=str(dev), tp_size=TP_RANKS,
+        tp_devices=[dev] * TP_RANKS, tp_backend="gloo")
+    eng = model.tp_engine
+    cfg = model.cfg
+    L = cfg.llama.num_hidden_layers
+    peaks = [torch.cuda.max_memory_allocated(dev) / 2**30] \
+        + eng.call(_peak_gib)[1:]
+    print(f"[tp bf16] debug://7b made and cut into {TP_RANKS} shards in "
+          f"{time.perf_counter() - t0:.1f} s; peak device memory by rank "
+          f"{[f'{p:.2f} GiB' for p in peaks]} (rank 0 holds the whole model "
+          f"and its shard)")
+    inputs = make_inputs(cfg)[1]
+    ids, px, _ = inputs
+    launches = {}
+
+    def counted(label, engine, scales, want_q):
+        """The counted requests; returns their tokens and the wall s of
+        the first."""
+        engine.generate(ids, px, gen_cfg=_gcfg(1),
+                        matryoshka_vis_token_scale=f"ver=v0_numtoks="
+                                                   f"{scales[0]}")  # warm-up
+        engine.reset_launch_counts()
+        outs, walls = {}, []
+        for n in scales:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[n] = engine.generate(
+                ids, px, matryoshka_vis_token_scale=f"ver=v0_numtoks={n}",
+                gen_cfg=_gcfg(NEW_TOKENS))
+            walls.append(time.perf_counter() - t0)
+            if outs[n].shape != (1, NEW_TOKENS):
+                fail(f"tp {label}: output {outs[n].shape}")
+        k = len(scales)
+        want = {"flash_attention": k * L,
+                "decode_attention": k * L * (NEW_TOKENS - 1),
+                "int4_matmul": 0, "int8_matmul": 0, "quant_mlp": 0}
+        want.update({name: k * n for name, n in want_q.items()})
+        _add(launches, _tp_launches(engine, label, want))
+        return outs, walls[0]
+
+    def against_one_card(label, engine, params, outs):
+        """The prefill logits and those of TP_FORCED_STEPS decode steps,
+        teacher-forced with one card's greedy tokens, against one card's
+        (each at cosine >= LOGIT_COS); the greedy tokens side by side."""
+        from matryoshka_mm_torch.generate import generate
+
+        for n, got in outs.items():
+            spec = f"ver=v0_numtoks={n}"
+            one = generate(params, cfg, ids, px,
+                           matryoshka_vis_token_scale=spec,
+                           gen_cfg=_gcfg(NEW_TOKENS))
+            forced = one[:, :TP_FORCED_STEPS]
+            tp_l = engine.forced_logits(ids, px, forced,
+                                        matryoshka_vis_token_scale=spec)[0]
+            one_l = one_card_forced(params, cfg, inputs, n, forced)[0]
+            compare_logits(tp_l[0], one_l[0], f"tp {label} {n}",
+                           need_same_top=False)
+            cos = torch.nn.functional.cosine_similarity(tp_l[1:], one_l[1:],
+                                                        dim=-1)
+            finite = bool(torch.isfinite(tp_l).all())
+            print(f"[tp {label} {n}] teacher-forced decode steps 1-"
+                  f"{TP_FORCED_STEPS}: cosine against one card "
+                  f"{[round(c, 6) for c in cos.tolist()]} finite {finite} "
+                  f"(limit {LOGIT_COS})")
+            if not finite or float(cos.min()) < LOGIT_COS:
+                fail(f"tp {label} {n}: TP decode logits disagree with one "
+                     f"card's")
+            same = int((got == one).cumprod(axis=1).sum())
+            print(f"[tp {label} {n}] tokens {got[0, :12].tolist()}; the "
+                  f"first {same} of {NEW_TOKENS} equal one card's")
+
+    outs, full = counted("bf16", eng, TP_SCALES, {})
+    against_one_card("bf16", eng, model.params, outs)
+    tp_timings(model, inputs, "bf16", full)
+    eng.close()
+
+    for label, bits, scales in TP_QUANT_RUNS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        qparams = {**model.params, "llama": _tree_copy(model.params["llama"])}
+        quantize_llama_params(qparams, bits, fuse=False)
+        t0 = time.perf_counter()
+        eng = TPEngine(qparams, cfg, TP_RANKS, devices=[dev] * TP_RANKS,
+                       backend="gloo")
+        print(f"[tp {label}] engine up in {time.perf_counter() - t0:.1f} s")
+        try:
+            name = f"int{bits}_matmul"
+            outs, full = counted(label, eng, scales, {
+                name: 4 * L + 1 + (NEW_TOKENS - 1) * (2 * L + 1),
+                "quant_mlp": (NEW_TOKENS - 1) * L})
+            against_one_card(label, eng, qparams, outs)
+            whole = [(layer["self_attn"]["o_proj"], layer["mlp"]["down_proj"])
+                     for layer in qparams["llama"]["layers"]]
+            bad = eng.call(_k_shard_mismatches, whole)
+            print(f"[tp {label}] every rank's o and down K-shards of all "
+                  f"{L} layers against the whole weight's columns, "
+                  f"dequantized: mismatching layers by rank {bad}")
+            if any(bad):
+                fail(f"tp {label}: a K-shard is not the whole weight's "
+                     f"columns")
+            if bits == 4:
+                qmodel = LlavaModel(qparams, cfg)
+                qmodel.tp_engine = eng
+                tp_timings(qmodel, inputs, label, full)
+                del qmodel
+        finally:
+            eng.close()
+        del qparams, whole
+    return launches
+
+
+def phase_tp(dev) -> tuple:
+    """Returns the launches of the counted 7B runs, by kernel, summed over
+    the ranks, and the largest error of each kernel at the shard shapes."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = [time.perf_counter()]
+
+    def lap(what):
+        now = time.perf_counter()
+        print(f"[time] tp {what} {now - t0[0]:.1f} s")
+        t0[0] = now
+
+    errs = quant_shape_cases(dev, TP_SHAPES, TP_ROWS, TP_MLPS, TP_MLP_ROWS,
+                             seed=20, timed_rows=(1,))
+    errs.update(tp_attention_cases(dev))
+    lap("kernels at the shard shapes")
+    tp_small(dev)
+    lap("small model")
+    launches = tp_7b(dev)
+    lap("7B")
+    return launches, errs
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
@@ -6804,10 +7288,10 @@ def main(argv=()) -> int:
     if argv:
         # a subset for work on one phase: `chip_smoke.py kernels quant slice
         # qslice paged hbm serve smallinfer bwd train small ckpt anyres
-        # genmodes families famkernels lora frontend eval harness` runs
+        # genmodes families famkernels lora frontend eval harness tp` runs
         # phases 3 (attention kernels), 3 (quantized products), 4, 5, 6, 7,
         # 8, 9, 10, 11, 12, 13, 14, 15, phase 3's cases at the families'
-        # shapes, 16, 17, 18 and 19 alone and prints no result line
+        # shapes, 16, 17, 18, 19 and 20 alone and prints no result line
         for name in argv:
             phases = {"kernels": phase_kernels, "quant": phase_quant_kernels,
              "slice": phase_slice, "smallinfer": phase_small,
@@ -6818,7 +7302,7 @@ def main(argv=()) -> int:
              "anyres": phase_anyres, "genmodes": phase_genmodes,
              "families": phase_families, "famkernels": phase_family_kernels,
              "lora": phase_lora, "frontend": phase_frontend,
-             "eval": phase_eval, "harness": phase_harness}
+             "eval": phase_eval, "harness": phase_harness, "tp": phase_tp}
             timed(phases[name], dev)
         print(f"partial run {argv}: no result")
         return 1
@@ -6855,6 +7339,11 @@ def main(argv=()) -> int:
         launches[k] = launches.get(k, 0) + n
     for k, n in timed(phase_harness, dev).items():
         launches[k] = launches.get(k, 0) + n
+    tp_launches, tp_errs = timed(phase_tp, dev)
+    for k, n in tp_launches.items():
+        launches[k] = launches.get(k, 0) + n
+    for k, e in tp_errs.items():
+        rec[k]["err"] = max(rec[k]["err"], e)
     if [m for m in sys.modules
             if m.split(".")[0] in ("jax", "matryoshka_mm_tpu")]:
         fail("jax or the JAX package was imported")

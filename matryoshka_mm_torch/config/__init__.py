@@ -3,8 +3,12 @@
 Field names and presets mirror the JAX package's ``LlamaConfig``
 (``matryoshka_mm_tpu/models/llama.py``), ``ClipVisionConfig``
 (``models/clip.py``) and ``M3Preset`` / ``LlavaConfig`` (``models/llava.py``),
-so a configuration reads the same on both sides.  Fields that only serve
-paths the port does not have yet (tensor parallelism) are left out.
+so a configuration reads the same on both sides.  ``LlamaConfig.tp_axis``
+names a tensor-parallel group registered by ``parallel/collectives.py`` (a
+name, not the group, so the config stays picklable and hashable): a
+decoder run under it all-reduces its o_proj and MLP outputs
+(``parallel/tp_decode.py`` sets it, with ``head_dim_override``, in
+``local_llama_cfg``, and gathers the vocabulary-sharded logits itself).
 
 ``LlamaConfig.attn_impl`` keeps its JAX meaning:
 
@@ -79,6 +83,10 @@ class LlamaConfig:
     # "" follows `dtype`; "int8" stores KV slots int8 with a per-(slot,
     # kv head) absmax scale (load_pretrained_model(kv_cache_dtype="int8"))
     kv_cache_dtype: str = ""
+    # tensor parallelism: the name of a registered group of ranks, each
+    # holding 1/tp of the heads, the MLP width and the vocabulary (the JAX
+    # shard_map axis); "" = one device
+    tp_axis: str = ""
     head_dim_override: int = 0
 
     def __post_init__(self):

@@ -23,7 +23,11 @@ Sources, in the JAX package's order:
 device leaf by leaf (``ops/quant.py`` ``quantize_llama_params``, the JAX
 ``maybe_quantize``; ``quant_fuse=False`` keeps the unfused q/k/v and
 gate/up leaves), and ``kv_cache_dtype="int8"`` gives the int8 KV cache.
-``tp_size > 1`` raises ``NotImplementedError`` naming its ROADMAP.md item.
+``tp_size > 1`` attaches a ``parallel/tp_decode.py`` ``TPEngine`` over
+that many ranks (``tp_devices`` / ``tp_backend`` as its ``devices`` /
+``backend``), through which ``LlavaModel.generate`` runs; quantized
+weights then stay unfused (``quant_fuse=False``: each rank fuses its own
+shard), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -61,6 +65,7 @@ class LlavaModel:
         self.params = params
         self.cfg = cfg
         self.config = _ConfigView(cfg)
+        self.tp_engine = None
 
     def generate(self, input_ids, images=None, image_sizes=None,
                  attention_mask=None, matryoshka_vis_token_scale=None,
@@ -78,6 +83,15 @@ class LlavaModel:
             max_new_tokens=max_new_tokens, temperature=temperature,
             top_p=top_p, do_sample=do_sample, eos_token_id=eos_token_id,
             pad_token_id=pad_token_id, decode_chunk=decode_chunk)
+        if self.tp_engine is not None and num_beams == 1 and not speculative:
+            # tensor parallel, the kernels kept on every rank's shard; the
+            # engine raises on the modes it does not cover (v2 combine,
+            # anyres, multi-image)
+            return self.tp_engine.generate(
+                input_ids, images, image_sizes=image_sizes,
+                attention_mask=attention_mask,
+                matryoshka_vis_token_scale=scale, gen_cfg=gen_cfg,
+                stopping_criteria=stopping_criteria, generator=generator)
         if num_beams != 1:
             # the reference's HF generate(num_beams=N) behind --num-beams:
             # deterministic, the sampling knobs unused
@@ -285,19 +299,28 @@ def load_pretrained_model(
     tp_size: int = 0,
     seed: int = 0,
     quant_fuse: bool = True,
+    tp_devices=None,
+    tp_backend: Optional[str] = None,
     **kwargs,
 ) -> Tuple[object, LlavaModel, ClipImageProcessor, int]:
     """Returns ``(tokenizer, model, image_processor, context_len)`` with the
     weights on ``device``."""
-    if tp_size > 1:
-        raise NotImplementedError(
-            "tensor parallelism is not ported yet (ROADMAP.md Queue 1, "
-            "item 11)")
+    if tp_size > 1 and (load_8bit or load_4bit):
+        # the engine shards the unfused quantized layout exactly and fuses
+        # each rank's shard (parallel/tp_decode.py)
+        quant_fuse = False
 
     def finish(params, cfg):
         if kv_cache_dtype:
             cfg = cfg.with_kv_cache_dtype(kv_cache_dtype)
-        return LlavaModel(params, cfg)
+        model = LlavaModel(params, cfg)
+        if tp_size > 1:
+            from ..parallel.tp_decode import TPEngine
+
+            model.tp_engine = TPEngine(params, cfg, tp_size,
+                                       devices=tp_devices,
+                                       backend=tp_backend)
+        return model
 
     if model_path.startswith("debug://"):
         which = model_path.split("//", 1)[1]

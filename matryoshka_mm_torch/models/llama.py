@@ -35,6 +35,13 @@ are stored int8 with f32 per-(slot, kv head) scales ``(L, B, S_max, n_kv)``
 (the bytes of the JAX flat ``(L, B, S_max * n_kv)``, whose flat form exists
 only for the TPU compiler).
 
+Tensor parallelism (``cfg.tp_axis``, ``parallel/tp_decode.py``): each rank
+holds its heads' rows of q/k/v, its columns of o_proj, its share of the
+MLP width and of the vocabulary; the o_proj and MLP outputs are summed
+over the ranks before their residual adds (``tp_decode.py`` gathers the
+vocabulary-sharded logits of :func:`lm_head`), so every rank runs this
+module's path, kernels included, on its shard.
+
 Quantized weights (``ops/quant.py``): every dense weight, ``lm_head``
 included, goes through :func:`proj`, the port of the JAX ``proj`` +
 ``fused_int4_proj``.  A quantized leaf with bf16 rows <=
@@ -92,6 +99,7 @@ from ..ops.fused_mlp import MAX_ROWS as MLP_MAX_ROWS, quant_mlp
 from ..ops.int4_matmul import MAX_FUSED_ROWS, leaf_matmul
 from ..ops.quant import (Q4KEY, _quantize_kv_slots, dequantize_array,
                          fused_proj_enabled, is_quantized)
+from ..parallel.collectives import tp_group
 
 
 @dataclasses.dataclass
@@ -411,9 +419,18 @@ def _layer_forward(lp: dict, hidden: torch.Tensor, *, cfg: LlamaConfig,
                             impl=cfg.attn_impl)
 
     out = out.transpose(1, 2).reshape(B, S, H * Dh)
-    hidden = hidden + _named_proj(out, a["o_proj"], "attn_o")
+    o = _named_proj(out, a["o_proj"], "attn_o")
+    if cfg.tp_axis:
+        # this rank's heads feed its columns of o_proj: the partial
+        # products of every rank add up before the residual (the JAX psum)
+        o = tp_group(cfg.tp_axis).all_reduce(o)
+    hidden = hidden + o
     x = rms_norm(hidden, lp["post_attention_layernorm"], cfg.rms_norm_eps)
-    return hidden + _mlp(m, x)
+    y = _mlp(m, x)
+    if cfg.tp_axis:
+        # down_proj's columns are this rank's share of the MLP width
+        y = tp_group(cfg.tp_axis).all_reduce(y)
+    return hidden + y
 
 
 ATTN_NAMES = ("attn_q", "attn_k", "attn_v", "attn_o", "flash_out",

@@ -62,13 +62,22 @@ def _quantize_2d_int4(w: torch.Tensor, stacked: bool = False
                       ) -> Dict[str, torch.Tensor]:
     wf = w.float()
     scale = _absmax_scale(wf, 7.0, stacked)
-    q = torch.clamp(torch.round(wf / scale), -7, 7).to(torch.int16)
+    q = torch.clamp(torch.round(wf / scale), -7, 7)
+    return {Q4KEY: pack_int4(q), "scale": scale}
+
+
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """Signed values ``(..., N, K)`` in [-8, 7], K even -> the split-half
+    e8m packed ``(..., N, K/2)`` int8: byte ``j`` holds input ``j`` in its
+    low nibble (excess-8) and input ``j + K/2`` in its high nibble (two's
+    complement).  The inverse of :func:`unpack_int4`."""
+    q = q.to(torch.int16)
     half = q.shape[-1] // 2
-    lo = q[..., :half] + 8                      # excess-8, in [1, 15]
+    lo = q[..., :half] + 8                      # excess-8, in [0, 15]
     hi = q[..., half:] & 0xF                    # two's-complement nibble
     packed = (hi << 4) | lo                     # 0..255
     packed = torch.where(packed > 127, packed - 256, packed)
-    return {Q4KEY: packed.to(torch.int8), "scale": scale}
+    return packed.to(torch.int8)
 
 
 def _per_slice(fn, w: torch.Tensor) -> Dict[str, torch.Tensor]:

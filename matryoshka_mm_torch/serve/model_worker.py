@@ -8,7 +8,9 @@ limit, and ``/worker_generate_stream`` streaming cumulative text as
 (``generate.stream_generate``, a captured CUDA graph a request on the card)
 or, with ``--continuous-batching``, through ``serve/batching.py``'s
 ``ContinuousBatcher`` (``--kv-backend paged``: the paged-attention kernel),
-instead of a torch thread + TextIteratorStreamer.  The model runs on
+instead of a torch thread + TextIteratorStreamer; with ``--tp-size N``
+through the ``TPEngine`` of ``parallel/tp_decode.py`` (N ranks, one card
+each).  The model runs on
 ``--device`` (``cuda`` unless ``cpu`` is asked for).  ``requests`` and
 ``aiohttp`` are imported where they are used.
 
@@ -109,6 +111,16 @@ class ModelWorker:
             self.model_name = model_name
 
         self.device = device
+        if tp_size > 1 and continuous_batching:
+            raise ValueError(
+                "--tp-size serves through the solo generate path; the "
+                "continuous batcher's kernels run on one card (drop "
+                "--continuous-batching)")
+        if tp_size > 1 and kv_cache_dtype == "auto":
+            # auto sizes one card's pool, after the load, and the ranks'
+            # caches are set when the engine starts
+            raise ValueError("--kv-cache-dtype auto with --tp-size: give "
+                             "int8 or leave it empty")
         logger.info(f"Loading the model {self.model_name} on worker {worker_id} ...")
         auto_kv = kv_cache_dtype == "auto"
         (self.tokenizer, self.model, self.image_processor,
@@ -429,11 +441,19 @@ class ModelWorker:
 
         px_np = (np.asarray(pixel_values, np.float32)
                  if pixel_values is not None else None)
-        stream = stream_generate(
-            model.params, model.cfg, input_ids, px_np,
-            image_sizes=image_sizes,
-            matryoshka_vis_token_scale=matryoshka_vis_token_scale,
-            gen_cfg=gen_cfg)
+        if model.tp_engine is not None:
+            # tensor-parallel worker: the engine's ranks, the kernels kept
+            # on every shard; it raises on the modes it does not cover
+            stream = model.tp_engine.stream_generate(
+                input_ids, px_np, image_sizes=image_sizes,
+                matryoshka_vis_token_scale=matryoshka_vis_token_scale,
+                gen_cfg=gen_cfg)
+        else:
+            stream = stream_generate(
+                model.params, model.cfg, input_ids, px_np,
+                image_sizes=image_sizes,
+                matryoshka_vis_token_scale=matryoshka_vis_token_scale,
+                gen_cfg=gen_cfg)
         for ids in stream:
             new_text = tokenizer.decode(
                 [int(t) for t in ids[0] if t != gen_cfg.pad_token_id],
@@ -583,8 +603,10 @@ def main():
                              "draft tokens per step (greedy-only; paged "
                              "backend); 0 disables")
     parser.add_argument("--tp-size", type=int, default=0,
-                        help="tensor parallelism over this many cards: not "
-                             "ported yet, > 1 raises NotImplementedError")
+                        help="tensor parallelism over this many cards "
+                             "(one rank a card, NCCL): the solo stream "
+                             "runs on every rank's shard; not with "
+                             "--continuous-batching")
     parser.add_argument("--kv-cache-dtype", type=str, default="",
                         choices=["", "int8", "auto"],
                         help="int8: KV slots stored int8 with per-slot "

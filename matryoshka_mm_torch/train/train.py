@@ -22,7 +22,7 @@ one of the port's own); the weights and widths come from it, the preset,
 remat and dtypes from the arguments.
 
 Runs on one device: the card unless ``--device cpu`` is given.
-``--tp_size`` and ``--dp_size`` above 1 raise (ROADMAP.md Queue 1, slice 4).
+``--tp_size`` and ``--dp_size`` above 1 raise (ROADMAP.md Queue 1, item 12a).
 """
 
 from __future__ import annotations
@@ -311,7 +311,8 @@ def train(attn_implementation: str = "flash", argv=None) -> TrainState:
     if training_args.tp_size > 1 or (training_args.dp_size or 1) > 1:
         raise NotImplementedError(
             "tp_size / dp_size above 1: training across cards is not ported "
-            "yet (ROADMAP.md Queue 1, slice 4)")
+            "yet (ROADMAP.md Queue 1, item 12a: sharding.py, inference.py "
+            "and FSDP2 / DTensor training)")
     device = torch.device(training_args.device)
     np.random.seed(training_args.seed)
 

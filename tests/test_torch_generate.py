@@ -145,8 +145,10 @@ def test_load_pretrained_and_eval_model_end_to_end(tmp_path, capsys):
     assert model.params["llama"]["embed_tokens"].device.type == "cpu"
     with pytest.raises(FileNotFoundError):      # a directory, no checkpoint
         load_pretrained_model(str(tmp_path), device="cpu", load_4bit=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_pretrained_model("debug://tiny", device="cpu", tp_size=2)
+    # tp_size > 1 attaches a TPEngine (tests/test_torch_tp*.py); a width
+    # that tp does not divide raises before any rank starts
+    with pytest.raises(ValueError, match="must divide"):
+        load_pretrained_model("debug://tiny", device="cpu", tp_size=3)
     # beam search and speculative decoding through the facade
     for kw in (dict(num_beams=2), dict(speculative=True)):
         out = model.generate(np.array([[1, 5, 9]]), max_new_tokens=4,

@@ -1793,3 +1793,114 @@ def test_antialiased_resize_in_bf16_matches_float32(dev):
         assert got.dtype == torch.bfloat16 and got.shape[-1] == size
         assert float((got.float() - want).abs().max()) <= \
             2e-2 * float(want.abs().max())
+
+
+# tensor parallelism (parallel/tp_decode.py): the local shapes of a 7B rank
+# at tp = 2 (fused qkv 6,144, o K 2,048, gate/up 11,008, down K 5,504 =
+# 43 x 128, lm_head 16,000 rows) and tp = 4 (3,072, K 1,024, 5,504, K 2,752 =
+# 43 x 64, 8,000)
+TP_SHAPES = [(6144, 4096), (4096, 2048), (11008, 4096), (4096, 5504),
+             (16000, 4096), (3072, 4096), (4096, 1024), (5504, 4096),
+             (4096, 2752), (8000, 4096)]
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("N,K", TP_SHAPES)
+@pytest.mark.parametrize("M", [1, 8, 640])
+def test_quant_matmul_kernel_at_the_tp_shard_shapes(dev, bits, N, K, M):
+    leaf = _quant_leaf(bits, N, K, dev)
+    x = torch.randn((M, K), device=dev, dtype=torch.bfloat16)
+    w = leaf[tq.Q4KEY if bits == 4 else tq.QKEY]
+    fn = tmm.int4_matmul if bits == 4 else tmm.int8_matmul
+    plain = tmm.int4_matmul_plain if bits == 4 else tmm.int8_matmul_plain
+    a, b = fn(x, w, leaf["scale"]), fn(x, w, leaf["scale"])
+    want = plain(x, w, leaf["scale"])
+    torch.cuda.synchronize()
+    assert a.shape == (M, N) and torch.equal(a, b)
+    assert _rel_err(a, want) <= 1e-2
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("M", [1, 8, 32])
+@pytest.mark.parametrize("I", [5504, 2752])
+def test_quant_mlp_kernel_at_the_tp_widths(dev, bits, M, I):
+    """``quant_mlp`` on a 7B rank's share of the MLP width at tp = 2 and 4
+    (``i_orig`` read from the fused gate/up scales as the model does)."""
+    key = tq.Q4KEY if bits == 4 else tq.QKEY
+    D = 4096
+    gate, up = _quant_leaf(bits, I, D, dev, 1), _quant_leaf(bits, I, D, dev, 2)
+    gateup = {key: torch.cat([gate[key], up[key]]),
+              "scale": torch.cat([gate["scale"], up["scale"]])}
+    down = _quant_leaf(bits, D, I, dev, 3)
+    x = torch.randn((M, D), device=dev, dtype=torch.bfloat16)
+    i_orig = gateup["scale"].shape[0] // 2
+    a = tmlp.quant_mlp(x, gateup, down, bits, i_orig)
+    b = tmlp.quant_mlp(x, gateup, down, bits, i_orig)
+    want = tmlp.quant_mlp_plain(x, gateup, down, bits, I)
+    torch.cuda.synchronize()
+    assert i_orig == I and torch.equal(a, b)
+    assert _rel_err(a, want) < 2e-2
+
+
+@pytest.mark.parametrize("H", [16, 8])
+def test_attention_kernels_at_the_tp_head_counts(dev, H):
+    """A 7B rank's heads at tp = 2 and 4: the flash forward at a scale-576
+    prefill (640 queries against 672 slots, left-padded) and the decode
+    kernel at 672 slots, bf16, against their plain versions; two launches
+    give the same bits."""
+    g = torch.Generator(device=dev).manual_seed(20)
+    Dh, Sq, Sk, bf = 128, 640, 672, torch.bfloat16
+    q = torch.randn((1, H, Sq, Dh), generator=g, device=dev, dtype=bf)
+    k = torch.randn((1, Sk, H, Dh), generator=g, device=dev,
+                    dtype=bf).transpose(1, 2)
+    v = torch.randn((1, Sk, H, Dh), generator=g, device=dev,
+                    dtype=bf).transpose(1, 2)
+    valid = torch.zeros((1, Sk), dtype=torch.bool, device=dev)
+    valid[0, 23:Sq] = True
+    out, lse = tflash.flash_attention_lse(q, k, v, kv_valid=valid)
+    again, _ = tflash.flash_attention_lse(q, k, v, kv_valid=valid)
+    want_o, want_l = tflash.flash_attention_plain(q, k, v, kv_valid=valid)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out.float(), want_o.float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(lse, want_l, atol=1e-3, rtol=1e-3)
+
+    qd = torch.randn((1, H, Dh), generator=g, device=dev, dtype=bf)
+    kc = torch.randn((1, Sk, H, Dh), generator=g, device=dev, dtype=bf)
+    vc = torch.randn((1, Sk, H, Dh), generator=g, device=dev, dtype=bf)
+    pos = torch.arange(Sk, device=dev, dtype=torch.int32)[None]
+    args = (qd, kc, vc, valid, pos, torch.tensor([Sq - 1], device=dev,
+                                                 dtype=torch.int32))
+    a = tdec.flash_decode_attention(*args)
+    b = tdec.flash_decode_attention(*args)
+    want = tdec.decode_attention_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    torch.testing.assert_close(a.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_paged_kernel_on_a_slice_of_the_kv_heads(dev, int8):
+    """Each of two ranks' kv heads of a 7B pool (16 of 32, a strided view
+    of the pool's heads) through the paged kernel: at the whole call's
+    split the same bits as those heads of the whole call, at its own split
+    within the attention tolerance."""
+    B, H, Hkv, Dh, page, P = 4, 32, 32, 128, 64, 12
+    q, k, v, ks, vs, tables, lens = _paged_case(
+        dev, torch.bfloat16, int8, B, H, Hkv, Dh, page, P, [0, 65, 700, 767])
+    k, v = k[1], v[1]
+    ks, vs = (None, None) if ks is None else (ks[1], vs[1])
+    sms = tdec._sm_count(dev.index or 0)
+    split = tpaged.paged_splits(B, Hkv, P, page, sms)
+    whole = tpaged._launch(q, k, v, tables, lens, ks, vs, n_split=split)
+    for r in range(2):
+        hs = slice(r * 16, (r + 1) * 16)
+        part = [q[:, hs], k[:, :, hs], v[:, :, hs]]
+        sc = (None, None) if ks is None else (ks[:, :, hs], vs[:, :, hs])
+        same = tpaged._launch(*part, tables, lens, *sc, n_split=split)
+        own = tpaged.paged_decode_attention(*part, tables, lens, *sc)
+        torch.cuda.synchronize()
+        assert torch.equal(same, whole[:, hs])
+        torch.testing.assert_close(own.float(), whole[:, hs].float(),
+                                   atol=2e-2, rtol=2e-2)
