@@ -385,11 +385,38 @@ Phases; any failure exits non-zero, and no phase's exception is caught:
    each rank's peak memory, TTFT and ms a decode step at tp = 2 in bf16
    and int4 with the collectives' share of a step (torch.profiler's tp.*
    ranges on rank 0) beside one card's, as facts about two ranks sharing
-   one card over gloo.
+   one card over gloo;
+21. training across ranks (parallel/sharding.py), ranks that share this
+   card over gloo, each a fresh process.  First the flash forward and
+   both backward kernels at a 7B rank's shapes under tp = 2 (16 heads,
+   Dh 128, 1,059 and 1,599 tokens, bf16) against their plain versions,
+   timed beside the plain versions, the bound and the library.  Then a
+   probe of DTensor's redistribution on CUDA tensors over gloo (a gather,
+   its backward reduce-scatter, full_tensor) in two processes of its own:
+   each step it takes, and their exit codes.  Then a world of two ranks:
+   gloo's all-reduce, all-gather and reduce-scatter on CUDA tensors (taken
+   or refused, ms); phase 11's small float32 MoE model at meshes (data,
+   model) = (2, 1) and (1, 2), then phase 10's 7B LoRA recipe (its lora_b
+   drawn from a seed, so that every lora_a has a gradient to compare) at
+   (1, 2) with B=1 (all 32 layers, 16 heads a rank) and at (2, 1) with
+   B=2 (one row a rank, the first SHARD_DP_LAYERS layers at full width);
+   then a world of four ranks: the small model at (2, 2).
+   Each case is held against the one-card step on the same batch (on rank
+   0, before the ranks place their weights): the small model's loss and
+   grad_norm within SHARD_SMALL_TOL relative and its updated trainable
+   leaves within SHARD_SMALL_TOL as one vector (each leaf within
+   SMALL_TRAIN_TOL of its max); the 7B loss within TRAIN_LOSS_TOL,
+   grad_norm within SHARD_GN_TOL and the cosine of the flattened trainable
+   gradients >= SHARD_COS; every rank launches #1 and #3 exactly as one
+   card does (2*3*L and 3*L a 7B step) and leaves its frozen leaves
+   bit-identical.  Printed with the card's name and power limit: seconds
+   of the step, the collectives' seconds and share (rank 0's host time
+   inside parallel/collectives.py's sp.* collectives, the ranges
+   torch.profiler shows), each rank's peak memory.
 
 With arguments (`python3 chip_smoke.py kernels quant slice qslice paged hbm
 serve smallinfer bwd train small ckpt anyres genmodes families famkernels
-lora frontend eval harness tp`) only the build and the named phases run
+lora frontend eval harness tp shard`) only the build and the named phases run
 (famkernels: phase 3's cases at the families' shapes), and no result line is
 printed.
 
@@ -7256,6 +7283,539 @@ def phase_tp(dev) -> tuple:
     return launches, errs
 
 
+# ---------------------------------------------------------------------------
+# phase 21: training across ranks (parallel/sharding.py)
+# ---------------------------------------------------------------------------
+
+SHARD_SMALL_TOL = 1e-5    # small f32 model: loss, grad_norm, updated leaves
+SHARD_GN_TOL = 2e-2       # 7B: grad_norm against one card, relative
+SHARD_COS = 0.99          # 7B: cosine of the flattened trainable gradients
+SHARD_DP_LAYERS = 2       # 7B at dp = 2: full width, fewer layers
+SHARD_WAIT_S = 900        # a world's processes: killed past it
+# every case of phase 21: (name, model, recipe, mesh, rows, layers)
+SHARD_WORLDS = (
+    (2, (("small moe (2, 1)", "small", "moe", (2, 1), 4, None),
+         ("small moe (1, 2)", "small", "moe", (1, 2), 4, None),
+         ("7b lora tp=2", "7b", "lora", (1, 2), 1, None),
+         ("7b lora dp=2", "7b", "lora", (2, 1), 2, SHARD_DP_LAYERS))),
+    (4, (("small moe (2, 2)", "small", "moe", (2, 2), 4, None),)),
+)
+
+
+def _shard_model(model, recipe, layers, dev):
+    """``(params, cfg, opt_cfg)`` of a phase 21 case, the same on every
+    rank: phase 11's small float32 MoE model (Dh = 128) or phase 10's 7B
+    LoRA recipe (bf16 base, r = 128, alpha = 256, remat), its first
+    ``layers`` decoder layers where given."""
+    import dataclasses
+
+    from matryoshka_mm_torch.config import LlavaConfig
+    from matryoshka_mm_torch.models.convert import init_params
+    from matryoshka_mm_torch.ops.lora import add_lora
+    from matryoshka_mm_torch.train.optimizer import OptimizerConfig
+
+    if model == "small":
+        base = LlavaConfig.tiny_debug(moe=SMALL_MOE if recipe == "moe"
+                                      else None)
+        cfg = dataclasses.replace(base, llama=dataclasses.replace(
+            base.llama, hidden_size=256, num_attention_heads=2,
+            num_key_value_heads=2, intermediate_size=512, remat=True))
+        params = _to(init_params(cfg, "cpu", seed=4), dev)
+        # eps 1: Adam's first update, lr * g / (|g| + eps), is then near
+        # lr * g, not lr * sign(g), so the updated leaves can be compared
+        opt_cfg = OptimizerConfig(learning_rate=1e-3, total_steps=10,
+                                  adam_eps=1.0)
+    else:
+        from matryoshka_mm_torch.models.builder import load_pretrained_model
+
+        _, m, _, _ = load_pretrained_model("debug://7b", device=str(dev))
+        params, cfg = m.params, dataclasses.replace(
+            m.cfg, llama=dataclasses.replace(m.cfg.llama, remat=True))
+        opt_cfg = OptimizerConfig(learning_rate=TRAIN_LR, total_steps=10)
+    if recipe == "lora":
+        params = add_lora(params, torch.Generator(device=dev).manual_seed(1),
+                          **({} if model == "7b" else {"r": 8,
+                                                       "alpha": 16.0}))
+        # add_lora starts lora_b at 0, which leaves every lora_a with a
+        # zero gradient: a seeded start gives each one a gradient that the
+        # comparison sees
+        gen = torch.Generator(device=dev).manual_seed(2)
+        for b in _lora_bs(params):
+            b.normal_(0.0, 1e-3, generator=gen)
+        opt_cfg = dataclasses.replace(opt_cfg, lora_enable=True)
+    if layers:
+        params["llama"]["layers"] = params["llama"]["layers"][:layers]
+        cfg = dataclasses.replace(cfg, llama=dataclasses.replace(
+            cfg.llama, num_hidden_layers=layers))
+    return params, cfg, opt_cfg
+
+
+def _lora_bs(tree):
+    """The ``lora_b`` leaves of ``tree``."""
+    if isinstance(tree, dict):
+        if "lora_b" in tree:
+            yield tree["lora_b"]
+            return
+        tree = list(tree.values())
+    if isinstance(tree, list):
+        for v in tree:
+            yield from _lora_bs(v)
+
+
+def _shard_batch(cfg, dev, B):
+    """``train_batch`` with its second half of rows holding 8 labels each,
+    so that the data ranks hold different numbers of valid labels."""
+    T = TRAIN_T if cfg.llama.hidden_size == 4096 else 40
+    batch = train_batch(cfg, dev, T=T, B=B)
+    if B > 1:
+        batch.labels[B // 2:, :T - 8] = -100
+    return batch
+
+
+def _one_card(model, params, cfg, opt_cfg, batch, counted) -> dict:
+    """The one-card reference of a phase 21 case on rank 0: the small
+    model's step (its updated trainable leaves), or the 7B loss and
+    gradients without the update."""
+    import copy
+
+    from matryoshka_mm_torch.train.optimizer import named_leaves
+    from matryoshka_mm_torch.train.train_step import m3_loss
+    from matryoshka_mm_torch.train.trainer import (create_train_state,
+                                                   global_norm, host_metrics,
+                                                   make_train_step)
+
+    if model == "small":
+        mine = copy.deepcopy(params)
+        st, tx = create_train_state(mine, opt_cfg)
+        (st, m), t, launches = counted(lambda: make_train_step(
+            cfg, tx, frozen_vision=True)(st, batch))
+        leaves = dict(named_leaves(mine))
+        return {"metrics": host_metrics(m), "launches": launches, "s": t,
+                "leaves": {p: leaves[p].detach().clone()
+                           for p in tx.trainable}}
+    _, tx = create_train_state(params, opt_cfg)
+    leaves = dict(named_leaves(params))
+    trainable = [leaves[p] for p in tx.trainable]
+
+    def step():
+        loss, _ = m3_loss(params, cfg, batch, frozen_vision=True)
+        return loss.detach(), torch.autograd.grad(loss, trainable,
+                                                  allow_unused=True)
+
+    (loss, grads), t, launches = counted(step)
+    return {"metrics": {"loss": float(loss),
+                        "grad_norm": float(global_norm(grads))},
+            "launches": launches, "s": t,
+            "grads": dict(zip(tx.trainable, grads))}
+
+
+def _shard_case(case, rank, dev, world):
+    """One case on this rank: the one-card step on rank 0 first (the
+    reference), then the placed step on every rank, counted and under the
+    CPU profiler; returns rank 0's lines and errors (other ranks: none)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from matryoshka_mm_torch.parallel import make_mesh, put_batch
+    from matryoshka_mm_torch.parallel.collectives import collective_seconds
+    from matryoshka_mm_torch.parallel.sharding import (full_tree, local_tree,
+                                                       mesh_llama_cfg,
+                                                       shard_params)
+    from matryoshka_mm_torch.train.optimizer import named_leaves
+    from matryoshka_mm_torch.train.train_step import M3Batch
+    from matryoshka_mm_torch.train.trainer import (create_train_state,
+                                                   host_metrics,
+                                                   make_train_step)
+
+    name, model, recipe, shape, B, layers = case
+    laps, t0 = [], [time.perf_counter()]
+
+    def lap(what):
+        now = time.perf_counter()
+        laps.append(f"{what} {now - t0[0]:.1f} s")
+        t0[0] = now
+
+    params, cfg, opt_cfg = _shard_model(model, recipe, layers, dev)
+    batch = _shard_batch(cfg, dev, B)
+    counters = _train_counters()
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+
+    def counted(fn):
+        for c in counters.values():
+            c.launches = 0
+        sync()
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t, {
+            k: c.launches for k, c in counters.items()}
+
+    lap("model")
+    ref = _one_card(model, params, cfg, opt_cfg, batch, counted) \
+        if rank == 0 else None
+    lap("one-card step")
+    mesh = make_mesh(shape, device_type=dev.type)
+    placed = shard_params(mesh, params)
+    del params
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    state, tx = create_train_state(placed, opt_cfg)
+    before = _frozen_checksums(local_tree(placed), tx.labels)
+    grads_seen = {}
+    update = tx.update
+
+    def spy(grads, opt_state, p):
+        grads_seen.update(grads)
+        return update(grads, opt_state, p)
+
+    tx.update = spy
+    step_fn = make_train_step(cfg, tx, frozen_vision=True)
+    rows = M3Batch(*put_batch(mesh, tuple(batch), device=dev))
+    lap("placing")
+    # the collectives' share: host time inside parallel/collectives.py's
+    # sp.* collectives (on gloo each waits for its result)
+    c0 = collective_seconds()
+    (state, metrics), t, launches = counted(lambda: step_fn(state, rows))
+    coll_s = collective_seconds() - c0
+    lap("placed step")
+    m = host_metrics(metrics)
+    peak = (torch.cuda.max_memory_allocated(dev) / 2**30
+            if dev.type == "cuda" else 0.0)
+    after = _frozen_checksums(local_tree(placed), tx.labels)
+    frozen_changed = sum(before[p] != after[p] for p in before)
+    leaves = dict(named_leaves(placed))
+    if model == "small":
+        got = full_tree({p: leaves[p] for p in tx.trainable})
+    else:
+        got = full_tree({p: DTensor.from_local(
+            grads_seen[p], leaves[p].device_mesh, leaves[p].placements,
+            run_check=False, shape=leaves[p].shape,
+            stride=leaves[p].stride()) for p in tx.trainable})
+    lap("gathering")
+    every = [None] * world
+    dist.all_gather_object(every, {"launches": launches, "peak": peak,
+                                   "s": t, "coll_s": coll_s,
+                                   "frozen_changed": frozen_changed})
+    if rank != 0:
+        return [], []
+    lcfg = mesh_llama_cfg(cfg.llama, mesh)
+    errors = []
+    want = ref["launches"]
+    rel = {k: abs(m[k] - ref["metrics"][k]) / abs(ref["metrics"][k])
+           for k in ("loss", "grad_norm")}
+    if model == "small":
+        # the updated trainable leaves as one vector within
+        # SHARD_SMALL_TOL, and each leaf within phase 11's tolerance: a
+        # zero-initialized bias holds one update, whose relative error is
+        # its gradient's (the router's sums over the batch cancel)
+        diff = sum(float((got[p].double() - ref["leaves"][p].double())
+                         .square().sum()) for p in got)
+        size = sum(float(ref["leaves"][p].double().square().sum())
+                   for p in got)
+        flat = (diff / size) ** 0.5
+        worst = max((float((got[p].float() - ref["leaves"][p].float()).abs()
+                           .max() / ref["leaves"][p].abs().max()
+                           .clamp(min=1e-12)), p) for p in got)
+        check = (f"updated leaves {flat:.2e} as one vector, the worst leaf "
+                 f"{worst[0]:.2e} of its max ({worst[1]})")
+        if max(rel.values()) > SHARD_SMALL_TOL or flat > SHARD_SMALL_TOL \
+                or worst[0] > SMALL_TRAIN_TOL:
+            errors.append(f"{name}: leaves the one-card step ({rel}, "
+                          f"{flat}, {worst})")
+    else:
+        num = den_a = den_b = 0.0
+        for p, g in got.items():
+            r = ref["grads"][p]
+            if r is None:
+                r = torch.zeros_like(g)
+            num += float((g.double() * r.double()).sum())
+            den_a += float(g.double().square().sum())
+            den_b += float(r.double().square().sum())
+        cos = num / max((den_a * den_b) ** 0.5, 1e-30)
+        check = f"gradient cosine {cos:.6f}"
+        if rel["loss"] > TRAIN_LOSS_TOL or rel["grad_norm"] > SHARD_GN_TOL \
+                or not cos >= SHARD_COS:
+            errors.append(f"{name}: leaves the one-card step ({rel}, "
+                          f"cosine {cos})")
+    for r, e in enumerate(every):
+        if e["launches"] != want:
+            errors.append(f"{name}: rank {r} launched {e['launches']}, "
+                          f"one card {want}")
+        if e["frozen_changed"]:
+            errors.append(f"{name}: rank {r} changed "
+                          f"{e['frozen_changed']} frozen leaves")
+    lines = [
+        f"[shard {name}] {card_line()}: mesh (data, model) = {shape}, "
+        f"{world} ranks on one card over gloo, B={B}, "
+        f"{cfg.llama.num_hidden_layers} layers, "
+        f"{lcfg.num_attention_heads} heads / {lcfg.num_key_value_heads} KV "
+        f"heads a rank: loss {m['loss']:.6f} (one card "
+        f"{ref['metrics']['loss']:.6f}, rel {rel['loss']:.2e}), grad_norm "
+        f"{m['grad_norm']:.6f} (one card {ref['metrics']['grad_norm']:.6f}, "
+        f"rel {rel['grad_norm']:.2e}), {check}; launches a rank "
+        f"{[e['launches'] for e in every]} (one card {want}); frozen leaves "
+        f"changed {[e['frozen_changed'] for e in every]}",
+        f"[shard {name}] {card_line()}: step {every[0]['s']:.3f} s (the "
+        f"first; one card {ref['s']:.3f} s), its collectives "
+        f"{every[0]['coll_s']:.3f} s "
+        f"({100 * every[0]['coll_s'] / every[0]['s']:.1f}%, rank 0's host "
+        f"time in the sp.* collectives); peak GiB by rank "
+        f"{[round(e['peak'], 2) for e in every]}; rank 0: "
+        + ", ".join(laps)]
+    return lines, errors
+
+
+def _shard_rank(rank, world, init_file, cases, out, device_type,
+                probe=False):
+    """One rank of a phase 21 world: a fresh process sharing the card with
+    the others over gloo (and its host's cores: ``cpu_count // world``
+    threads each)."""
+    os.environ["LOCAL_RANK"] = str(rank)
+    sys.path.insert(0, str(REPO))
+    import torch.distributed as dist
+
+    from matryoshka_mm_torch.parallel import initialize_distributed
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_distributed(backend="gloo", init_file=init_file, rank=rank,
+                           world_size=world)
+    dev = torch.device(device_type, torch.cuda.current_device()) \
+        if device_type == "cuda" else torch.device("cpu")
+    if probe:
+        _gloo_probe(rank, dev)
+    lines, errors = [], []
+    for case in cases:
+        t0 = time.perf_counter()
+        got = _shard_case(case, rank, dev, world)
+        errors += got[1]
+        if rank == 0:
+            lines += got[0] + [f"[time] shard {case[0]} "
+                               f"{time.perf_counter() - t0:.1f} s"]
+            print("\n".join(lines[-3:]), flush=True)
+    if rank == 0:
+        Path(out).write_text(json.dumps({"lines": lines, "errors": errors}))
+    dist.destroy_process_group()
+
+
+def shard_worlds() -> list:
+    """Run each world of SHARD_WORLDS as fresh processes on the card (the
+    first also probes gloo); returns the errors of every case."""
+    import multiprocessing as mp
+    import tempfile
+
+    ctx = mp.get_context("spawn")
+    errors = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (world, cases) in enumerate(SHARD_WORLDS):
+            init, out = f"{tmp}/init{i}", f"{tmp}/out{i}.json"
+            procs = [ctx.Process(target=_shard_rank,
+                                 args=(r, world, init, cases, out, "cuda",
+                                       i == 0))
+                     for r in range(world)]
+            for p in procs:
+                p.start()
+            deadline = time.monotonic() + SHARD_WAIT_S
+            for p in procs:
+                p.join(max(deadline - time.monotonic(), 1))
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+            codes = [p.exitcode for p in procs]
+            if any(codes) or not Path(out).exists():
+                errors.append(f"world {i} ({world} ranks): exit codes "
+                              f"{codes}")
+                continue
+            errors += json.loads(Path(out).read_text())["errors"]
+    return errors
+
+
+def _gloo_probe(rank, dev) -> None:
+    """Which collectives gloo takes on CUDA tensors between the ranks of
+    this world on one card, and their ms at phase 21's sizes."""
+    import torch.distributed as dist
+
+    n = dist.get_world_size()
+    for what, rows in (("the activations of the largest bucket", 3 * 1059),
+                       ("one row", 1), ("an o_proj weight", 4096)):
+        x = torch.ones((rows, 4096), dtype=torch.bfloat16, device=dev)
+        whole = torch.ones((n * rows, 4096), dtype=torch.bfloat16,
+                           device=dev)
+        calls = {
+            "all_reduce": lambda: dist.all_reduce(x),
+            "all_gather_into_tensor":
+                lambda: dist.all_gather_into_tensor(whole, x),
+            "reduce_scatter_tensor":
+                lambda: dist.reduce_scatter_tensor(x, whole)}
+        out = {}
+        for op, go in calls.items():
+            try:
+                go()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    go()
+                torch.cuda.synchronize()
+                out[op] = f"{(time.perf_counter() - t0) / 3 * 1e3:.2f} ms"
+            except RuntimeError as e:     # what gloo refuses, said plainly
+                out[op] = f"refused: {str(e)[:120]}"
+        if rank == 0:
+            print(f"[shard probe] {card_line()}: gloo, {n} processes, CUDA "
+                  f"bf16 ({rows}, 4096) a rank = "
+                  f"{x.numel() * 2 / 2**20:.1f} MiB, {what}: {out}",
+                  flush=True)
+
+
+def _dtensor_probe_rank(rank, world, init_file) -> None:
+    """One rank of the DTensor probe: a bf16 (4096, 4096) part a rank,
+    ``Shard(0)`` over the ranks on CUDA tensors over gloo, gathered by
+    DTensor's ``redistribute``, then its backward (a reduce-scatter), then
+    ``full_tensor``; rank 0 prints each as it ends."""
+    import faulthandler
+
+    faulthandler.enable()
+    os.environ["LOCAL_RANK"] = str(rank)
+    sys.path.insert(0, str(REPO))
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from matryoshka_mm_torch.parallel import initialize_distributed
+
+    initialize_distributed(backend="gloo", init_file=init_file, rank=rank,
+                           world_size=world)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = init_device_mesh("cuda", (world,), mesh_dim_names=("data",))
+    x = torch.ones((4096, 4096), dtype=torch.bfloat16, device=dev)
+    d = DTensor.from_local(x, mesh, [Shard(0)], run_check=False)
+
+    def backward():
+        leaf = d.detach().requires_grad_()
+        y = leaf.redistribute(mesh, [Replicate()]).to_local(
+            grad_placements=[Partial()])
+        y.backward(torch.ones_like(y))
+
+    for what, go in (("redistribute to Replicate", lambda: d.redistribute(
+            mesh, [Replicate()]).to_local()),
+                     ("its backward from Partial", backward),
+                     ("full_tensor", d.full_tensor)):
+        t0 = time.perf_counter()
+        go()
+        torch.cuda.synchronize()
+        if rank == 0:
+            print(f"[shard probe] {card_line()}: DTensor {what} taken, "
+                  f"{(time.perf_counter() - t0) * 1e3:.2f} ms (the first "
+                  f"call)", flush=True)
+    dist.destroy_process_group()
+
+
+def dtensor_probe() -> None:
+    """Whether DTensor's redistribution, which runs through functional
+    collectives, takes CUDA tensors over gloo: two fresh processes on this
+    card (a segfault kills them, so they are not phase 21's ranks)."""
+    import multiprocessing as mp
+    import tempfile
+
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=_dtensor_probe_rank,
+                             args=(r, 2, f"{tmp}/init"))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(120)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    print(f"[shard probe] {card_line()}: DTensor's redistribution on CUDA "
+          f"tensors over gloo, torch {torch.__version__}, 2 processes: exit "
+          f"codes {[p.exitcode for p in procs]} (negative: killed by that "
+          f"signal)", flush=True)
+
+
+def shard_kernel_times(dev) -> dict:
+    """#1 and #3 at a 7B training rank's shapes under tp = 2 (16 heads,
+    Dh 128, the 1,059- and 1,599-token buckets, causal, bf16, a
+    left-padded row): kernel, plain version, bound and library ms; returns
+    each kernel's largest error."""
+    from matryoshka_mm_torch.ops import flash_attention as fl
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    errs = {"flash_attention": 0.0, "flash_attention_bwd_dq": 0.0,
+            "flash_attention_bwd_dkv": 0.0}
+    for S in (1059, 1599):
+        q, k, v, valid = _flash_operands(gen, dev, torch.bfloat16, 1, 16, 16,
+                                         S, S, 128, 37)
+        do = torch.randn_like(q)
+        out, lse = fl.flash_attention_lse(q, k, v, kv_valid=valid)
+        args = (q, k, v, valid, out, lse, do)
+        got = (out, fl.flash_attention_bwd_dq(*args),
+               *fl.flash_attention_bwd_dkv(*args))
+        want = (fl.flash_attention_plain(q, k, v, kv_valid=valid)[0],
+                *fl.flash_attention_bwd_plain(*args))
+        rel = [float((g.float() - w.float()).abs().max()
+                     / w.float().abs().max().clamp(min=1.0))
+               for g, w in zip(got, want)]
+        if rel[0] > FLASH_TOL or max(rel[1:]) > BWD_TOL[torch.bfloat16]:
+            fail(f"shard kernels at 16 heads, S={S}: {rel}")
+        for name, e in zip(errs, (rel[0], rel[1], max(rel[2:]))):
+            errs[name] = max(errs[name], e)
+        ops = rotations(*args)
+        t = {"fwd": time_ms(lambda *a: fl.flash_attention_lse(
+                 *a[:3], kv_valid=a[3]), ops),
+             "fwd_plain": time_ms(lambda *a: fl.flash_attention_plain(
+                 *a[:3], kv_valid=a[3]), ops, reps=3, warmup=1),
+             "dq": time_ms(fl.flash_attention_bwd_dq, ops, reps=10),
+             "dkv": time_ms(fl.flash_attention_bwd_dkv, ops, reps=10),
+             "dq_plain": time_ms(fl.flash_attention_bwd_dq_plain, ops,
+                                 reps=3, warmup=1),
+             "dkv_plain": time_ms(fl.flash_attention_bwd_dkv_plain, ops,
+                                  reps=3, warmup=1),
+             "lib": library_ms("flash", rotations(q, k, v), kv_valid=valid),
+             "lib_bwd": library_ms("flash_bwd", rotations(q, k, v, do),
+                                   kv_valid=valid)}
+        pairs = _pairs(valid, S, S)
+        b_fwd = bound(nbytes(q, k, v, out, lse), 4 * 16 * 128 * pairs)
+        b_dq = bound(nbytes(q, k, v, out, do, lse, lse, q),
+                     6 * 16 * 128 * pairs)
+        b_dkv = bound(nbytes(q, k, v, do, lse, lse, k, v),
+                      8 * 16 * 128 * pairs)
+        print(f"[shard kernels S={S}] {card_line()}: 16 heads a rank "
+              f"(tp = 2), errors {[f'{e:.1e}' for e in rel]}; forward "
+              f"{t['fwd']:.4f} ms (plain {t['fwd_plain']:.4f}, bound "
+              f"{b_fwd['bound_ms']:.4f} by {b_fwd['bound_by']}, library "
+              f"{t['lib']:.4f}); dq {t['dq']:.4f} ms (plain "
+              f"{t['dq_plain']:.4f}, bound {b_dq['bound_ms']:.4f}), dk/dv "
+              f"{t['dkv']:.4f} ms (plain {t['dkv_plain']:.4f}, bound "
+              f"{b_dkv['bound_ms']:.4f}); library backward {t['lib_bwd']:.4f} "
+              f"ms", flush=True)
+        del ops
+    return errs
+
+
+def phase_shard(dev) -> dict:
+    """Phase 21: #1 and #3 at a training rank's shapes, then train steps
+    across ranks that share this card over gloo, each against the
+    one-card step on the same batch.  Returns the kernels' errors at the
+    shard shapes."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    errs = shard_kernel_times(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dtensor_probe()
+    errors = shard_worlds()
+    if errors:
+        fail("shard: " + "; ".join(errors))
+    return errs
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
@@ -7288,10 +7848,11 @@ def main(argv=()) -> int:
     if argv:
         # a subset for work on one phase: `chip_smoke.py kernels quant slice
         # qslice paged hbm serve smallinfer bwd train small ckpt anyres
-        # genmodes families famkernels lora frontend eval harness tp` runs
-        # phases 3 (attention kernels), 3 (quantized products), 4, 5, 6, 7,
-        # 8, 9, 10, 11, 12, 13, 14, 15, phase 3's cases at the families'
-        # shapes, 16, 17, 18, 19 and 20 alone and prints no result line
+        # genmodes families famkernels lora frontend eval harness tp shard`
+        # runs phases 3 (attention kernels), 3 (quantized products), 4, 5,
+        # 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, phase 3's cases at the
+        # families' shapes, 16, 17, 18, 19, 20 and 21 alone and prints no
+        # result line
         for name in argv:
             phases = {"kernels": phase_kernels, "quant": phase_quant_kernels,
              "slice": phase_slice, "smallinfer": phase_small,
@@ -7302,7 +7863,8 @@ def main(argv=()) -> int:
              "anyres": phase_anyres, "genmodes": phase_genmodes,
              "families": phase_families, "famkernels": phase_family_kernels,
              "lora": phase_lora, "frontend": phase_frontend,
-             "eval": phase_eval, "harness": phase_harness, "tp": phase_tp}
+             "eval": phase_eval, "harness": phase_harness, "tp": phase_tp,
+             "shard": phase_shard}
             timed(phases[name], dev)
         print(f"partial run {argv}: no result")
         return 1
@@ -7343,6 +7905,8 @@ def main(argv=()) -> int:
     for k, n in tp_launches.items():
         launches[k] = launches.get(k, 0) + n
     for k, e in tp_errs.items():
+        rec[k]["err"] = max(rec[k]["err"], e)
+    for k, e in timed(phase_shard, dev).items():
         rec[k]["err"] = max(rec[k]["err"], e)
     if [m for m in sys.modules
             if m.split(".")[0] in ("jax", "matryoshka_mm_tpu")]:

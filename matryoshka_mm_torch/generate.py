@@ -63,7 +63,7 @@ from .kvconfig import parse_kv_from_string, parse_list
 
 from .config import LlavaConfig
 from .models.llama import (KVCache, embed_tokens, init_kv_cache,
-                           llama_forward, lm_head)
+                           is_placed, llama_forward, lm_head)
 from .models.llava import (anyres_token_count, encode_images,
                            prepare_multimodal, prepare_multimodal_anyres,
                            prepare_multimodal_multi, router_forward)
@@ -572,7 +572,14 @@ def _generate_stream(params: dict, cfg: LlavaConfig, input_ids,
                      pixel_values, image_sizes, attention_mask, spec,
                      gen_cfg: GenerationConfig, stopping_criteria,
                      generator: Optional[torch.Generator], cuda_graph: bool):
-    """Check the request, prefill, then :func:`_decode_loop`'s yields."""
+    """Check the request, prefill, then :func:`_decode_loop`'s yields.
+    Weights placed over a mesh of ranks (``parallel/inference.py``) run as
+    this rank's view of them (``sharding.compute_view``), eagerly."""
+    if is_placed(params):
+        from .parallel.sharding import compute_view
+
+        params, cfg = compute_view(params, cfg)
+        cuda_graph = False
     device = _params_device(params)
     ids_np = np.asarray(input_ids, np.int64)
     B, T = ids_np.shape

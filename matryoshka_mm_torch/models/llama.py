@@ -40,7 +40,15 @@ holds its heads' rows of q/k/v, its columns of o_proj, its share of the
 MLP width and of the vocabulary; the o_proj and MLP outputs are summed
 over the ranks before their residual adds (``tp_decode.py`` gathers the
 vocabulary-sharded logits of :func:`lm_head`), so every rank runs this
-module's path, kernels included, on its shard.
+module's path, kernels included, on its shard.  Layers placed over a mesh
+of ranks (``parallel/sharding.py``, DTensor leaves: training across ranks
+and ``parallel/inference.py``) are gathered to what their products compute
+with at use, inside the layer's remat, and the config's ``tp_axis`` then
+names the mesh's ``model`` group: the normed input enters the q/k/v and
+gate/up products through Megatron's ``f`` (its gradient summed over the
+ranks) and the o and down outputs leave through ``g`` (summed, its
+gradient unchanged), both carried by autograd, so the flash forward and
+backward run on the rank's heads.
 
 Quantized weights (``ops/quant.py``): every dense weight, ``lm_head``
 included, goes through :func:`proj`, the port of the JAX ``proj`` +
@@ -82,6 +90,7 @@ import contextlib
 import dataclasses
 import functools
 import math
+import sys
 import threading
 from typing import Optional, Tuple, Union
 
@@ -374,6 +383,8 @@ def _layer_forward(lp: dict, hidden: torch.Tensor, *, cfg: LlamaConfig,
     window = cfg.sliding_window or None
 
     x = rms_norm(hidden, lp["input_layernorm"], cfg.rms_norm_eps)
+    if cfg.tp_axis:
+        x = tp_group(cfg.tp_axis).enter(x)
     if "qkv_proj" in a:
         with checkpoint_name("attn_q", "attn_k", "attn_v"):
             qkv = proj(x, a["qkv_proj"])
@@ -426,6 +437,8 @@ def _layer_forward(lp: dict, hidden: torch.Tensor, *, cfg: LlamaConfig,
         o = tp_group(cfg.tp_axis).all_reduce(o)
     hidden = hidden + o
     x = rms_norm(hidden, lp["post_attention_layernorm"], cfg.rms_norm_eps)
+    if cfg.tp_axis:
+        x = tp_group(cfg.tp_axis).enter(x)
     y = _mlp(m, x)
     if cfg.tp_axis:
         # down_proj's columns are this rank's share of the MLP width
@@ -498,6 +511,17 @@ def _remat_plan(policy: str):
                      f"or 'names:<tag,...>')")
 
 
+def is_placed(tree) -> bool:
+    """Whether ``tree``'s leaves are placed over a mesh of ranks (DTensors,
+    ``parallel/sharding.py``).  No DTensor exists before
+    ``torch.distributed.tensor`` is imported, so a one-card run never
+    imports it."""
+    if "torch.distributed.tensor" not in sys.modules:
+        return False
+    from ..parallel.sharding import is_sharded
+    return is_sharded(tree)
+
+
 def llama_forward(
     params: dict,
     cfg: LlamaConfig,
@@ -536,11 +560,18 @@ def llama_forward(
         kv_valid = attn_valid
 
     hidden = inputs_embeds
+    # layers placed over a mesh of ranks: each is gathered to what its
+    # products compute with at use, inside its remat
+    placed = is_placed(params["layers"])
+    if placed:
+        from ..parallel.sharding import compute_tree
     remat = cache is None and cfg.remat and torch.is_grad_enabled()
     context_fn, keep_flash = _remat_plan(cfg.remat_policy) if remat \
         else (noop_context_fn, False)
     for i, lp in enumerate(params["layers"]):
         def layer(h, lp=lp, i=i, res=FlashResiduals() if keep_flash else None):
+            if placed:
+                lp = compute_tree(lp, f"llama/layers/{i}")
             if cfg.arch == "mpt":
                 return _mpt_layer_forward(
                     lp, h, cfg=cfg, q_positions=position_ids,

@@ -1,7 +1,27 @@
 """Running the port over several ranks: ``mesh.py`` (torch.distributed
-from torchrun's environment, a (data, model) grid of ranks, this rank's
-rows of a batch), ``collectives.py`` (tensor-parallel groups by name) and
-``tp_decode.py`` (tensor-parallel inference with the kernels kept,
-``TPEngine``)."""
+from torchrun's environment or a file store, a (data, model) grid of
+ranks, this rank's rows of a batch), ``sharding.py`` (every parameter's
+placements as DTensors, and what each leaf computes with),
+``collectives.py`` (tensor-parallel groups by name, and the collectives
+autograd carries), ``inference.py`` (a ``(1, tp)`` placement for
+``generate``) and ``tp_decode.py`` (tensor-parallel inference with the
+kernels kept, ``TPEngine``).
+
+``sharding.py`` and ``inference.py`` import ``torch.distributed.tensor``,
+which is slow to import, so their names load on first use: a one-card run that
+imports ``collectives.py`` never pays for it."""
+
+import importlib
 
 from .mesh import initialize_distributed, make_mesh, put_batch  # noqa: F401
+
+_LAZY = {"make_tp_mesh": "inference", "shard_model_for_inference": "inference",
+         "batch_sharding": "sharding", "param_shardings": "sharding",
+         "placements_for": "sharding", "replicated": "sharding",
+         "shard_params": "sharding"}
+
+
+def __getattr__(name):
+    if name not in _LAZY:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(f".{_LAZY[name]}", __name__), name)

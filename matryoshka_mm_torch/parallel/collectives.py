@@ -1,6 +1,8 @@
 """Tensor-parallel process groups by name, and the three collectives the
 decoder runs under one: the counterpart of the JAX ``shard_map`` axis and
-its ``psum`` / ``all_gather``.
+its ``psum`` / ``all_gather``.  Below them, the collectives autograd
+carries over a ``DeviceMesh`` dim's group, for training across ranks
+(``sharding.py``).
 
 A :class:`TPGroup` is a ``torch.distributed`` backend object (gloo or
 NCCL) made straight from a store, outside the default process group, so a
@@ -17,8 +19,10 @@ several ranks on one card (and the CPU) take gloo, which the caller names.
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import threading
+import time
 from typing import Dict
 
 import torch
@@ -51,6 +55,10 @@ class TPGroup:
             opts = dist.ProcessGroupNCCL.Options()
             opts._timeout = timeout
             self.pg = dist.ProcessGroupNCCL(store, rank, size, opts)
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` itself: the inference ranks carry no gradient."""
+        return x
 
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
         """The sum over the ranks of ``x``, in ``x``'s dtype."""
@@ -100,3 +108,138 @@ def tp_group(name: str) -> TPGroup:
         raise ValueError(f"no TP group named {name!r} in this process: a "
                          f"config with tp_axis runs on the ranks of its "
                          f"TPEngine") from None
+
+
+# ---------------------------------------------------------------------------
+# collectives autograd carries, over a DeviceMesh dim's process group
+# ---------------------------------------------------------------------------
+#
+# Training across ranks (``parallel/sharding.py``) runs the Megatron pair
+# on the ``model`` group around every tensor-parallel block, and gathers a
+# leaf stored split over ``data`` (or over ``model`` where its role wants
+# the whole of it) at use.  A group of one rank makes each an identity.
+# DTensor's own ``redistribute`` would do the gathers, but it runs through
+# functional collectives, which kill the process (SIGSEGV) on CUDA tensors
+# over gloo in torch 2.11 (``chip_smoke.py`` phase 21's probe), so these
+# call gloo's plain all-gather and reduce-scatter, which take them.
+# Each shows in ``torch.profiler`` as an ``sp.*`` range, and adds its host
+# seconds to :func:`collective_seconds`.
+
+_SPENT = [0.0]
+
+
+def collective_seconds() -> float:
+    """Host seconds spent so far in this process inside the collectives
+    below (each waits for its result on gloo; under NCCL it counts the
+    enqueue only)."""
+    return _SPENT[0]
+
+
+@contextlib.contextmanager
+def _span(name: str):
+    t0 = time.perf_counter()
+    with record_function(name):
+        yield
+    _SPENT[0] += time.perf_counter() - t0
+
+
+def _size(group) -> int:
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def _all_reduce(x: torch.Tensor, group, name: str) -> torch.Tensor:
+    x = x.contiguous()
+    with _span(name):
+        dist.all_reduce(x, group=group)
+    return x
+
+
+def _all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in group-rank order."""
+    n = _size(group)
+    front = x.movedim(dim, 0).contiguous()
+    out = front.new_empty((n * front.shape[0],) + tuple(front.shape[1:]))
+    with _span("sp.all_gather"):
+        dist.all_gather_into_tensor(out, front, group=group)
+    return out.movedim(0, dim)
+
+
+def _reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's part along ``dim`` of the sum over the group."""
+    n = _size(group)
+    front = x.movedim(dim, 0).contiguous()
+    out = front.new_empty((front.shape[0] // n,) + tuple(front.shape[1:]))
+    with _span("sp.reduce_scatter"):
+        dist.reduce_scatter_tensor(out, front, group=group)
+    return out.movedim(0, dim)
+
+
+def _own_part(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    n = _size(group)
+    return x.chunk(n, dim=dim)[dist.get_rank(group)].contiguous()
+
+
+class _CopyToGroup(torch.autograd.Function):
+    """Megatron's ``f``: identity forward, all-reduce backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group, "sp.all_reduce_grad"), None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    """Megatron's ``g``: all-reduce forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x.clone(), group, "sp.all_reduce")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromGroup(torch.autograd.Function):
+    """All-gather along ``dim``; the backward reduce-scatters (``sum``: each
+    rank's gradient is a part of the whole) or keeps this rank's part
+    (``slice``: every rank holds the same whole gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, grad):
+        ctx.dim, ctx.group, ctx.grad = dim, group, grad
+        return _all_gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.grad == "sum":
+            return _reduce_scatter(g, ctx.dim, ctx.group), None, None, None
+        return _own_part(g, ctx.dim, ctx.group), None, None, None
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` unchanged; its gradient is summed over ``group``."""
+    return x if _size(group) == 1 else _CopyToGroup.apply(x, group)
+
+
+def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over ``group``; the gradient passes unchanged."""
+    return x if _size(group) == 1 else _ReduceFromGroup.apply(x, group)
+
+
+def gather_from_group(x: torch.Tensor, dim: int, group,
+                      grad: str = "sum") -> torch.Tensor:
+    """The group's parts of ``x`` concatenated along ``dim``.  ``grad`` is
+    ``"sum"`` (backward reduce-scatters: FSDP's gather over ``data``) or
+    ``"slice"`` (backward keeps this rank's part)."""
+    return x if _size(group) == 1 else _GatherFromGroup.apply(x, dim, group,
+                                                              grad)
+
+
+def all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """All-gather along ``dim`` with no gradient (checkpoint writes)."""
+    return x if _size(group) == 1 else _all_gather(x, dim, group)

@@ -23,22 +23,37 @@ import torch
 import torch.distributed as dist
 
 
-def initialize_distributed(backend: Optional[str] = None) -> bool:
-    """Join the default process group from torchrun's environment
+def initialize_distributed(backend: Optional[str] = None,
+                           init_file: Optional[str] = None,
+                           rank: Optional[int] = None,
+                           world_size: Optional[int] = None) -> bool:
+    """Join the default process group: from torchrun's environment
     (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``,
-    ``LOCAL_RANK``): NCCL on the card of ``LOCAL_RANK`` where CUDA is
-    available, else gloo, unless ``backend`` names one.  A no-op in one
-    process (no ``WORLD_SIZE`` above 1).  Returns True when the run is
-    multi-process."""
+    ``LOCAL_RANK``), or through the file store at ``init_file`` with
+    ``rank`` and ``world_size`` (default: ``RANK`` and ``WORLD_SIZE``), which
+    needs no free port.  NCCL where CUDA is available, else gloo, unless
+    ``backend`` names one.  Where CUDA is available the rank takes card
+    ``LOCAL_RANK % device_count`` on either backend, so ranks that share
+    one card under gloo all land on it.  A no-op in one process (a world of
+    one).  Returns True when the run is multi-process."""
     if dist.is_initialized():
         return dist.get_world_size() > 1
-    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+    if world_size is None:
+        world_size = int(os.environ.get("WORLD_SIZE", "1"))
+    if world_size <= 1:
         return False
     if backend is None:
         backend = "nccl" if torch.cuda.is_available() else "gloo"
-    if backend == "nccl":
-        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
-    dist.init_process_group(backend, init_method="env://")
+    if torch.cuda.is_available():
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0"))
+                              % torch.cuda.device_count())
+    if init_file is None:
+        dist.init_process_group(backend, init_method="env://")
+    else:
+        if rank is None:
+            rank = int(os.environ["RANK"])
+        dist.init_process_group(backend, init_method=f"file://{init_file}",
+                                rank=rank, world_size=world_size)
     return dist.get_world_size() > 1
 
 

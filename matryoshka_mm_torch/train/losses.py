@@ -8,19 +8,67 @@
   bounderr(sq), lmlossaddcost.
 
 All functions are batch-global: the batch axis is the whole batch of the
-step, and gating statistics are plain means over it.
+step, and gating statistics are plain means over it.  Inside
+:func:`global_batch` a rank holds only its rows of that batch: every
+reduction over the batch axis (:func:`batch_sum`, :func:`batch_mean`) is
+then taken over the data ranks too, as one all-reduce whose gradient
+passes back unchanged (``parallel/collectives.py`` ``reduce_from_group``).
+Every rank so computes the loss of the whole batch, and the gradient it
+carries back is its rows' part of the whole batch's gradient; the sum over
+the data ranks is that gradient.  (A mean of each rank's local loss would
+be another loss wherever the ranks hold different numbers of valid
+labels.)
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from ..constants import IGNORE_INDEX
+from ..parallel.collectives import reduce_from_group
 
 _EPS = 1e-8
+_batch = threading.local()
+
+
+@contextlib.contextmanager
+def global_batch(group):
+    """Reductions over the batch axis inside span the ranks of ``group``
+    (a process group of data ranks holding equal numbers of rows; None:
+    this process holds the whole batch)."""
+    prev = getattr(_batch, "group", None)
+    _batch.group = group
+    try:
+        yield
+    finally:
+        _batch.group = prev
+
+
+def batch_rows(n: int) -> int:
+    """Rows of the whole batch, for ``n`` rows here."""
+    group = getattr(_batch, "group", None)
+    return n if group is None else n * dist.get_world_size(group)
+
+
+def batch_sum(x: torch.Tensor, dim: Optional[int] = None) -> torch.Tensor:
+    """``x`` summed over the whole batch (``dim``, or every dim)."""
+    s = x.sum() if dim is None else x.sum(dim)
+    group = getattr(_batch, "group", None)
+    return s if group is None else reduce_from_group(s, group)
+
+
+def batch_mean(x: torch.Tensor, dim: Optional[int] = None) -> torch.Tensor:
+    """``x`` averaged over the whole batch (``dim`` 0 its batch axis, or
+    every dim of a ``(B,)`` tensor)."""
+    if getattr(_batch, "group", None) is None:
+        return x.mean() if dim is None else x.mean(dim=dim)
+    return batch_sum(x, dim) / batch_rows(x.shape[0])
 
 
 def _shift(logits: torch.Tensor, labels: torch.Tensor):
@@ -50,15 +98,16 @@ def reduce_token_losses(losses, valid, lm_loss_type: str, weights=None, unreduce
     if lm_loss_type == "micro":
         per_seq = losses.sum(-1)
         if unreduced:
-            return per_seq * per_seq.shape[0] / (valid.sum() + _EPS)
+            return per_seq * batch_rows(per_seq.shape[0]) \
+                / (batch_sum(valid) + _EPS)
         if weights is None:
-            return losses.sum() / valid.sum().clamp(min=1)
-        return (per_seq * weights).sum() / (valid.sum() + _EPS)
+            return batch_sum(losses) / batch_sum(valid).clamp(min=1)
+        return batch_sum(per_seq * weights) / (batch_sum(valid) + _EPS)
     if lm_loss_type == "macro":
         per_seq = losses.sum(-1) / (valid.sum(-1) + _EPS)
         if unreduced:
             return per_seq
-        return (per_seq if weights is None else per_seq * weights).mean()
+        return batch_mean(per_seq if weights is None else per_seq * weights)
     raise ValueError(f"invalid lm_loss_type = {lm_loss_type}")
 
 
@@ -186,9 +235,9 @@ def tokenwise_kd_loss(logits_t, logits_s, labels_t, temperature: float,
     valid = shift_labels != IGNORE_INDEX
     ce = torch.where(valid, ce, 0.0)
     if reduction == "mean":
-        return ce.sum() / (valid.sum() + _EPS) * (temperature ** 2)
+        return batch_sum(ce) / (batch_sum(valid) + _EPS) * (temperature ** 2)
     if reduction == "seqlevel_mean":
-        return ce.sum(-1) / (valid.sum() + _EPS) * (temperature ** 2)
+        return ce.sum(-1) / (batch_sum(valid) + _EPS) * (temperature ** 2)
     raise ValueError(f"invalid reduction {reduction}")
 
 
@@ -207,7 +256,7 @@ def per_expert_assignment(gating_prob: torch.Tensor) -> torch.Tensor:
     """(K,) fraction of the batch argmax-assigned to each expert."""
     K = gating_prob.shape[1]
     one_hot = torch.nn.functional.one_hot(gating_prob.argmax(dim=1), K)
-    return one_hot.float().mean(dim=0)
+    return batch_mean(one_hot.float(), 0)
 
 
 def get_per_expert_cost(per_expert_cost_type: str,
@@ -239,7 +288,7 @@ def switch_load_balance_loss(gating_prob: torch.Tensor,
                              alpha: float) -> torch.Tensor:
     """Switch-Transformer aux loss: alpha * K * sum(cost * mean_gate)."""
     K = gating_prob.shape[1]
-    return alpha * K * (per_expert_cost * gating_prob.mean(dim=0)).sum()
+    return alpha * K * (per_expert_cost * batch_mean(gating_prob, 0)).sum()
 
 
 def beta_logprob_loss(gating_prob: torch.Tensor, alpha: float,
@@ -252,7 +301,7 @@ def beta_logprob_loss(gating_prob: torch.Tensor, alpha: float,
         - math.lgamma(beta_a + beta_b)
     log_prob = ((beta_a - 1) * torch.log(p) + (beta_b - 1) * torch.log1p(-p)
                 - betaln)
-    return alpha * log_prob.sum()
+    return alpha * batch_sum(log_prob)
 
 
 def bounderr_loss(losses_lm: torch.Tensor, gating_prob_argmax: torch.Tensor,
@@ -261,7 +310,7 @@ def bounderr_loss(losses_lm: torch.Tensor, gating_prob_argmax: torch.Tensor,
     (B, K)."""
     losses_argmax = (losses_lm * gating_prob_argmax).sum(1)
     diff = (losses_argmax - losses_lm[:, -1] - margin).clamp(min=0.0)
-    return (diff.square() if squared else diff).mean()
+    return batch_mean(diff.square() if squared else diff)
 
 
 def lmlossaddcost_loss(losses_lm: torch.Tensor, gating_prob: torch.Tensor,
@@ -271,7 +320,7 @@ def lmlossaddcost_loss(losses_lm: torch.Tensor, gating_prob: torch.Tensor,
     (B, K)."""
     K = losses_lm.shape[1]
     losses = losses_lm + lamb * per_expert_cost.reshape(1, K)
-    return (losses * gating_prob).sum(1).mean()
+    return batch_mean((losses * gating_prob).sum(1))
 
 
 def argmaxcost_ema_loss(gating_prob_argmax: torch.Tensor,
@@ -285,8 +334,8 @@ def argmaxcost_ema_loss(gating_prob_argmax: torch.Tensor,
     the local ``argmaxcost`` keeps the gradient path:
     ``loss = alpha * sq(clip(batch - sg(local) + local - target))``."""
     K = gating_prob_argmax.shape[1]
-    argmaxcost = (gating_prob_argmax
-                  * per_expert_cost.reshape(-1, K)).sum(1).mean()
+    argmaxcost = batch_mean((gating_prob_argmax
+                             * per_expert_cost.reshape(-1, K)).sum(1))
     straight_through = batch_argmaxcost - argmaxcost.detach() + argmaxcost
     if target_value is not None:
         return alpha * (straight_through - target_value).square()

@@ -14,6 +14,12 @@ step's rate is 0).  The ``frozen`` group takes no part.
 
 Paths name a leaf by its keys joined with ``/``; a list index (the decoder
 layer) is one of them.
+
+Parameters placed over a mesh of ranks (``parallel/sharding.py``, DTensor
+leaves): AdamW, its moments and the weight decay act on each rank's local
+part, and each group's norm sums the squares over the whole mesh once
+(``sharding.global_norm``: the ``model`` parts add up, a copy held by
+several ranks counts once).
 """
 
 from __future__ import annotations
@@ -23,6 +29,8 @@ import math
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
+
+from ..parallel.sharding import global_norm, local_tree
 
 GROUPS = ("backbone", "mm_projector", "vision_tower", "router")
 
@@ -163,7 +171,7 @@ class Optimizer:
         self.schedules = {g: _schedule(cfg, lr) for g, lr in lrs.items()}
 
     def init(self, params) -> dict:
-        leaves = dict(named_leaves(params))
+        leaves = dict(named_leaves(local_tree(params)))
         return {"count": 0,
                 "mu": {p: torch.zeros_like(leaves[p])
                        for p in self.trainable},
@@ -174,7 +182,8 @@ class Optimizer:
     def update(self, grads: Dict[str, torch.Tensor], state: dict,
                params) -> dict:
         cfg = self.cfg
-        leaves = dict(named_leaves(params))
+        placed = dict(named_leaves(params))
+        leaves = dict(named_leaves(local_tree(params)))
         count = state["count"]
         bc1 = 1 - cfg.adam_b1 ** (count + 1)
         bc2 = 1 - cfg.adam_b2 ** (count + 1)
@@ -187,8 +196,7 @@ class Optimizer:
             mus = [state["mu"][p] for p in paths]
             nus = [state["nu"][p] for p in paths]
             # clip_by_global_norm over this group alone
-            norm = torch.linalg.vector_norm(
-                torch.stack([n.float() for n in torch._foreach_norm(gs)]))
+            norm = global_norm([placed[p] for p in paths], gs)
             factor = torch.where(norm < cfg.max_grad_norm,
                                  torch.ones_like(norm),
                                  cfg.max_grad_norm / norm)

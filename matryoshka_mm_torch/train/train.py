@@ -21,13 +21,26 @@ directory ``load_pretrained_model`` reads (a HF / LLaVA checkpoint, or
 one of the port's own); the weights and widths come from it, the preset,
 remat and dtypes from the arguments.
 
-Runs on one device: the card unless ``--device cpu`` is given.
-``--tp_size`` and ``--dp_size`` above 1 raise (ROADMAP.md Queue 1, item 12a).
+Runs on the card unless ``--device cpu`` is given.  Across ranks:
+
+    python -m torch.distributed.run --nproc-per-node 4 \\
+        -m matryoshka_mm_torch.train.train ... --tp_size 2 [--dp_size 2]
+
+lays the ranks out as a ``(data, model)`` mesh of ``(world // tp_size,
+tp_size)`` (``--dp_size``, if given, must equal ``world // tp_size``),
+places the parameters by ``parallel/sharding.py``'s rules and gives each
+data rank its ``per_device_train_batch_size`` rows of every global batch
+(``put_batch``).  Rank 0 alone writes ``args.json``, ``metrics.jsonl`` and
+the checkpoints, each leaf gathered whole first, so a sharded run's save
+is a one-process save.  Gloo is the backend on the CPU and wherever
+several ranks share a card; NCCL (one card a rank) is written but not yet
+run.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import json
@@ -40,6 +53,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import conversation as conversation_lib
 from ..config import (ClipVisionConfig, LlamaConfig, LlavaConfig, M3Preset,
@@ -308,12 +322,12 @@ def train(attn_implementation: str = "flash", argv=None) -> TrainState:
     the final ``TrainState``."""
     model_args, data_args, training_args = parse_args_into_dataclasses(
         (ModelArguments, DataArguments, TrainingArguments), argv)
-    if training_args.tp_size > 1 or (training_args.dp_size or 1) > 1:
-        raise NotImplementedError(
-            "tp_size / dp_size above 1: training across cards is not ported "
-            "yet (ROADMAP.md Queue 1, item 12a: sharding.py, inference.py "
-            "and FSDP2 / DTensor training)")
-    device = torch.device(training_args.device)
+    mesh, device = _ranks(training_args)
+    dp = 1 if mesh is None else mesh.size(0)
+    if mesh is not None and training_args.bits in (4, 8):
+        raise NotImplementedError("a quantized base (--bits) across ranks: "
+                                  "QLoRA trains on one device")
+    lead = mesh is None or dist.get_rank() == 0
     np.random.seed(training_args.seed)
 
     # ---- conversation template ----
@@ -336,15 +350,17 @@ def train(attn_implementation: str = "flash", argv=None) -> TrainState:
                     if model_args.model_name_or_path.startswith("debug://")
                     else BertConfig.bge_small())
         cfg = dataclasses.replace(cfg, text_embed_dim=bert_cfg.hidden_size)
-    os.makedirs(training_args.output_dir, exist_ok=True)
-    with open(os.path.join(training_args.output_dir, "args.json"), "w") as f:
-        json.dump({
-            "model_args": dataclasses.asdict(model_args),
-            "data_args": {k: v for k, v in
-                          dataclasses.asdict(data_args).items()
-                          if k != "image_processor"},
-            "training_args": dataclasses.asdict(training_args),
-        }, f, indent=2)
+    if lead:
+        os.makedirs(training_args.output_dir, exist_ok=True)
+        with open(os.path.join(training_args.output_dir, "args.json"),
+                  "w") as f:
+            json.dump({
+                "model_args": dataclasses.asdict(model_args),
+                "data_args": {k: v for k, v in
+                              dataclasses.asdict(data_args).items()
+                              if k != "image_processor"},
+                "training_args": dataclasses.asdict(training_args),
+            }, f, indent=2)
 
     from ..image_processing import ClipImageProcessor
     from ..models.builder import _load_tokenizer
@@ -364,7 +380,8 @@ def train(attn_implementation: str = "flash", argv=None) -> TrainState:
     dataset, collator = module["train_dataset"], module["data_collator"]
 
     # ---- optimizer / state ----
-    micro_bsz = training_args.per_device_train_batch_size
+    # the global batch: every data rank's rows
+    micro_bsz = training_args.per_device_train_batch_size * dp
     steps_per_epoch = max(len(dataset) // micro_bsz, 1)
     total_steps = (training_args.max_steps if training_args.max_steps > 0
                    else int(steps_per_epoch * training_args.num_train_epochs))
@@ -405,6 +422,10 @@ def train(attn_implementation: str = "flash", argv=None) -> TrainState:
             restored = {**params, **restored}
         params = restored
         start_step = load_meta(resume).get("step", 0)
+    if mesh is not None:
+        from ..parallel.sharding import shard_params
+
+        params = shard_params(mesh, params)
     state, tx = create_train_state(params, opt_cfg)
     state = state._replace(step=start_step)
     if training_args.gradient_accumulation_steps > 1:
@@ -419,7 +440,7 @@ def train(attn_implementation: str = "flash", argv=None) -> TrainState:
     def make_sampler(lengths, **kw):
         return LengthGroupedSampler(
             training_args.per_device_train_batch_size,
-            training_args.gradient_accumulation_steps, lengths=lengths,
+            dp * training_args.gradient_accumulation_steps, lengths=lengths,
             generator=np.random.default_rng(training_args.seed), **kw)
 
     if training_args.group_by_modality_length or \
@@ -434,6 +455,13 @@ def train(attn_implementation: str = "flash", argv=None) -> TrainState:
     def tensor(a, dtype=None):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
+    def rows(batch: M3Batch) -> M3Batch:
+        if mesh is None:
+            return batch
+        from ..parallel import put_batch
+
+        return M3Batch(*put_batch(mesh, tuple(batch), device=device))
+
     text_embedder = None
     if bert_cfg is not None:
         from ..models.text_embedder import TextEmbedder
@@ -444,7 +472,8 @@ def train(attn_implementation: str = "flash", argv=None) -> TrainState:
     t_start = time.time()
     done = False
     metrics_path = os.path.join(training_args.output_dir, "metrics.jsonl")
-    with open(metrics_path, "a") as metrics_file:
+    with (open(metrics_path, "a") if lead
+          else contextlib.nullcontext()) as metrics_file:
         for epoch in range(int(np.ceil(training_args.num_train_epochs))):
             indices = (list(iter(sampler)) if sampler is not None
                        else np.random.default_rng(
@@ -453,6 +482,13 @@ def train(attn_implementation: str = "flash", argv=None) -> TrainState:
             for raw in _batches(dataset, collator, indices, micro_bsz):
                 if len(raw["input_ids"]) < micro_bsz:
                     continue  # drop the ragged tail
+                if mesh is not None:
+                    # every rank trains on rank 0's global batch, whatever
+                    # its own tokenizer made of it (the debug tokenizer
+                    # hashes words with the process's hash seed)
+                    box = [raw]
+                    dist.broadcast_object_list(box, src=0)
+                    raw = box[0]
                 batch = M3Batch(
                     input_ids=tensor(raw["input_ids"], torch.int64),
                     pixel_values=tensor(raw["images"], torch.float32),
@@ -460,10 +496,10 @@ def train(attn_implementation: str = "flash", argv=None) -> TrainState:
                     attn_mask=tensor(raw["attention_mask"], torch.bool),
                     text_embed=None if text_embedder is None
                     else text_embedder(raw["input_ids"]))
-                state, metrics = step_fn(state, batch)
+                state, metrics = step_fn(state, rows(batch))
                 global_step += 1
 
-                if global_step % training_args.logging_steps == 0:
+                if lead and global_step % training_args.logging_steps == 0:
                     m = host_metrics(metrics)
                     m.update(step=global_step,
                              time=round(time.time() - t_start, 1))
@@ -482,14 +518,57 @@ def train(attn_implementation: str = "flash", argv=None) -> TrainState:
     return state
 
 
+def _ranks(training_args):
+    """``(mesh or None, this rank's device)``: the ranks of a
+    ``torch.distributed`` run laid out as ``(world // tp_size, tp_size)``;
+    one process without one (where ``tp_size`` / ``dp_size`` above 1
+    raise)."""
+    from ..parallel import initialize_distributed, make_mesh
+
+    tp, dp = training_args.tp_size, training_args.dp_size
+    on_cpu = training_args.device == "cpu"
+    if not initialize_distributed(backend="gloo" if on_cpu else None):
+        if tp > 1 or (dp or 1) > 1:
+            raise ValueError(f"tp_size={tp} / dp_size={dp} need as many "
+                             f"ranks: run under torch.distributed.run")
+        return None, torch.device(training_args.device)
+    world = dist.get_world_size()
+    if tp < 1 or world % tp:
+        raise ValueError(f"tp_size={tp} does not divide {world} ranks")
+    if dp is not None and dp != world // tp:
+        raise ValueError(f"dp_size={dp} != {world} ranks // tp_size={tp}")
+    mesh = make_mesh((world // tp, tp),
+                     device_type="cpu" if on_cpu else None)
+    device = torch.device("cpu") if on_cpu else \
+        torch.device("cuda", torch.cuda.current_device())
+    return mesh, device
+
+
 def _save(training_args, model_args, state: TrainState, cfg, step: int,
           final: bool = False):
     """One of the three save shapes, into ``output_dir`` itself (final) or
-    ``checkpoint-<step>``; then old checkpoints are pruned."""
+    ``checkpoint-<step>``; then old checkpoints are pruned.  Placed
+    parameters: every rank gathers the saved leaves whole, rank 0
+    writes."""
+    from ..ops.lora import extract_lora
+    from ..parallel.sharding import full_tree, is_sharded
+
     out = training_args.output_dir if final else os.path.join(
         training_args.output_dir, f"checkpoint-{step}")
     params = state.params
-    if getattr(training_args, "lora_enable", False):
+    lora = getattr(training_args, "lora_enable", False)
+    if is_sharded(params):
+        if lora or model_args.tune_mm_mlp_adapter:
+            keys = ("mm_projector", "router", "image_newline") if lora \
+                else ("mm_projector", "image_newline")
+            part = {k: params[k] for k in keys if k in params}
+            params = full_tree({**(extract_lora(params) if lora else {}),
+                                **part})
+        else:
+            params = full_tree(params)
+        if dist.get_rank() != 0:
+            return
+    if lora:
         # adapters + the non-LoRA trainables
         save_lora_checkpoint(out, params, cfg, step=step)
     elif model_args.tune_mm_mlp_adapter:

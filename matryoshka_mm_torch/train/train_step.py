@@ -9,7 +9,8 @@ The whole multi-scale step is one forward and one backward:
   edge across scales and the distillation objectives index teacher and
   student logits directly;
 * the MoE objectives are assembled from the loss library; batch statistics
-  are plain batch means.
+  are means over the whole batch, across the data ranks inside
+  ``losses.global_batch``.
 
 The EMA state of the argmaxcost load balance is threaded explicitly
 through the step (``TrainState.argmaxcost_ema``).
@@ -197,7 +198,7 @@ def m3_loss(params: dict, cfg: LlavaConfig, batch: M3Batch,
         frozen_vision=frozen_vision)
     metrics: Dict[str, torch.Tensor] = {}
 
-    losses_lm_reduced = losses_lm.mean(dim=0)  # (K,) unweighted per scale
+    losses_lm_reduced = L.batch_mean(losses_lm, 0)  # (K,) per scale
     for k in range(K):
         metrics[f"moe/loss_lm_{k}"] = losses_lm_reduced[k]
 
@@ -215,7 +216,7 @@ def m3_loss(params: dict, cfg: LlavaConfig, batch: M3Batch,
 
     batch_assignment = L.per_expert_assignment(gating_prob)
     for k in range(K):
-        metrics[f"moe/avg_gating_prob_{k}"] = gating_prob[:, k].mean()
+        metrics[f"moe/avg_gating_prob_{k}"] = L.batch_mean(gating_prob[:, k])
         metrics[f"moe/avg_expert_assignment_{k}"] = batch_assignment[k]
 
     gating_prob_argmax = None
@@ -226,10 +227,12 @@ def m3_loss(params: dict, cfg: LlavaConfig, batch: M3Batch,
         loss = L.bounderr_loss(losses_lm, gating_prob_argmax, margin,
                                squared=obj == "bounderrsq")
         losses_argmax = (losses_lm * gating_prob_argmax).sum(1)
-        metrics["moe_bounderr/loss_argmaxscale_avg"] = losses_argmax.mean()
-        metrics["moe_bounderr/loss_maxscale_avg"] = losses_lm[:, -1].mean()
+        metrics["moe_bounderr/loss_argmaxscale_avg"] = \
+            L.batch_mean(losses_argmax)
+        metrics["moe_bounderr/loss_maxscale_avg"] = \
+            L.batch_mean(losses_lm[:, -1])
         metrics["moe_bounderr/loss_diff_avg"] = \
-            (losses_argmax - losses_lm[:, -1]).mean()
+            L.batch_mean(losses_argmax - losses_lm[:, -1])
     elif obj.startswith("lmlossaddcost"):
         lamb = float(kvs.get("lambda", 0.0))
         cost = L.get_per_expert_cost(str(kvs.get("costt", "count")),
@@ -259,7 +262,8 @@ def m3_loss(params: dict, cfg: LlavaConfig, batch: M3Batch,
         if gating_prob_argmax is None:
             gating_prob_argmax = L.compute_gating_prob_argmax(
                 gating_prob, float(kvs.get("tau", 1)))
-        argmaxcost = (gating_prob_argmax * cost.reshape(-1, K)).sum(1).mean()
+        argmaxcost = L.batch_mean(
+            (gating_prob_argmax * cost.reshape(-1, K)).sum(1))
         batch_cost = argmaxcost.detach()
         metrics["moe_load/argmaxcost"] = batch_cost
         new_ema = None
@@ -389,7 +393,7 @@ def _distillation_loss(kvs, obj, logits, labels, scales, metrics):
         per_student = L.tokenwise_kd_loss(
             logits_t_best, logits[s_id], labels_t, temperature, detach_t,
             reduction="seqlevel_mean")
-        loss_total = loss_total + per_student.sum()
+        loss_total = loss_total + L.batch_sum(per_student)
 
     loss_distil = alpha * loss_total
     metrics["moe_distill/loss_distil"] = loss_distil

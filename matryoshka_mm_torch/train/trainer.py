@@ -11,6 +11,16 @@ Where the JAX step is a pure function that returns new arrays, this one
 ``TrainState`` holding the same objects: a 7B model is never copied.  Only
 the trainable leaves (``trainable_labels``) require grad; frozen leaves and
 int8 / int4 bases never do, so they come out of a step bit-identical.
+
+Parameters placed over a ``(data, model)`` mesh of ranks
+(``parallel/sharding.py`` ``shard_params``, DTensor leaves) train the same
+way: each step runs on every rank on its rows of the batch (``put_batch``)
+inside ``losses.global_batch`` over the ``data`` ranks, the leaves are
+gathered to what they compute with at use (``sharding.compute_view``,
+``models/llama.py``), and the backward of those gathers sums each leaf's
+gradient over the ``data`` ranks (a reduce-scatter, FSDP's) before the norm
+and the update.  The update acts on each rank's local parts, so every leaf
+keeps its placements.
 """
 
 from __future__ import annotations
@@ -21,6 +31,8 @@ import torch
 
 from ..config import LlavaConfig
 from ..ops.quant import disable_fused_proj
+from ..parallel import sharding
+from . import losses as L
 from .optimizer import OptimizerConfig, build_optimizer, named_leaves
 from .train_step import M3Batch, m3_loss
 
@@ -37,12 +49,14 @@ class TrainState(NamedTuple):
 def create_train_state(params, opt_cfg: OptimizerConfig
                        ) -> Tuple[TrainState, Any]:
     """Returns ``(state, tx)``.  Sets ``requires_grad`` on the leaves of
-    ``params``: True on the trainable ones, False on all others."""
+    ``params``: True on the trainable ones, False on all others.  The EMA
+    buffer lies on the device of the first leaf (this rank's, for placed
+    params)."""
     tx = build_optimizer(params, opt_cfg)
     leaves = named_leaves(params)
     for path, leaf in leaves:
         leaf.requires_grad_(tx.labels[path] != "frozen")
-    device = leaves[0][1].device
+    device = named_leaves(sharding.local_tree(params))[0][1].device
     state = TrainState(
         step=0, params=params, opt_state=tx.init(params),
         argmaxcost_ema=torch.full((), -1.0, dtype=torch.float32,
@@ -73,19 +87,25 @@ def make_train_step(cfg: LlavaConfig, tx, uniform_buffer: bool = False,
     def step_fn(state: TrainState, batch: M3Batch):
         leaves = dict(named_leaves(state.params))
         trainable = [leaves[p] for p in tx.trainable]
+        mesh = sharding.mesh_of(state.params)
+        group = None if mesh is None else sharding.data_group(mesh)
         # the quantized matmul kernels are forward-only: a differentiated
         # step over a quantized base takes dequantize + matmul
-        with disable_fused_proj():
-            loss, metrics = m3_loss(state.params, cfg, batch,
+        with disable_fused_proj(), L.global_batch(group):
+            view, cfg_run = sharding.compute_view(state.params, cfg)
+            loss, metrics = m3_loss(view, cfg_run, batch,
                                     argmaxcost_ema=state.argmaxcost_ema,
                                     uniform_buffer=uniform_buffer,
                                     frozen_vision=frozen_vision)
             grads = torch.autograd.grad(loss, trainable, allow_unused=True)
         # a leaf the loss does not reach has a zero gradient (and still
-        # takes its weight decay, as in optax)
-        grads = {p: torch.zeros_like(leaf) if g is None else g
+        # takes its weight decay, as in optax); a placed leaf's gradient is
+        # its local part
+        grads = {p: torch.zeros_like(sharding.local(leaf)) if g is None
+                 else sharding.local(g)
                  for p, leaf, g in zip(tx.trainable, trainable, grads)}
-        metrics["grad_norm"] = global_norm(grads.values())
+        metrics["grad_norm"] = global_norm(grads.values()) if mesh is None \
+            else sharding.global_norm(trainable, list(grads.values()))
         opt_state = tx.update(grads, state.opt_state, state.params)
         new_ema = metrics.pop("_state/argmaxcost_ema", state.argmaxcost_ema)
         return TrainState(state.step + 1, state.params, opt_state,

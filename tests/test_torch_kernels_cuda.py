@@ -1904,3 +1904,30 @@ def test_paged_kernel_on_a_slice_of_the_kv_heads(dev, int8):
         assert torch.equal(same, whole[:, hs])
         torch.testing.assert_close(own.float(), whole[:, hs].float(),
                                    atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("H", [16, 8])
+@pytest.mark.parametrize("S", [1059, 1599])
+def test_flash_kernels_at_the_sharded_train_shapes(dev, H, S):
+    """A 7B training rank's heads (16 at tp = 2, 8 at tp = 4) over the
+    train step's buckets (1,059 and 1,599 tokens), causal, bf16, a
+    left-padded row: the flash forward and both backward kernels against
+    their plain versions, at the tolerances of the tests above."""
+    Dh, bf = 128, torch.bfloat16
+    q, k, v, do, valid = _bwd_case(dev, bf, Dh, 1, H, H, S, S, pad=37,
+                                   seed=21)
+    out, lse = tflash.flash_attention_lse(q, k, v, kv_valid=valid)
+    want_o, want_l = tflash.flash_attention_plain(q, k, v, kv_valid=valid)
+    args = (q, k, v, valid, out, lse, do)
+    dq = tflash.flash_attention_bwd_dq(*args, causal=True)
+    dk, dv = tflash.flash_attention_bwd_dkv(*args, causal=True)
+    want = tflash.flash_attention_bwd_plain(*args, causal=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), want_o.float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(lse, want_l, atol=1e-3, rtol=1e-3)
+    for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert torch.isfinite(got).all(), name
+        err = (got.float() - w.float()).abs().max().item()
+        assert err <= BWD_TOL[bf] * max(w.float().abs().max().item(), 1.0), \
+            (name, err)
