@@ -414,9 +414,39 @@ Phases; any failure exits non-zero, and no phase's exception is caught:
    inside parallel/collectives.py's sp.* collectives, the ranges
    torch.profiler shows), each rank's peak memory.
 
+22. the pipeline, ring attention and the placed-weight repairs, two ranks
+   that share this card over gloo.  First #1 and #3 at a pipeline
+   microbatch's shapes against their plain versions, and #1 at a ring
+   step's blocks (4,096 queries and keys, 32 heads, Dh 128: full, diagonal
+   and keyless) against its plain version and float32 attention (RING_TOL
+   of the largest value); then a probe of the ring shift's routes in two
+   processes of its own (gloo's send of a CUDA tensor, and the host-staged
+   shift); one card's llama_forward of debug://7b's 32-layer decoder (B=4
+   x 1,024 tokens, bf16, remat) forward and backward to the embeddings.
+   Then one world of two ranks: the same decoder as a 2-stage pipeline of
+   4 microbatches (each rank builds its 16 layers only), its hidden states
+   and every rank's embeddings gradient against one card's (bit-identical)
+   and its exact launches (#1 twice and #3 once for each of a stage's 16
+   layers and 4 microbatches); ring attention at B=1, 32 heads, Dh 128,
+   8,192 tokens (4,096 a rank) on the flash kernel, causal, non-causal and
+   with a padded tail, against one card's kernel and float32 attention
+   over the whole sequence (RING_TOL of the largest value), #1 launched 1
+   and 2 times (causal) or 2 and 2 by rank, and the differentiable path in
+   float32 at 2,048 tokens against attention_reference's gradients; MPT-7B
+   widths (MPT_LAYERS layers) at (data, model) = (1, 2) against one card's
+   logits (bit-identical); debug://7b widths (QUANT_LAYERS layers) under
+   int4 and int8 (fuse=False) at (1, 2), the quantized kernels at a rank's
+   shard shapes, logits (cosine >= QUANT_COS) and launches against one
+   card; beam search on the small float32 model placed at (1, 2), tokens
+   equal to one card's; the small MoE model's --bits 4 LoRA step at (2, 1)
+   and (1, 2) against one card's, as phase 21 holds its small cases.
+   Printed with the card's name and power limit: seconds of the pipeline
+   step by rank, the shift's share, peak memory by rank, the ring's ms and
+   shift share by rank.
+
 With arguments (`python3 chip_smoke.py kernels quant slice qslice paged hbm
 serve smallinfer bwd train small ckpt anyres genmodes families famkernels
-lora frontend eval harness tp shard`) only the build and the named phases run
+lora frontend eval harness tp shard pipe`) only the build and the named phases run
 (famkernels: phase 3's cases at the families' shapes), and no result line is
 printed.
 
@@ -7303,10 +7333,11 @@ SHARD_WORLDS = (
 
 
 def _shard_model(model, recipe, layers, dev):
-    """``(params, cfg, opt_cfg)`` of a phase 21 case, the same on every
-    rank: phase 11's small float32 MoE model (Dh = 128) or phase 10's 7B
-    LoRA recipe (bf16 base, r = 128, alpha = 256, remat), its first
-    ``layers`` decoder layers where given."""
+    """``(params, cfg, opt_cfg)`` of a phase 21 or 22 case, the same on
+    every rank: phase 11's small float32 MoE model (Dh = 128) or phase 10's
+    7B LoRA recipe (bf16 base, r = 128, alpha = 256, remat), its first
+    ``layers`` decoder layers where given; recipe ``qlora`` is the small
+    MoE model's LoRA over a ``--bits 4`` base."""
     import dataclasses
 
     from matryoshka_mm_torch.config import LlavaConfig
@@ -7315,7 +7346,8 @@ def _shard_model(model, recipe, layers, dev):
     from matryoshka_mm_torch.train.optimizer import OptimizerConfig
 
     if model == "small":
-        base = LlavaConfig.tiny_debug(moe=SMALL_MOE if recipe == "moe"
+        base = LlavaConfig.tiny_debug(moe=SMALL_MOE if recipe in ("moe",
+                                                                  "qlora")
                                       else None)
         cfg = dataclasses.replace(base, llama=dataclasses.replace(
             base.llama, hidden_size=256, num_attention_heads=2,
@@ -7332,7 +7364,12 @@ def _shard_model(model, recipe, layers, dev):
         params, cfg = m.params, dataclasses.replace(
             m.cfg, llama=dataclasses.replace(m.cfg.llama, remat=True))
         opt_cfg = OptimizerConfig(learning_rate=TRAIN_LR, total_steps=10)
-    if recipe == "lora":
+    if recipe == "qlora":
+        from matryoshka_mm_torch.ops.quant import quantize_llama_params
+
+        # train()'s --bits 4 base: the same leaves, unfused
+        quantize_llama_params(params, bits=4, min_size=1 << 16, fuse=False)
+    if recipe in ("lora", "qlora"):
         params = add_lora(params, torch.Generator(device=dev).manual_seed(1),
                           **({} if model == "7b" else {"r": 8,
                                                        "alpha": 16.0}))
@@ -7816,6 +7853,713 @@ def phase_shard(dev) -> dict:
     return errs
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the pipeline, ring attention and the placed-weight repairs, two
+# ranks over gloo on one card
+# ---------------------------------------------------------------------------
+
+PIPE_STAGES, PIPE_MICRO = 2, 4
+PIPE_B, PIPE_T, PIPE_PAD = 4, 1024, 100   # rows, tokens, row 3's left pad
+PIPE_LAYERS = 32          # debug://7b's depth
+# the pipeline's hidden states and embeds gradients, and MPT's logits at
+# (1, 2), are gated on bit identity with one card (the same kernels on the
+# same rows, each row's sums in the same order); the cosines are printed
+QUANT_COS = 0.9999        # int4 / int8 logits at (1, 2) against one card
+RING_S, RING_H, RING_DH = 8192, 32, 128
+RING_VALID = 7192         # the padded case: keys past it are padding
+# ring attention and #1 at the ring's blocks, bf16, against a bf16 result
+# and against float32 attention of the same inputs, as a share of
+# max|want|: the output's rounding alone is up to half a bf16 ulp (2**-8
+# of a value), two roundings may differ by one ulp (up to 2**-7), and the
+# probabilities' rounding to bf16 adds to both
+RING_TOL = 1e-2
+RING_F32_S = 2048         # the differentiable path, float32
+RING_F32_TOL = 1e-4       # of max|reference|: f32 sums in another order
+MPT_LAYERS = 4            # MPT-7B widths at (1, 2), fewer layers
+QUANT_LAYERS = 2          # debug://7b widths quantized at (1, 2)
+PIPE_WAIT_S = 600         # the world's processes: killed past it
+# the --bits 4 LoRA step of phase 21's small MoE model at both meshes
+SHARD_QLORA = (("small moe qlora int4 (2, 1)", "small", "qlora", (2, 1), 4,
+                None),
+               ("small moe qlora int4 (1, 2)", "small", "qlora", (1, 2), 4,
+                None))
+
+
+def _pipe_llama_cfg(layers=PIPE_LAYERS, **kw):
+    """debug://7b's decoder config (4,096 wide, 32 heads, FFN 11,008,
+    bf16), ``layers`` deep."""
+    import dataclasses
+
+    from matryoshka_mm_torch.config import LlavaConfig
+
+    return dataclasses.replace(LlavaConfig.llava_v15_7b_m3().llama,
+                               num_hidden_layers=layers, **kw)
+
+
+def _pipe_layer(lc, i, dev) -> dict:
+    """Decoder layer ``i`` at ``lc``'s widths, random from its own seed, so
+    that a stage builds only its layers and one card the same ones."""
+    gen = torch.Generator(device=dev).manual_seed(2200 + i)
+    D, I, Dh = lc.hidden_size, lc.intermediate_size, lc.head_dim
+    H, Hkv = lc.num_attention_heads, lc.num_key_value_heads
+
+    def w(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.bfloat16).mul_(0.02)
+
+    ones = functools.partial(torch.ones, D, dtype=torch.bfloat16, device=dev)
+    return {"input_layernorm": ones(), "post_attention_layernorm": ones(),
+            "self_attn": {"q_proj": w(H * Dh, D), "k_proj": w(Hkv * Dh, D),
+                          "v_proj": w(Hkv * Dh, D), "o_proj": w(D, H * Dh)},
+            "mlp": {"gate_proj": w(I, D), "up_proj": w(I, D),
+                    "down_proj": w(D, I)}}
+
+
+def _pipe_inputs(lc, dev):
+    """The pipeline's rows: embeddings, positions and validity (row 3
+    left-padded by PIPE_PAD) and the cotangent of the hidden states."""
+    gen = torch.Generator(device=dev).manual_seed(2201)
+    shape = (PIPE_B, PIPE_T, lc.hidden_size)
+    embeds = torch.randn(shape, generator=gen, device=dev,
+                         dtype=torch.bfloat16)
+    valid = torch.ones((PIPE_B, PIPE_T), dtype=torch.bool, device=dev)
+    valid[3, :PIPE_PAD] = False
+    pos = (valid.long().cumsum(1) - 1).clamp(min=0)
+    cot = torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+    return embeds, pos, valid, cot
+
+
+def pipe_one_card(dev) -> dict:
+    """One card's ``llama_forward`` over all PIPE_LAYERS layers on the
+    pipeline's weights and rows, forward and backward to the embeddings
+    (remat, as the pipeline): the reference of the pipeline case."""
+    from matryoshka_mm_torch.models.llama import llama_forward
+
+    lc = _pipe_llama_cfg(remat=True)
+    params = {"layers": [_pipe_layer(lc, i, dev) for i in range(PIPE_LAYERS)],
+              "norm": torch.ones(lc.hidden_size, dtype=torch.bfloat16,
+                                 device=dev)}
+    embeds, pos, valid, cot = _pipe_inputs(lc, dev)
+
+    def run():
+        e = embeds.detach().requires_grad_(True)
+        h, _ = llama_forward(params, lc, e, position_ids=pos,
+                             attn_valid=valid)
+        h.backward(cot)
+        return h.detach(), e.grad
+
+    run()                                   # warm, as the pipeline's ranks
+    torch.cuda.reset_peak_memory_stats(dev)
+    (hidden, grad), t, launches = _pipe_counted(_train_counters(), run)
+    out = {"s": t, "launches": launches, "hidden": hidden.float().cpu(),
+           "grad": grad.float().cpu(),
+           "peak": torch.cuda.max_memory_allocated(dev) / 2**30}
+    del params, hidden, grad
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _pipe_probe_rank(rank, world, init_file) -> None:
+    """One rank of the shift probe: a bf16 (1024, 4096) CUDA tensor (one
+    pipeline microbatch's activations) to the other rank and back, first
+    staged through the host as ``collectives.ring_shift`` does, then by
+    gloo's own send and receive of the CUDA tensor; rank 0 prints each
+    route's outcome as it ends (a route that kills the process shows in
+    the exit codes)."""
+    import faulthandler
+
+    faulthandler.enable()
+    os.environ["LOCAL_RANK"] = str(rank)
+    sys.path.insert(0, str(REPO))
+    import torch.distributed as dist
+
+    from matryoshka_mm_torch.parallel import initialize_distributed
+    from matryoshka_mm_torch.parallel.collectives import ring_shift
+
+    initialize_distributed(backend="gloo", init_file=init_file, rank=rank,
+                           world_size=world)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    x = torch.full((1024, 4096), float(rank), dtype=torch.bfloat16,
+                   device=dev)
+    peer = 1 - rank
+
+    def say(route, what):
+        if rank == 0:
+            print(f"[pipe probe] {card_line()}: gloo, 2 processes, CUDA bf16 "
+                  f"(1024, 4096) = 8.0 MiB, {route}: {what}", flush=True)
+
+    group = dist.group.WORLD
+    ring_shift([x], group)          # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        got = ring_shift([x], group)[0]
+    torch.cuda.synchronize()
+    say("staged through the host (ring_shift)",
+        f"{(time.perf_counter() - t0) / 3 * 1e3:.2f} ms, right values "
+        f"{bool((got == peer).all())}")
+    dist.barrier()
+    try:
+        t0 = time.perf_counter()
+        send = dist.isend(x, peer)
+        got = torch.empty_like(x)
+        dist.irecv(got, peer).wait()
+        send.wait()
+        torch.cuda.synchronize()
+        say("gloo's send / recv of the CUDA tensor",
+            f"taken, {(time.perf_counter() - t0) * 1e3:.2f} ms, right values "
+            f"{bool((got == peer).all())}")
+    except RuntimeError as e:      # what gloo refuses, said plainly
+        say("gloo's send / recv of the CUDA tensor",
+            f"refused: {str(e)[:160]}")
+    dist.destroy_process_group()
+
+
+def pipe_probe() -> None:
+    """Which route the ring shift takes between two ranks on this card:
+    two fresh processes of their own (a crash kills them, not the
+    phase's ranks)."""
+    import multiprocessing as mp
+    import tempfile
+
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=_pipe_probe_rank,
+                             args=(r, 2, f"{tmp}/init")) for r in range(2)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(60)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    # the phase's own ranks take the staged route and fail the phase if it
+    # fails; here a route that kills its process is a finding to print
+    print(f"[pipe probe] {card_line()}: torch {torch.__version__}, exit "
+          f"codes {[p.exitcode for p in procs]} (negative: killed by that "
+          f"signal, after the staged route printed)", flush=True)
+
+
+def _pipe_counted(counters, fn):
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, {k: c.launches
+                                           for k, c in counters.items()}
+
+
+def _pipe_pipeline(rank, dev, tmp) -> dict:
+    """The 7B decoder as PIPE_STAGES stages: this rank builds its stage's
+    layers only; one warm run, then a counted one, forward and backward to
+    the embeddings."""
+    from matryoshka_mm_torch.parallel.collectives import collective_seconds
+    from matryoshka_mm_torch.parallel.pipeline import (make_pp_mesh,
+                                                       pipelined_decoder,
+                                                       stage_range)
+
+    lc = _pipe_llama_cfg(remat=True)
+    mesh = make_pp_mesh(PIPE_STAGES, device_type="cuda")
+    s = mesh.get_local_rank("stage")
+    params = {"layers": [_pipe_layer(lc, i, dev) for i in
+                         stage_range(PIPE_LAYERS, PIPE_STAGES, s)],
+              "norm": torch.ones(lc.hidden_size, dtype=torch.bfloat16,
+                                 device=dev)}
+    embeds, pos, valid, cot = _pipe_inputs(lc, dev)
+    counters = _train_counters()
+
+    def run():
+        e = embeds.detach().requires_grad_(True)
+        h = pipelined_decoder(params, lc, e, pos, valid, mesh,
+                              n_microbatches=PIPE_MICRO)
+        h.backward(cot)
+        return h.detach(), e.grad
+
+    run()
+    torch.cuda.reset_peak_memory_stats(dev)
+    c0 = collective_seconds()
+    (hidden, grad), t, launches = _pipe_counted(counters, run)
+    torch.save({"grad": grad.float().cpu(),
+                "hidden": hidden.float().cpu() if rank == 0 else None},
+               f"{tmp}/pipe{rank}.pt")
+    return {"s": t, "shift_s": collective_seconds() - c0, "stage": s,
+            "launches": launches,
+            "peak": torch.cuda.max_memory_allocated(dev) / 2**30}
+
+
+def _ring_inputs(dev, S, dtype, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn((1, RING_H, S, RING_DH), generator=gen, device=dev,
+                        dtype=torch.float32).to(dtype) for _ in range(4)]
+
+
+RING_CASES = (("causal", True, None), ("non-causal", False, None),
+              ("causal padded", True, RING_VALID))
+
+
+def _exact_attention(q, k, v, **kw):
+    """Float32 attention of ``q``, ``k``, ``v`` (the plain version on their
+    float32 values, so no probability is rounded), eight heads at a time
+    to bound the score matrix: the reference the bf16 results are held to
+    by share of their largest value."""
+    from matryoshka_mm_torch.ops import flash_attention as fl
+
+    return torch.cat([fl.flash_attention_plain(
+        *(t[:, h:h + 8].float() for t in (q, k, v)), **kw)[0]
+        for h in range(0, q.shape[1], 8)], dim=1)
+
+
+def _share(got, want) -> float:
+    """max|got - want| as a share of max|want|."""
+    want = want.float()
+    return float((got.float() - want).abs().max() / want.abs().max())
+
+
+def _pipe_ring(rank, dev) -> tuple:
+    """Ring attention over the two ranks at 7B's attention widths: each
+    flash case against one card's kernel and float32 attention over the
+    whole sequence (rank 0, before the ring runs), counted and timed; then the differentiable path
+    in float32 against ``attention_reference``'s gradients on one card.
+    Returns (rank 0's lines and errors, this rank's launches by case)."""
+    from matryoshka_mm_torch.ops import flash_attention as fl
+    from matryoshka_mm_torch.ops.attention import attention_reference
+    from matryoshka_mm_torch.parallel import make_mesh
+    from matryoshka_mm_torch.parallel.collectives import collective_seconds
+    from matryoshka_mm_torch.parallel.ring_attention import ring_attention
+
+    mesh = make_mesh((1, 2), axis_names=("data", "seq"), device_type="cuda")
+    i = mesh.get_local_rank("seq")
+    Sl = RING_S // 2
+    q, k, v, _ = _ring_inputs(dev, RING_S, torch.bfloat16, 2202)
+    lines, errors, launches = [], [], {}
+    counters = {"flash_attention": fl.flash_attention_lse}
+    for name, causal, valid_to in RING_CASES:
+        valid = torch.ones((1, RING_S), dtype=torch.bool, device=dev)
+        if valid_to is not None:
+            valid[:, valid_to:] = False
+        want = exact = None
+        if rank == 0:
+            want = fl.flash_attention_lse(q, k, v, causal=causal,
+                                          kv_valid=valid)[0]
+            exact = _exact_attention(q, k, v, causal=causal, kv_valid=valid)
+        blk = [t[:, :, i * Sl:(i + 1) * Sl].contiguous() for t in (q, k, v)]
+        vblk = valid[:, i * Sl:(i + 1) * Sl].contiguous()
+        args = (*blk, mesh)
+        kw = dict(causal=causal, kv_valid=vblk, use_flash=True)
+        ring_attention(*args, **kw)              # warm
+        c0 = collective_seconds()
+        out, t, n = _pipe_counted(counters, lambda: ring_attention(*args,
+                                                                    **kw))
+        shift = collective_seconds() - c0
+        every = _gather_objects((out.cpu(), n, t, shift))
+        launches[name] = n["flash_attention"]
+        if rank == 0:
+            got = torch.cat([e[0] for e in every], dim=2).to(dev)
+            e = float((got.float() - want.float()).abs().max())
+            rel, rel_x = _share(got, want), _share(got, exact)
+            counts = [e[1]["flash_attention"] for e in every]
+            expect = [r + 1 if causal else 2 for r in range(2)]
+            if max(rel, rel_x) > RING_TOL:
+                errors.append(f"ring {name}: {rel} of max|one card|, {rel_x} "
+                              f"of max|float32 attention|")
+            if counts != expect:
+                errors.append(f"ring {name}: #1 launched {counts} by rank, "
+                              f"expected {expect}")
+            lines.append(
+                f"[pipe ring {name}] {card_line()}: B=1, H={RING_H}, "
+                f"Dh={RING_DH}, S={RING_S} ({Sl} a rank), bf16, use_flash: "
+                f"max|ring - one card| {e:.3e}, {rel:.2e} of max|one card| "
+                f"and {rel_x:.2e} of max|float32 attention| (tolerance "
+                f"{RING_TOL}), #1 launches by "
+                f"rank {counts} (expected {expect}); ms by rank "
+                f"{[round(x[2] * 1e3, 2) for x in every]}, ring.shift share "
+                f"{[round(100 * x[3] / x[2], 1) for x in every]}%")
+    # the differentiable path, float32, against attention_reference
+    q, k, v, g = _ring_inputs(dev, RING_F32_S, torch.float32, 2203)
+    Sl = RING_F32_S // 2
+    want = None
+    if rank == 0:
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        ref = attention_reference(*leaves, causal=True)
+        ref.backward(g)
+        want = [ref.detach()] + [t.grad for t in leaves]
+    blk = [t[:, :, i * Sl:(i + 1) * Sl].clone().requires_grad_(True)
+           for t in (q, k, v)]
+    out = ring_attention(*blk, mesh, causal=True)
+    out.backward(g[:, :, i * Sl:(i + 1) * Sl])
+    every = _gather_objects([t.detach().cpu() for t in
+                             [out] + [b.grad for b in blk]])
+    if rank == 0:
+        rels = []
+        for j, name in enumerate(("out", "dq", "dk", "dv")):
+            got = torch.cat([e[j] for e in every], dim=2).to(dev)
+            w = want[j]
+            rels.append(float((got - w).abs().max()
+                              / w.abs().max().clamp(min=1.0)))
+        if max(rels) > RING_F32_TOL:
+            errors.append(f"ring f32 gradients: {rels} of max|reference|")
+        lines.append(
+            f"[pipe ring f32] {card_line()}: S={RING_F32_S} ({Sl} a rank), "
+            f"causal, the default path with its gradients against "
+            f"attention_reference on one card: out, dq, dk, dv "
+            f"{[f'{r:.2e}' for r in rels]} of max|reference| (tolerance "
+            f"{RING_F32_TOL})")
+    return lines, errors, launches
+
+
+def _gather_objects(obj) -> list:
+    import torch.distributed as dist
+
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, obj)
+    return every
+
+
+def _pipe_mpt(rank, dev) -> tuple:
+    """MPT-7B widths (MPT_LAYERS layers, bf16) placed at (1, 2): every model
+    rank runs the whole decoder; logits of a 64-token prompt against one
+    card's (rank 0, before placing)."""
+    import dataclasses
+
+    from matryoshka_mm_torch.config import LlamaConfig, LlavaConfig
+    from matryoshka_mm_torch.models.convert import _llama_tree, _random_maker
+    from matryoshka_mm_torch.models.llama import llama_logits
+    from matryoshka_mm_torch.parallel import make_mesh
+    from matryoshka_mm_torch.parallel.sharding import (compute_view,
+                                                       shard_params)
+
+    lc = LlamaConfig.mpt_7b(num_hidden_layers=MPT_LAYERS, dtype="bfloat16")
+    cfg = dataclasses.replace(LlavaConfig.llava_v15_7b_m3(), llama=lc)
+    gen = torch.Generator(device=dev).manual_seed(2204)
+    params = {"llama": _llama_tree(lc, _random_maker(gen, dev))}
+    ids = torch.randint(0, lc.vocab_size, (1, 64), device=dev,
+                        generator=gen)
+    with torch.no_grad():
+        want = llama_logits(params["llama"], lc, ids) if rank == 0 else None
+        mesh = make_mesh((1, 2), device_type="cuda")
+        view, vcfg = compute_view(shard_params(mesh, params), cfg)
+        got = llama_logits(view["llama"], vcfg.llama, ids)
+    if rank != 0:
+        return [], []
+    cos = _cosine(got, want)
+    err = float((got - want).abs().max())
+    line = (f"[pipe mpt (1, 2)] {card_line()}: MPT-7B widths, {MPT_LAYERS} "
+            f"layers, bf16, 32 heads on each model rank (none split): logits "
+            f"of 64 tokens against one card, cosine {cos:.6f}, max error "
+            f"{err:.3e}, bit-identical {bool(torch.equal(got, want))}")
+    return [line], ([] if torch.equal(got, want) else
+                    [f"mpt (1, 2): logits differ from one card's (cosine "
+                     f"{cos}, max error {err}), where they are "
+                     f"bit-identical"])
+
+
+def _cosine(a, b) -> float:
+    return float(torch.nn.functional.cosine_similarity(
+        a.flatten().double(), b.flatten().double(), dim=0))
+
+
+def _pipe_quant(rank, dev) -> tuple:
+    """debug://7b widths (QUANT_LAYERS layers) under int4 and int8
+    (``fuse=False``) placed at (1, 2): each rank's products on the
+    quantized kernels at its shard's shapes (q/k/v and gate/up by rows, o
+    and down by inputs, the int4 ones packed again at their own width);
+    logits of a 64-token prompt (the prefill kernel) and of one token (the
+    decode kernel) against one card's, and the launches of each."""
+    import dataclasses
+
+    from matryoshka_mm_torch.config import LlavaConfig
+    from matryoshka_mm_torch.models.convert import _llama_tree, _random_maker
+    from matryoshka_mm_torch.models.llama import llama_logits
+    from matryoshka_mm_torch.ops.int4_matmul import int4_matmul, int8_matmul
+    from matryoshka_mm_torch.ops.quant import quantize_llama_params
+    from matryoshka_mm_torch.parallel import make_mesh
+    from matryoshka_mm_torch.parallel.sharding import (compute_view,
+                                                       shard_params)
+
+    lc = _pipe_llama_cfg(QUANT_LAYERS)
+    cfg = dataclasses.replace(LlavaConfig.llava_v15_7b_m3(), llama=lc)
+    counters = {"int4_matmul": int4_matmul, "int8_matmul": int8_matmul}
+    lines, errors, launches = [], [], {k: 0 for k in counters}
+    mesh = make_mesh((1, 2), device_type="cuda")
+    for bits in (4, 8):
+        gen = torch.Generator(device=dev).manual_seed(2205)
+        params = {"llama": _llama_tree(lc, _random_maker(gen, dev))}
+        quantize_llama_params(params, bits=bits, fuse=False)
+        ids = torch.randint(0, lc.vocab_size, (1, 64), device=dev,
+                            generator=gen)
+        with torch.no_grad():
+            one = [_pipe_counted(counters, lambda x=x: llama_logits(
+                params["llama"], lc, x)) for x in (ids, ids[:, :1])]
+            view, vcfg = compute_view(shard_params(mesh, params), cfg)
+            got = [_pipe_counted(counters, lambda x=x: llama_logits(
+                view["llama"], vcfg.llama, x)) for x in (ids, ids[:, :1])]
+        name = f"int{bits}_matmul"
+        for _, _, n in got:
+            launches[name] += n[name]
+        every = _gather_objects(([g[0].cpu() for g in got],
+                                 [g[2][name] for g in got]))
+        if rank == 0:
+            want_n = [o[2][name] for o in one]
+            coss = [_cosine(g[0], o[0]) for g, o in zip(got, one)]
+            for r, (_, n) in enumerate(every):
+                if n != want_n:
+                    errors.append(f"int{bits} (1, 2): rank {r} launched "
+                                  f"{name} {n}, one card {want_n}")
+            if min(coss) < QUANT_COS:
+                errors.append(f"int{bits} (1, 2): logits cosine {coss} "
+                              f"(limit {QUANT_COS})")
+            lines.append(
+                f"[pipe int{bits} (1, 2)] {card_line()}: debug://7b widths, "
+                f"{QUANT_LAYERS} layers, fuse=False, 16 heads a rank: logits "
+                f"cosine against one card {[f'{c:.6f}' for c in coss]} "
+                f"(limit {QUANT_COS}; 64 "
+                f"tokens, 1 token); {name} launches by rank "
+                f"{[e[1] for e in every]} (one card {want_n})")
+        del params, view
+    return lines, errors, launches
+
+
+def _pipe_beam(rank, dev) -> tuple:
+    """beam_generate on phase 8's small float32 model placed at (1, 2) by
+    ``shard_model_for_inference`` (which pins reference attention): its
+    tokens against one card's, reference attention too (rank 0, before
+    placing)."""
+    import dataclasses
+
+    from matryoshka_mm_torch.config import LlavaConfig
+    from matryoshka_mm_torch.generate import GenerationConfig, beam_generate
+    from matryoshka_mm_torch.models.convert import init_params
+    from matryoshka_mm_torch.parallel import (make_mesh,
+                                              shard_model_for_inference)
+
+    base = LlavaConfig.tiny_debug()
+    cfg = dataclasses.replace(base, llama=dataclasses.replace(
+        base.llama, hidden_size=256, num_attention_heads=2,
+        num_key_value_heads=2, intermediate_size=512,
+        attn_impl="reference"))
+    params = init_params(cfg, str(dev), seed=3)
+    rng = np.random.default_rng(22)
+    ids = rng.integers(100, 500, (1, 12)).astype(np.int32)
+    ids[0, 4] = -200
+    px = rng.standard_normal((1, 3, 56, 56)).astype(np.float32)
+    kw = dict(num_beams=3, matryoshka_vis_token_scale="ver=v0_numtoks=4",
+              gen_cfg=GenerationConfig(max_new_tokens=8, eos_token_id=-1))
+    want = beam_generate(params, cfg, ids, px, **kw) if rank == 0 else None
+    placed, pcfg, _ = shard_model_for_inference(
+        params, cfg, mesh=make_mesh((1, 2), device_type="cuda"))
+    got = beam_generate(placed, pcfg, ids, px, **kw)
+    every = _gather_objects(got.tolist())
+    if rank != 0:
+        return [], []
+    same = all(e == want.tolist() for e in every)
+    return ([f"[pipe beam (1, 2)] {card_line()}: small float32 model, 3 "
+             f"beams, 8 tokens: one card {want.tolist()}, placed by rank "
+             f"{every}, equal {same}"],
+            [] if same else ["beam (1, 2): tokens differ from one card"])
+
+
+def _pipe_rank(rank, world, tmp, out) -> None:
+    """One rank of phase 22's world: a fresh process sharing the card with
+    the other over gloo (``cpu_count // world`` threads)."""
+    os.environ["LOCAL_RANK"] = str(rank)
+    sys.path.insert(0, str(REPO))
+    import torch.distributed as dist
+
+    from matryoshka_mm_torch.parallel import initialize_distributed
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_distributed(backend="gloo", init_file=f"{tmp}/init",
+                           rank=rank, world_size=world)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    lines, errors, times = [], [], []
+
+    def lap(what, t0):
+        times.append(f"{what} {time.perf_counter() - t0:.1f} s")
+        return time.perf_counter()
+
+    t0 = time.perf_counter()
+    pipe = _pipe_pipeline(rank, dev, tmp)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = lap("pipeline", t0)
+    ring_lines, ring_errors, ring_launches = _pipe_ring(rank, dev)
+    t0 = lap("ring", t0)
+    mpt = _pipe_mpt(rank, dev)
+    t0 = lap("mpt", t0)
+    qlines, qerrors, qlaunches = _pipe_quant(rank, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = lap("int4/int8", t0)
+    beam = _pipe_beam(rank, dev)
+    t0 = lap("beam", t0)
+    for case in SHARD_QLORA:
+        got = _shard_case(case, rank, dev, world)
+        lines += got[0]
+        errors += got[1]
+    lap("qlora", t0)
+    every = _gather_objects({"pipe": pipe, "ring": ring_launches,
+                             "quant": qlaunches})
+    if rank == 0:
+        lines = ring_lines + mpt[0] + qlines + beam[0] + lines + [
+            f"[pipe] rank 0: " + ", ".join(times)]
+        errors = ring_errors + mpt[1] + qerrors + beam[1] + errors
+        Path(out).write_text(json.dumps({
+            "lines": lines, "errors": errors, "ranks": every}))
+    dist.destroy_process_group()
+
+
+def pipe_kernel_errors(dev) -> dict:
+    """#1 and #3 at a pipeline microbatch's shapes (one row of 1,024
+    tokens, 32 heads, Dh 128, bf16, left-padded) against their plain
+    versions, and #1 at the blocks a ring step gives it (4,096 queries
+    against 4,096 keys, 32 heads, Dh 128, bf16): an earlier rank's block
+    (full), the rank's own (diagonal-causal) and a block of padding keys
+    only (every lse -1e30, a zero output), against the plain version and
+    float32 attention.  Returns each kernel's largest error, as phase 21
+    reports them."""
+    from matryoshka_mm_torch.ops import flash_attention as fl
+
+    gen = torch.Generator(device=dev).manual_seed(2206)
+    q, k, v, valid = _flash_operands(gen, dev, torch.bfloat16, 1, 32, 32,
+                                     PIPE_T, PIPE_T, 128, PIPE_PAD)
+    do = torch.randn_like(q)
+    out, lse = fl.flash_attention_lse(q, k, v, kv_valid=valid)
+    args = (q, k, v, valid, out, lse, do)
+    got = (out, fl.flash_attention_bwd_dq(*args),
+           *fl.flash_attention_bwd_dkv(*args))
+    want = (fl.flash_attention_plain(q, k, v, kv_valid=valid)[0],
+            *fl.flash_attention_bwd_plain(*args))
+    mb = [float((g.float() - w.float()).abs().max()
+                / w.float().abs().max().clamp(min=1.0))
+          for g, w in zip(got, want)]
+    if mb[0] > FLASH_TOL or max(mb[1:]) > BWD_TOL[torch.bfloat16]:
+        fail(f"pipe kernels at a microbatch's shapes: {mb}")
+    print(f"[pipe kernels] {card_line()}: a microbatch (1 x {PIPE_T}, 32 "
+          f"heads, Dh 128, bf16, {PIPE_PAD} pad): forward, dq, dk, dv "
+          f"{[f'{e:.1e}' for e in mb]} of max|plain|", flush=True)
+    del q, k, v, do, args, got, want
+    Sl = RING_S // 2
+    q, k, v, _ = _ring_inputs(dev, Sl, torch.bfloat16, 2207)
+    ring = []
+    for block in ("full", "diagonal", "keyless"):
+        valid = torch.full((1, Sl), block != "keyless", dtype=torch.bool,
+                           device=dev)
+        kw = dict(causal=block == "diagonal", kv_valid=valid)
+        out, lse = fl.flash_attention_lse(q, k, v, **kw)
+        want_o, want_l = fl.flash_attention_plain(q, k, v, **kw)
+        lerr = float((lse - want_l).abs().max())
+        if block == "keyless":
+            rel = rel_x = float(out.float().abs().max())
+            ok = bool((lse == fl.LSE_MASKED).all()) and not out.any()
+            say = (f"every lse {fl.LSE_MASKED:g} "
+                   f"{bool((lse == fl.LSE_MASKED).all())}, max|out| {rel:g}")
+        else:
+            rel = _share(out, want_o)
+            rel_x = _share(out, _exact_attention(q, k, v, **kw))
+            ok = max(rel, rel_x) <= RING_TOL
+            say = (f"{rel:.2e} of max|plain| and {rel_x:.2e} of "
+                   f"max|float32 attention| (tolerance {RING_TOL})")
+        print(f"[pipe kernels] {card_line()}: #1 at a ring block ({block}, "
+              f"1 x {Sl} queries x {Sl} keys, 32 heads, Dh 128, bf16): {say}, "
+              f"max|lse - plain| {lerr:.1e} (tolerance {LSE_TOL})",
+              flush=True)
+        if not ok or lerr > LSE_TOL:
+            fail(f"pipe kernels: #1 at a ring block ({block}): {say}, lse "
+                 f"error {lerr}")
+        ring.append(max(rel, rel_x))
+    return {"flash_attention": max(mb[0], *ring),
+            "flash_attention_bwd_dq": mb[1],
+            "flash_attention_bwd_dkv": max(mb[2:])}
+
+
+def phase_pipe(dev) -> tuple:
+    """Phase 22: the ring shift probe; one card's reference of the 7B
+    pipeline; then one world of two ranks on this card over gloo: the
+    pipeline, ring attention, MPT at (1, 2), the quantized products at
+    their shard shapes, beam search on placed weights and the --bits 4 LoRA
+    step.  Returns (the main path's launches, the kernels' errors)."""
+    import multiprocessing as mp
+    import tempfile
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    errs = pipe_kernel_errors(dev)
+    pipe_probe()
+    ref = pipe_one_card(dev)
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = f"{tmp}/out.json"
+        procs = [ctx.Process(target=_pipe_rank, args=(r, 2, tmp, out))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + PIPE_WAIT_S
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 1))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        codes = [p.exitcode for p in procs]
+        if any(codes) or not Path(out).exists():
+            fail(f"pipe: world of 2 ranks exit codes {codes}")
+        res = json.loads(Path(out).read_text())
+        got = [torch.load(f"{tmp}/pipe{r}.pt") for r in range(2)]
+    errors = list(res["errors"])
+    ranks = res["ranks"]
+    hidden = got[0]["hidden"]
+    cos_h = _cosine(hidden, ref["hidden"])
+    err_h = float((hidden - ref["hidden"]).abs().max())
+    cos_g = [_cosine(g["grad"], ref["grad"]) for g in got]
+    err_g = [float((g["grad"] - ref["grad"]).abs().max()) for g in got]
+    if err_h != 0 or any(err_g):
+        errors.append(f"pipeline: max error {err_h} (hidden), {err_g} "
+                      f"(embeds gradient by rank) against one card, where "
+                      f"they are bit-identical (cosines {cos_h}, {cos_g})")
+    # a stage runs L / S layers for each of M microbatches; remat runs each
+    # layer's forward again in the backward
+    per = PIPE_LAYERS // PIPE_STAGES * PIPE_MICRO
+    want = {"flash_attention": 2 * per, "flash_attention_bwd_dq": per,
+            "flash_attention_bwd_dkv": per}
+    for r, e in enumerate(ranks):
+        if e["pipe"]["launches"] != want:
+            errors.append(f"pipeline: rank {r} launched "
+                          f"{e['pipe']['launches']}, expected {want}")
+    p = [e["pipe"] for e in ranks]
+    print(f"[pipe 7b] {card_line()}: debug://7b's decoder ({PIPE_LAYERS} "
+          f"layers, 4,096 wide, bf16, remat), S={PIPE_STAGES} stages of "
+          f"{PIPE_LAYERS // PIPE_STAGES} layers, M={PIPE_MICRO}, B={PIPE_B} "
+          f"x {PIPE_T} tokens, forward and backward to the embeddings: "
+          f"hidden cosine {cos_h:.6f} (max error {err_h:.3e}), embeds "
+          f"gradient cosine by rank {[f'{c:.6f}' for c in cos_g]} (max error "
+          f"{[f'{e:.3e}' for e in err_g]}) against one card's llama_forward; "
+          f"launches by rank {[x['launches'] for x in p]} (expected {want}; "
+          f"one card {ref['launches']})", flush=True)
+    print(f"[pipe 7b] {card_line()}: step {[round(x['s'], 3) for x in p]} s "
+          f"by rank (one card {ref['s']:.3f} s), the shift's share "
+          f"{[round(100 * x['shift_s'] / x['s'], 1) for x in p]}% (host time "
+          f"in pp.shift / pp.broadcast), peak GiB by rank "
+          f"{[round(x['peak'], 2) for x in p]} (one card "
+          f"{ref['peak']:.2f})", flush=True)
+    print("\n".join(res["lines"]), flush=True)
+    if errors:
+        fail("pipe: " + "; ".join(errors))
+    launches = {}
+    for e in ranks:
+        for k, n in e["pipe"]["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+        launches["flash_attention"] += sum(e["ring"].values())
+        for k, n in e["quant"].items():
+            launches[k] = launches.get(k, 0) + n
+    return launches, errs
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
@@ -7848,11 +8592,11 @@ def main(argv=()) -> int:
     if argv:
         # a subset for work on one phase: `chip_smoke.py kernels quant slice
         # qslice paged hbm serve smallinfer bwd train small ckpt anyres
-        # genmodes families famkernels lora frontend eval harness tp shard`
-        # runs phases 3 (attention kernels), 3 (quantized products), 4, 5,
-        # 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, phase 3's cases at the
-        # families' shapes, 16, 17, 18, 19, 20 and 21 alone and prints no
-        # result line
+        # genmodes families famkernels lora frontend eval harness tp shard
+        # pipe` runs phases 3 (attention kernels), 3 (quantized products),
+        # 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, phase 3's cases at the
+        # families' shapes, 16, 17, 18, 19, 20, 21 and 22 alone and prints
+        # no result line
         for name in argv:
             phases = {"kernels": phase_kernels, "quant": phase_quant_kernels,
              "slice": phase_slice, "smallinfer": phase_small,
@@ -7864,7 +8608,7 @@ def main(argv=()) -> int:
              "families": phase_families, "famkernels": phase_family_kernels,
              "lora": phase_lora, "frontend": phase_frontend,
              "eval": phase_eval, "harness": phase_harness, "tp": phase_tp,
-             "shard": phase_shard}
+             "shard": phase_shard, "pipe": phase_pipe}
             timed(phases[name], dev)
         print(f"partial run {argv}: no result")
         return 1
@@ -7907,6 +8651,11 @@ def main(argv=()) -> int:
     for k, e in tp_errs.items():
         rec[k]["err"] = max(rec[k]["err"], e)
     for k, e in timed(phase_shard, dev).items():
+        rec[k]["err"] = max(rec[k]["err"], e)
+    pipe_launches, pipe_errs = timed(phase_pipe, dev)
+    for k, n in pipe_launches.items():
+        launches[k] = launches.get(k, 0) + n
+    for k, e in pipe_errs.items():
         rec[k]["err"] = max(rec[k]["err"], e)
     if [m for m in sys.modules
             if m.split(".")[0] in ("jax", "matryoshka_mm_tpu")]:

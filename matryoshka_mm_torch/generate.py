@@ -89,6 +89,19 @@ def _params_device(params: dict) -> torch.device:
     return params["llama"]["embed_tokens"].device
 
 
+def rank_view(params: dict, cfg: LlavaConfig) -> tuple:
+    """``(params, cfg)`` as this rank computes with them: weights placed
+    over a mesh of ranks (``parallel/inference.py``) become the rank's view
+    (``sharding.compute_view``); plain weights pass unchanged.  Every entry
+    point below takes it first, so placed weights run eagerly through each
+    (a collective cannot be captured in a CUDA graph)."""
+    if not is_placed(params):
+        return params, cfg
+    from .parallel.sharding import compute_view
+
+    return compute_view(params, cfg)
+
+
 # ---------------------------------------------------------------------------
 # prefill
 # ---------------------------------------------------------------------------
@@ -251,6 +264,7 @@ def chunked_prefill(params: dict, cfg: LlavaConfig, embeds: torch.Tensor,
     (B, V) f32, the cache).  Activations scale with ``chunk``, not ``S``;
     chunk i attends to the cache with ``q_index_offset = i * chunk``, so
     the flash kernel's index causality stays exact."""
+    params, cfg = rank_view(params, cfg)
     B, S, _ = embeds.shape
     if S % chunk:
         raise ValueError(f"chunked_prefill: {S} positions are not a "
@@ -546,6 +560,7 @@ def gating_probs(params: dict, cfg: LlavaConfig,
     """(B, K) float32 router probabilities over ``cfg.tokscale_list``: the
     CLIP tower once, then the router; None when the config is not
     M3-MoE."""
+    params, cfg = rank_view(params, cfg)
     device = params["vision_tower"]["class_embedding"].device
     px = torch.as_tensor(np.asarray(pixel_values, np.float32)) \
         if not isinstance(pixel_values, torch.Tensor) else pixel_values
@@ -574,11 +589,9 @@ def _generate_stream(params: dict, cfg: LlavaConfig, input_ids,
                      generator: Optional[torch.Generator], cuda_graph: bool):
     """Check the request, prefill, then :func:`_decode_loop`'s yields.
     Weights placed over a mesh of ranks (``parallel/inference.py``) run as
-    this rank's view of them (``sharding.compute_view``), eagerly."""
+    this rank's view of them (:func:`rank_view`), eagerly."""
     if is_placed(params):
-        from .parallel.sharding import compute_view
-
-        params, cfg = compute_view(params, cfg)
+        params, cfg = rank_view(params, cfg)
         cuda_graph = False
     device = _params_device(params)
     ids_np = np.asarray(input_ids, np.int64)
@@ -821,6 +834,7 @@ def beam_generate(
     every device); the first step's seeding and the finalisation run on
     the host, and ``stopping_criteria`` cuts the chosen hypothesis at the
     earliest prefix it accepts, after the search."""
+    params, cfg = rank_view(params, cfg)
     device = _params_device(params)
     ids_np = np.asarray(input_ids, np.int64)
     B, T = ids_np.shape
@@ -1000,6 +1014,7 @@ def speculative_generate(
     max_new_tokens)``, the EOS and everything after it ``pad_token_id``;
     with ``propose_fn(ids, k, ngram)`` the result is the tokens emitted,
     up to and including an EOS."""
+    params, cfg = rank_view(params, cfg)
     device = _params_device(params)
     ids_np = np.asarray(input_ids, np.int64)
     B, T = ids_np.shape

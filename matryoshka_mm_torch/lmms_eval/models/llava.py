@@ -144,11 +144,13 @@ class Llava(lmms):
         continuation tokens: what survives would be scored as if it were
         the whole continuation."""
         from ...constants import IGNORE_INDEX
+        from ...generate import rank_view
         from ...kvconfig import parse_kv_from_string
         from ...models.llama import llama_logits
         from ...models.llava import forward_spliced, prepare_multimodal
 
-        params, cfg = self.model.params, self.model.cfg
+        # weights placed over ranks: this rank's view, as generate takes it
+        params, cfg = rank_view(self.model.params, self.model.cfg)
         device = params["llama"]["embed_tokens"].device
         context, continuation, visual = req.arguments
         prompt = self._build_prompt(context, visual is not None)

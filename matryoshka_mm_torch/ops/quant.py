@@ -126,6 +126,21 @@ def int_weight(leaf: dict) -> torch.Tensor:
     return leaf[QKEY]
 
 
+def int4_k_shard(packed: torch.Tensor, parts: int, i: int) -> torch.Tensor:
+    """Part ``i`` of ``parts`` of the inputs (K) of the split-half packed
+    ``(..., N, K/2)`` int4 bytes, packed again in the split-half layout of
+    its own width: the nibbles unpacked to their signed values in input
+    order, sliced, packed (a relayout, exact).  A slice of the packed
+    bytes would not do: byte ``j`` holds inputs ``j`` and ``j + K/2``."""
+    q = torch.cat(unpack_int4(packed), dim=-1)
+    K = q.shape[-1]
+    if K % parts or (K // parts) % 2:
+        raise ValueError(f"int4 K-shard of {K} inputs into {parts} parts: "
+                         f"each part needs an even width")
+    k = K // parts
+    return pack_int4(q[..., i * k:(i + 1) * k])
+
+
 def dequantize_array(leaf, dtype: torch.dtype = torch.bfloat16
                      ) -> torch.Tensor:
     """A quantized leaf -> ``(q * scale)`` rounded to ``dtype`` (bf16 by

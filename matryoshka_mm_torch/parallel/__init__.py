@@ -2,10 +2,12 @@
 from torchrun's environment or a file store, a (data, model) grid of
 ranks, this rank's rows of a batch), ``sharding.py`` (every parameter's
 placements as DTensors, and what each leaf computes with),
-``collectives.py`` (tensor-parallel groups by name, and the collectives
-autograd carries), ``inference.py`` (a ``(1, tp)`` placement for
-``generate``) and ``tp_decode.py`` (tensor-parallel inference with the
-kernels kept, ``TPEngine``).
+``collectives.py`` (tensor-parallel groups by name, the collectives
+autograd carries, and the ring shift), ``inference.py`` (a ``(1, tp)``
+placement for ``generate``), ``tp_decode.py`` (tensor-parallel inference
+with the kernels kept, ``TPEngine``), ``pipeline.py`` (the decoder as a
+GPipe pipeline over a ``(data, stage)`` mesh) and ``ring_attention.py``
+(sequence-parallel attention over a ``seq`` dim).
 
 ``sharding.py`` and ``inference.py`` import ``torch.distributed.tensor``,
 which is slow to import, so their names load on first use: a one-card run that

@@ -2,7 +2,8 @@
 decoder runs under one: the counterpart of the JAX ``shard_map`` axis and
 its ``psum`` / ``all_gather``.  Below them, the collectives autograd
 carries over a ``DeviceMesh`` dim's group, for training across ranks
-(``sharding.py``).
+(``sharding.py``), and the ring shift (the JAX ``ppermute``) of the
+pipeline's stages and of ring attention.
 
 A :class:`TPGroup` is a ``torch.distributed`` backend object (gloo or
 NCCL) made straight from a store, outside the default process group, so a
@@ -243,3 +244,86 @@ def gather_from_group(x: torch.Tensor, dim: int, group,
 def all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     """All-gather along ``dim`` with no gradient (checkpoint writes)."""
     return x if _size(group) == 1 else _all_gather(x, dim, group)
+
+
+# ---------------------------------------------------------------------------
+# the ring shift: the counterpart of the JAX ``ppermute`` over a ring
+# ---------------------------------------------------------------------------
+#
+# Pipeline stages (``pipeline.py``) pass activations to the next stage and
+# ring attention (``ring_attention.py``) rotates K/V blocks this way.  Gloo's
+# send and receive take CPU tensors only, so on gloo a CUDA tensor is staged
+# through a host copy on either side (``chip_smoke.py`` phase 22 probes
+# both routes); NCCL takes the device tensors.  The sends and receives of
+# one shift are all posted before any is waited on, so that no rank of the
+# ring waits on another's receive before posting its own.  They are posted
+# one by one: through ``batch_isend_irecv`` (torch 2.13, gloo) a process
+# aborted at its exit ("terminate called without an active exception") in
+# about one run of four ranks in four.  A failed shift raises.
+
+def _ring_peer(group, offset: int) -> int:
+    """The global rank ``offset`` places on from this rank in ``group``'s
+    ring."""
+    n = dist.get_world_size(group)
+    return dist.get_global_rank(group, (dist.get_rank(group) + offset) % n)
+
+
+def _shift_now(xs, group, offset: int, name: str) -> list:
+    """Each tensor of ``xs`` to the rank ``offset`` places on in the ring,
+    and the same tensors from the rank ``offset`` places back: new
+    tensors (a ring of one rank copies)."""
+    if _size(group) == 1:
+        return [x.detach().clone() for x in xs]
+    dev = xs[0].device
+    staged = dev.type != "cpu" and "nccl" not in str(dist.get_backend(group))
+    sends = []
+    for x in xs:
+        x = x.detach()
+        if x.dtype == torch.bool:
+            x = x.to(torch.uint8)
+        sends.append((x.cpu() if staged else x).contiguous())
+    recvs = [torch.empty_like(s) for s in sends]
+    dst, src = _ring_peer(group, offset), _ring_peer(group, -offset)
+    with _span(name):
+        works = [dist.isend(s, dst, group=group) for s in sends] + \
+            [dist.irecv(r, src, group=group) for r in recvs]
+        for work in works:
+            work.wait()
+    out = []
+    for x, r in zip(xs, recvs):
+        r = r.to(dev) if staged else r
+        out.append(r.bool() if x.dtype == torch.bool else r)
+    return out
+
+
+class _RingShift(torch.autograd.Function):
+    """The shift forward; its backward shifts the gradients of the
+    floating-point tensors the other way round the ring (a missing one as
+    zeros, so that every rank takes part)."""
+
+    @staticmethod
+    def forward(ctx, group, offset, name, *xs):
+        ctx.group, ctx.offset, ctx.name = group, offset, name
+        ctx.floats = [x.is_floating_point() for x in xs]
+        out = _shift_now(xs, group, offset, name)
+        ctx.mark_non_differentiable(*[o for o, f in zip(out, ctx.floats)
+                                      if not f])
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        back = iter(_shift_now([g for g, f in zip(gs, ctx.floats) if f],
+                               ctx.group, -ctx.offset, ctx.name + "_grad"))
+        return (None, None, None) + tuple(next(back) if f else None
+                                          for f in ctx.floats)
+
+
+def ring_shift(xs, group, offset: int = 1, name: str = "ring.shift") -> list:
+    """``xs`` (tensors of one device) shifted ``offset`` places round the
+    ring of ``group``'s ranks: this rank gets the tensors of the rank
+    ``offset`` places back.  Differentiable: the gradient goes back the
+    other way.  Every rank of ``group`` calls it, in the same order, and so
+    does the backward.  Shows in ``torch.profiler`` as ``name`` (the
+    backward as ``name + "_grad"``) and adds to
+    :func:`collective_seconds`."""
+    return list(_RingShift.apply(group, offset, name, *xs))

@@ -16,12 +16,17 @@ This is the route for the modes ``tp_decode.TPEngine`` refuses: the
 ``ver=v2`` combine, anyres tiles and multi-image prompts go through
 ``generate``'s own prefills unchanged.  The tests drive ``v0`` and ``v2``
 prompts; anyres and multi-image prompts take the same decoder path
-untested.  MPT (a fused ``Wqkv``) has no split across a model axis above 1
-and raises.
+untested.  MPT, whose layer leaves match no ``model`` rule, runs its whole
+decoder on every rank, as under the JAX placement.  The placed tree drops
+into every entry point of ``generate.py`` (``generate``,
+``stream_generate``, ``beam_generate``, ``speculative_generate``,
+``chunked_prefill``, ``gating_probs``), ``LlavaModel`` and so the eval
+drivers, and the worker's solo path; each takes the rank's view first.
 
 Contract, as in JAX:
 
-* float weights (a quantized base stays on one card or in ``TPEngine``);
+* float weights, or a quantized base in the unfused layout
+  (``fuse=False``);
 * ``cfg.llama.attn_impl`` is pinned to ``"reference"``;
 * the mesh is ``(1, tp)``: a data axis above 1 raises ``ValueError``;
 * ``tp`` must divide the heads, KV heads and MLP width.
@@ -55,8 +60,8 @@ def shard_model_for_inference(params, cfg, tp_size: Optional[int] = None,
                               mesh=None) -> Tuple[dict, object, object]:
     """Place ``params`` TP-sharded for inference; returns
     ``(params, cfg, mesh)`` with ``cfg.llama.attn_impl`` pinned to
-    ``"reference"``.  The placed tree drops into ``generate`` and
-    ``stream_generate`` unchanged."""
+    ``"reference"``.  The placed tree drops into every entry point of
+    ``generate.py`` unchanged."""
     mesh = mesh or make_tp_mesh(tp_size)
     if mesh.size(0) != 1:
         raise ValueError(

@@ -31,12 +31,20 @@ What each leaf computes with (:func:`compute_leaf`): the decoder's
 column-parallel products (q/k/v, gate/up, and the ``lora_b`` of each) keep
 their ``model`` split on ``out``, the row-parallel ones (o, down, and their
 ``lora_a``) keep it on ``in``; every other leaf is gathered whole over
-``model``.  Every leaf is gathered whole over ``data``.  Gradients go back
-the same way: the ``data`` gather reduce-scatters (a data rank's gradient
-is its rows' part); over ``model`` a leaf whose product is summed after it
-(the ``lora_a`` of a column-parallel product, the ``lora_b`` of a
-row-parallel one) reduce-scatters too, and every other gathered leaf keeps
-its part of a gradient that every model rank holds whole.
+``model``.  A quantized base weight computes with the quantized kernels at
+its part's shape: a column-parallel one keeps its rows of values and
+scales; a row-parallel int8 one its inputs' values; a row-parallel int4
+one is gathered whole and its inputs' part packed again in the split-half
+layout of its own width (``ops/quant.py`` ``int4_k_shard``, exact), since
+a byte holds two inputs half the width apart.  MPT's layer leaves match no
+``model`` rule, so a model rank runs the whole MPT decoder
+(:func:`mesh_llama_cfg`).  Every leaf is gathered whole over ``data``.
+Gradients go back the same way: the ``data`` gather reduce-scatters (a
+data rank's gradient is its rows' part); over ``model`` a leaf whose
+product is summed after it (the ``lora_a`` of a column-parallel product,
+the ``lora_b`` of a row-parallel one) reduce-scatters too, and every other
+gathered leaf keeps its part of a gradient that every model rank holds
+whole.
 """
 
 from __future__ import annotations
@@ -49,6 +57,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
 
+from ..ops.quant import Q4KEY, int4_k_shard
 from . import collectives as C
 
 AXES = ("data", "model")
@@ -229,7 +238,12 @@ def mesh_of(tree):
 
 def _model_role(path: str) -> Tuple[Optional[int], str]:
     """``(dim kept split over model, or None, backward of a gather over
-    model)`` of the leaf at ``path``."""
+    model)`` of the leaf at ``path``.  Of a quantized weight (``ops/
+    quant.py``), the int8 values and the per-output-channel ``scale`` of a
+    column-parallel product keep their rows, the int8 values of a
+    row-parallel one keep their inputs and its ``scale`` is whole; its
+    int4 bytes are gathered whole (``"int4"``) and cut again by
+    :func:`compute_leaf`."""
     if path.startswith("llama/layers/"):
         tail = path.rsplit("/", 1)[-1]
         if any(n in path for n in _COLUMN):
@@ -239,7 +253,10 @@ def _model_role(path: str) -> Tuple[Optional[int], str]:
         if any(n in path for n in _ROW):
             if tail == "lora_b":
                 return None, "sum"
-            return (None, "slice") if tail == "lora_scale" else (1, "")
+            if tail == Q4KEY:
+                return None, "int4"
+            return (None, "slice") if tail in ("lora_scale", "scale") \
+                else (1, "")
     return None, "slice"
 
 
@@ -252,6 +269,16 @@ def compute_leaf(path: str, leaf):
     mesh = leaf.device_mesh
     keep, model_grad = _model_role(path)
     x = leaf.to_local()
+    m = mesh.mesh_dim_names.index("model")
+    if model_grad == "int4" and mesh.size(m) > 1:
+        # a row-parallel int4 weight: its split-half bytes gathered whole,
+        # then this rank's inputs (the model group's rank-th part) packed
+        # in the layout of their own width, exact (no gradient: a frozen
+        # base)
+        for i, p in enumerate(leaf.placements):
+            if isinstance(p, Shard) and mesh.size(i) > 1:
+                x = C.all_gather_dim(x, p.dim, mesh.get_group(i))
+        return int4_k_shard(x, mesh.size(m), mesh.get_local_rank(m))
     for i, (name, p) in enumerate(zip(mesh.mesh_dim_names, leaf.placements)):
         if mesh.size(i) == 1:
             continue
@@ -374,13 +401,13 @@ _MESH_AXES: Dict[tuple, str] = {}
 def mesh_llama_cfg(cfg, mesh):
     """The decoder config a rank of ``mesh`` runs: its heads, KV heads and
     MLP width (``model`` ways) and a ``tp_axis`` naming the mesh's model
-    group; ``cfg`` itself on a mesh of one model rank."""
+    group; ``cfg`` itself on a mesh of one model rank, and for MPT, whose
+    layer leaves (``attn/Wqkv``, ``attn/out_proj``, ``ffn/*``) match no
+    ``model`` rule of the table: each is gathered whole and every model
+    rank runs the whole decoder, as under the JAX placement."""
     tp = mesh.size(mesh.mesh_dim_names.index("model"))
-    if tp == 1:
+    if tp == 1 or cfg.arch == "mpt":
         return cfg
-    if cfg.arch == "mpt":
-        raise NotImplementedError("MPT's fused Wqkv has no tensor-parallel "
-                                  "split across ranks (model axis > 1)")
     H, Hkv = cfg.num_attention_heads, cfg.num_key_value_heads
     if H % tp or Hkv % tp or cfg.intermediate_size % tp:
         raise ValueError(f"model={tp} must divide heads ({H}), kv heads "

@@ -15,7 +15,7 @@ hand-written kernels included, on its Megatron-style shard:
 Quantized weights shard exactly: the values are sliced after quantizing
 (per-output-channel scales), and an int4 K-shard (o, down) is unpacked to
 its signed values, sliced and packed again in the split-half e8m layout of
-its own width (``ops/quant.py`` ``pack_int4``): a relayout of the nibbles,
+its own width (``ops/quant.py`` ``int4_k_shard``): a relayout of the nibbles,
 no requantization.  Each rank then fuses q/k/v and gate/up of its shard
 (``_fuse_layer_projections``), so the fused decode kernels run on it.
 
@@ -75,8 +75,8 @@ from ..kvconfig import parse_kv_from_string
 from ..models.llama import (embed_tokens, init_kv_cache, llama_forward,
                             lm_head)
 from ..models.llava import prepare_multimodal
-from ..ops.quant import (Q4KEY, QKEY, _fuse_layer_projections, int_weight,
-                         is_quantized, pack_int4)
+from ..ops.quant import (Q4KEY, QKEY, _fuse_layer_projections,
+                         int4_k_shard, is_quantized)
 from .collectives import TPGroup, register, unregister
 
 _ROW_LEAVES = ("q_proj", "k_proj", "v_proj", "gate_proj", "up_proj",
@@ -135,11 +135,8 @@ def _shard_quant_cols(leaf: dict, tp: int, rank: int, device) -> dict:
     if QKEY in leaf:
         return {QKEY: _own(_cols(leaf[QKEY], tp, rank), device),
                 "scale": scale}
-    part = _cols(int_weight(leaf), tp, rank)
-    if part.shape[-1] % 2:
-        raise ValueError(f"int4 K-shard of {part.shape[-1]} columns: the "
-                         f"split-half packing needs an even width")
-    return {Q4KEY: _own(pack_int4(part), device), "scale": scale}
+    return {Q4KEY: _own(int4_k_shard(leaf[Q4KEY], tp, rank), device),
+            "scale": scale}
 
 
 def _shard_leaf(name: str, leaf, tp: int, rank: int, device):

@@ -28,7 +28,9 @@ Runs on the card unless ``--device cpu`` is given.  Across ranks:
 
 lays the ranks out as a ``(data, model)`` mesh of ``(world // tp_size,
 tp_size)`` (``--dp_size``, if given, must equal ``world // tp_size``),
-places the parameters by ``parallel/sharding.py``'s rules and gives each
+places the parameters by ``parallel/sharding.py``'s rules (a ``--bits``
+4 / 8 base too: its packed values and scales are placed like the weights
+they stand for) and gives each
 data rank its ``per_device_train_batch_size`` rows of every global batch
 (``put_batch``).  Rank 0 alone writes ``args.json``, ``metrics.jsonl`` and
 the checkpoints, each leaf gathered whole first, so a sharded run's save
@@ -324,9 +326,6 @@ def train(attn_implementation: str = "flash", argv=None) -> TrainState:
         (ModelArguments, DataArguments, TrainingArguments), argv)
     mesh, device = _ranks(training_args)
     dp = 1 if mesh is None else mesh.size(0)
-    if mesh is not None and training_args.bits in (4, 8):
-        raise NotImplementedError("a quantized base (--bits) across ranks: "
-                                  "QLoRA trains on one device")
     lead = mesh is None or dist.get_rank() == 0
     np.random.seed(training_args.seed)
 

@@ -1931,3 +1931,29 @@ def test_flash_kernels_at_the_sharded_train_shapes(dev, H, S):
         err = (got.float() - w.float()).abs().max().item()
         assert err <= BWD_TOL[bf] * max(w.float().abs().max().item(), 1.0), \
             (name, err)
+
+
+@pytest.mark.parametrize("block", ["full", "diagonal", "keyless"])
+def test_flash_kernel_at_the_ring_blocks(dev, block):
+    """One step of ring attention at 7B's attention widths (32 heads, Dh
+    128, bf16, 4,096 queries a rank): an earlier rank's block (full), the
+    rank's own (diagonal-causal), and a block whose keys are all padding,
+    whose rows must carry lse = -1e30 and a zero output, so that the
+    ring's merge adds nothing for them."""
+    B, H, S, Dh, bf = 1, 32, 4096, 128, torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(22)
+    q, k, v = (torch.randn((B, H, S, Dh), generator=g, device=dev, dtype=bf)
+               for _ in range(3))
+    valid = torch.ones((B, S), dtype=torch.bool, device=dev)
+    if block == "keyless":
+        valid[:] = False
+    kw = dict(causal=block == "diagonal", kv_valid=valid)
+    out, lse = tflash.flash_attention_lse(q, k, v, **kw)
+    want_o, want_l = tflash.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), want_o.float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(lse, want_l, atol=1e-3, rtol=1e-3)
+    if block == "keyless":
+        assert bool((lse == tflash.LSE_MASKED).all())
+        assert not out.any()

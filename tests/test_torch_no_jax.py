@@ -52,6 +52,7 @@ import numpy as np
 import torch
 import matryoshka_mm_torch.train.train, matryoshka_mm_torch.train.train_mem
 import matryoshka_mm_torch.parallel.sharding, matryoshka_mm_torch.parallel.inference
+import matryoshka_mm_torch.parallel.pipeline, matryoshka_mm_torch.parallel.ring_attention
 import matryoshka_mm_torch.train.data, matryoshka_mm_torch.train.sampler
 import matryoshka_mm_torch.utils.checkpoint, matryoshka_mm_torch.models.router
 from matryoshka_mm_torch.models.builder import load_pretrained_model
