@@ -443,12 +443,34 @@ Phases; any failure exits non-zero, and no phase's exception is caught:
    Printed with the card's name and power limit: seconds of the pipeline
    step by rank, the shift's share, peak memory by rank, the ring's ms and
    shift share by rank.
+23. orbax: the JAX package's checkpoint format on a host with no JAX, orbax,
+   tensorstore or zstandard.  The port's zstd decoder (native/zstd.cpp) is
+   built with g++ and decodes every committed zstandard frame of
+   tests/data/torch_orbax/frames to its recorded SHA-256 (MB/s printed on
+   the largest and on the level-1 float16 one); the committed JAX-written tiny checkpoint loads in float32
+   through load_pretrained_model and gives the JAX greedy tokens recorded
+   beside it, with #1 and #2 launched; debug://7b (SMOKE_DEPTH layers,
+   bf16) is written by save_checkpoint and read back through
+   load_pretrained_model in bf16 and under load_4bit, every leaf and 32
+   greedy tokens bit-identical to the model in memory (quantized in place
+   for load_4bit), exact launches of #1, #2, #4 and #6; write and read
+   seconds and GB/s, the host's peak RSS, device memory at the peak, and
+   phase 12's safetensors load GB/s of the same call beside them.
 
 With arguments (`python3 chip_smoke.py kernels quant slice qslice paged hbm
 serve smallinfer bwd train small ckpt anyres genmodes families famkernels
-lora frontend eval harness tp shard pipe`) only the build and the named phases run
+lora frontend eval harness tp shard pipe orbax`) only the build and the named phases run
 (famkernels: phase 3's cases at the families' shapes), and no result line is
 printed.
+
+Depth: phases 4, 10, 12, 16, the quantized TP engines of 20, the 7B LoRA case
+of 21 at tp = 2, the pipeline of 22, and 23 cut debug://7b's decoder to
+SMOKE_DEPTH = 16 layers, widths unchanged (load_7b, cut_cfg), so that the
+script ends within its limit on a card host whose CPU it shares; there, where
+the text above says 32 layers (or 32 launches a step), read SMOKE_DEPTH.
+Phases whose gates ask the kernel path and a reference for the same argmax
+on random weights (5, 7, 13, 14, 15) keep 32 layers, as do the bf16 TP load
+of 20, the HTTP worker of 17 and the eval and harness CLIs of 18-19.
 
 Each kernel's record carries its bound: the larger of its bytes (inputs once,
 outputs once) over 3.35 TB/s and its operations over 989 TFLOP/s, the H100
@@ -1325,6 +1347,41 @@ def make_prompt(rng, length, vocab):
     return ids
 
 
+# The decoder depth of the phases that make llava-v1.5-7b-m3 (or another
+# 7B family) themselves: the whole script has to end within its 1,200 s on
+# a card host whose CPU it shares, and took 1,321.5 s at 32 layers on one
+# such host (NVIDIA H100 80GB HBM3, 700 W).  Widths stay the published ones;
+# the entry points that make debug://7b inside the port (the TP engine's
+# bf16 load, the HTTP worker, the eval and harness CLIs) keep 32 layers.
+SMOKE_DEPTH = 16
+
+
+def cut_cfg(cfg, layers: int = SMOKE_DEPTH):
+    """``cfg`` with its decoder cut to ``layers`` layers."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, llama=dataclasses.replace(
+        cfg.llama, num_hidden_layers=layers))
+
+
+def load_7b(dev, load_4bit=False, load_8bit=False, kv_cache_dtype=""):
+    """load_pretrained_model("debug://7b") with the decoder cut to
+    SMOKE_DEPTH layers before it is quantized, as the loader quantizes
+    (load_4bit wins; fused projections)."""
+    from matryoshka_mm_torch.models.builder import (LlavaModel, _quantize,
+                                                    load_pretrained_model)
+
+    tok, model, proc, ctx = load_pretrained_model("debug://7b",
+                                                  device=str(dev))
+    params, cfg = model.params, cut_cfg(model.cfg)
+    params["llama"]["layers"] = params["llama"]["layers"][:SMOKE_DEPTH]
+    del model
+    _quantize(params, load_8bit, load_4bit, True)
+    if kv_cache_dtype:
+        cfg = cfg.with_kv_cache_dtype(kv_cache_dtype)
+    return tok, LlavaModel(params, cfg), proc, ctx
+
+
 def make_inputs(cfg) -> dict:
     """batch -> (ids, pixels, mask): one B=1 prompt and a left-padded B=4
     batch, from a seed."""
@@ -1608,9 +1665,9 @@ def phase_slice(dev) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    _, model, _, _ = load_pretrained_model("debug://7b", device=str(dev))
+    _, model, _, _ = load_7b(dev)
     torch.cuda.synchronize()
-    print(f"[slice] debug://7b made on the card in "
+    print(f"[slice] debug://7b ({SMOKE_DEPTH} layers) made on the card in "
           f"{time.perf_counter() - t0:.1f} s")
     cfg = model.cfg
     n_layers = cfg.llama.num_hidden_layers
@@ -2749,7 +2806,7 @@ def phase_train(dev) -> dict:
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    _, model, _, _ = load_pretrained_model("debug://7b", device=str(dev))
+    _, model, _, _ = load_7b(dev)
     cfg = dataclasses.replace(model.cfg, llama=dataclasses.replace(
         model.cfg.llama, remat=True))
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -3252,6 +3309,10 @@ def _same_leaves(got, want) -> list:
                                     and torch.equal(got[p], want[p]))]
 
 
+# phase 12's load rates by label, printed beside phase 23's
+LOAD_GB_S = {}
+
+
 def timed_load(label, path, dev, **kw):
     """load_pretrained_model on ``path``, timed; prints seconds, GB/s of the
     files, the device memory it added at its peak and the host's peak
@@ -3272,6 +3333,7 @@ def timed_load(label, path, dev, **kw):
         out = load_pretrained_model(str(path), device=str(dev), **kw)
         torch.cuda.synchronize()
     secs = time.perf_counter() - t0
+    LOAD_GB_S[label] = files / 1e9 / secs
     print(f"[ckpt] {card_line()}: {label}: loaded {files / 1e9:.2f} GB in "
           f"{secs:.2f} s ({files / 1e9 / secs:.2f} GB/s); device memory "
           f"+{(torch.cuda.max_memory_allocated() - before) / 2**30:.2f} GiB "
@@ -3316,8 +3378,8 @@ def phase_ckpt(dev) -> dict:
                 "decode_attention": flash_decode_attention,
                 "flash_attention": flash_attention_lse}
     torch.cuda.empty_cache()
-    _, ref, _, _ = load_pretrained_model("debug://7b", device=str(dev))
-    cfg = LlavaConfig.llava_v15_7b_m3(moe=CKPT_MOE)
+    _, ref, _, _ = load_7b(dev)
+    cfg = cut_cfg(LlavaConfig.llava_v15_7b_m3(moe=CKPT_MOE))
     ref.cfg = cfg
     ref.params["router"] = init_dense_gating_params(
         torch.Generator(device=dev).manual_seed(0), cfg.mm_hidden_size,
@@ -3398,8 +3460,7 @@ def phase_ckpt(dev) -> dict:
 
         # ---- load_4bit: every quantized leaf and 32 tokens ----
         _, model, _, _ = timed_load("load_4bit", path, dev, load_4bit=True)
-        _, ref4, _, _ = load_pretrained_model("debug://7b", device=str(dev),
-                                              load_4bit=True)
+        _, ref4, _, _ = load_7b(dev, load_4bit=True)
         bad = _same_leaves(model.params["llama"], ref4.params["llama"])
         want = run(ref4, inputs[1], BATCH_SCALE, NEW_TOKENS)
         del ref4
@@ -5437,7 +5498,7 @@ def phase_lora(dev) -> dict:
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    _, model, _, _ = load_pretrained_model("debug://7b", device=str(dev))
+    _, model, _, _ = load_7b(dev)
     cfg = model.cfg
     adapters = make_adapters(model.params, dev)
     lap("debug://7b and two adapters")
@@ -7194,9 +7255,9 @@ def tp_7b(dev) -> dict:
     ids, px, _ = inputs
     launches = {}
 
-    def counted(label, engine, scales, want_q):
-        """The counted requests; returns their tokens and the wall s of
-        the first."""
+    def counted(label, engine, scales, want_q, L):
+        """The counted requests of an L-layer engine; returns their tokens
+        and the wall s of the first."""
         engine.generate(ids, px, gen_cfg=_gcfg(1),
                         matryoshka_vis_token_scale=f"ver=v0_numtoks="
                                                    f"{scales[0]}")  # warm-up
@@ -7219,7 +7280,7 @@ def tp_7b(dev) -> dict:
         _add(launches, _tp_launches(engine, label, want))
         return outs, walls[0]
 
-    def against_one_card(label, engine, params, outs):
+    def against_one_card(label, engine, params, cfg, outs):
         """The prefill logits and those of TP_FORCED_STEPS decode steps,
         teacher-forced with one card's greedy tokens, against one card's
         (each at cosine >= LOGIT_COS); the greedy tokens side by side."""
@@ -7250,37 +7311,41 @@ def tp_7b(dev) -> dict:
             print(f"[tp {label} {n}] tokens {got[0, :12].tolist()}; the "
                   f"first {same} of {NEW_TOKENS} equal one card's")
 
-    outs, full = counted("bf16", eng, TP_SCALES, {})
-    against_one_card("bf16", eng, model.params, outs)
+    outs, full = counted("bf16", eng, TP_SCALES, {}, L)
+    against_one_card("bf16", eng, model.params, cfg, outs)
     tp_timings(model, inputs, "bf16", full)
     eng.close()
 
     for label, bits, scales in TP_QUANT_RUNS:
         gc.collect()
         torch.cuda.empty_cache()
-        qparams = {**model.params, "llama": _tree_copy(model.params["llama"])}
+        # the quantized engines at SMOKE_DEPTH layers (the script's time)
+        llama = model.params["llama"]
+        qparams = {**model.params, "llama": _tree_copy(
+            {**llama, "layers": llama["layers"][:SMOKE_DEPTH]})}
+        qcfg, qL = cut_cfg(cfg), SMOKE_DEPTH
         quantize_llama_params(qparams, bits, fuse=False)
         t0 = time.perf_counter()
-        eng = TPEngine(qparams, cfg, TP_RANKS, devices=[dev] * TP_RANKS,
+        eng = TPEngine(qparams, qcfg, TP_RANKS, devices=[dev] * TP_RANKS,
                        backend="gloo")
         print(f"[tp {label}] engine up in {time.perf_counter() - t0:.1f} s")
         try:
             name = f"int{bits}_matmul"
             outs, full = counted(label, eng, scales, {
-                name: 4 * L + 1 + (NEW_TOKENS - 1) * (2 * L + 1),
-                "quant_mlp": (NEW_TOKENS - 1) * L})
-            against_one_card(label, eng, qparams, outs)
+                name: 4 * qL + 1 + (NEW_TOKENS - 1) * (2 * qL + 1),
+                "quant_mlp": (NEW_TOKENS - 1) * qL}, qL)
+            against_one_card(label, eng, qparams, qcfg, outs)
             whole = [(layer["self_attn"]["o_proj"], layer["mlp"]["down_proj"])
                      for layer in qparams["llama"]["layers"]]
             bad = eng.call(_k_shard_mismatches, whole)
             print(f"[tp {label}] every rank's o and down K-shards of all "
-                  f"{L} layers against the whole weight's columns, "
+                  f"{qL} layers against the whole weight's columns, "
                   f"dequantized: mismatching layers by rank {bad}")
             if any(bad):
                 fail(f"tp {label}: a K-shard is not the whole weight's "
                      f"columns")
             if bits == 4:
-                qmodel = LlavaModel(qparams, cfg)
+                qmodel = LlavaModel(qparams, qcfg)
                 qmodel.tp_engine = eng
                 tp_timings(qmodel, inputs, label, full)
                 del qmodel
@@ -7326,7 +7391,7 @@ SHARD_WAIT_S = 900        # a world's processes: killed past it
 SHARD_WORLDS = (
     (2, (("small moe (2, 1)", "small", "moe", (2, 1), 4, None),
          ("small moe (1, 2)", "small", "moe", (1, 2), 4, None),
-         ("7b lora tp=2", "7b", "lora", (1, 2), 1, None),
+         ("7b lora tp=2", "7b", "lora", (1, 2), 1, SMOKE_DEPTH),
          ("7b lora dp=2", "7b", "lora", (2, 1), 2, SHARD_DP_LAYERS))),
     (4, (("small moe (2, 2)", "small", "moe", (2, 2), 4, None),)),
 )
@@ -7860,7 +7925,7 @@ def phase_shard(dev) -> dict:
 
 PIPE_STAGES, PIPE_MICRO = 2, 4
 PIPE_B, PIPE_T, PIPE_PAD = 4, 1024, 100   # rows, tokens, row 3's left pad
-PIPE_LAYERS = 32          # debug://7b's depth
+PIPE_LAYERS = SMOKE_DEPTH
 # the pipeline's hidden states and embeds gradients, and MPT's logits at
 # (1, 2), are gated on bit identity with one card (the same kernels on the
 # same rows, each row's sums in the same order); the cosines are printed
@@ -8568,6 +8633,217 @@ def _to(tree, dev):
     return tree.to(dev)
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the JAX package's orbax checkpoints
+# ---------------------------------------------------------------------------
+
+ORBAX_FIXTURE = REPO / "tests" / "data" / "torch_orbax"
+ORBAX_DECODE_REPS = 20
+ORBAX_WEIGHTS = "fp16_l1_check"
+
+
+def orbax_decoder() -> None:
+    """The decoder built on this host and held against the committed
+    frames; its MB/s on the largest one."""
+    import hashlib
+
+    from matryoshka_mm_torch.native import zstd
+
+    t0 = time.perf_counter()
+    zstd.lib()
+    build_s = time.perf_counter() - t0
+    table = json.loads((ORBAX_FIXTURE / "frames.json").read_text())
+    frames = {name: (ORBAX_FIXTURE / "frames" / f"{name}.zst").read_bytes()
+              for name in table}
+    for name, entry in table.items():
+        data = zstd.decompress(frames[name])
+        if len(data) != entry["size"] or \
+                hashlib.sha256(data).hexdigest() != entry["sha256"]:
+            fail(f"orbax: zstd frame {name} decodes to other bytes")
+    rates = []
+    # the largest frame, and the level-1 float16 one (a weight-like chunk,
+    # as the JAX package writes them: mostly Huffman-coded literals)
+    for name in (max(frames, key=lambda n: len(frames[n])), ORBAX_WEIGHTS):
+        out = bytearray(table[name]["size"])
+        t0 = time.perf_counter()
+        for _ in range(ORBAX_DECODE_REPS):
+            zstd.decompress_into(frames[name], out)
+        secs = (time.perf_counter() - t0) / ORBAX_DECODE_REPS
+        rates.append(f"{name} ({len(frames[name])} bytes, level "
+                     f"{table[name]['level']}, {table[name]['size']} "
+                     f"decoded) {table[name]['size'] / 1e6 / secs:.1f} MB/s")
+    print(f"[orbax] zstd decoder built in {build_s:.2f} s; {len(table)} "
+          f"committed frames decode to their SHA-256; decoded on one host "
+          f"core, mean of {ORBAX_DECODE_REPS}: " + "; ".join(rates))
+
+
+def orbax_tiny(dev, counters) -> dict:
+    """The committed JAX-written tiny checkpoint served in float32 on the
+    card: the JAX tokens recorded beside it; launches of #1 and #2."""
+    from matryoshka_mm_torch.generate import GenerationConfig, generate
+    from matryoshka_mm_torch.models.builder import load_pretrained_model
+
+    rec = json.loads((ORBAX_FIXTURE / "tokens.json").read_text())
+    _, model, _, _ = load_pretrained_model(str(ORBAX_FIXTURE / "ckpt"),
+                                           device=str(dev))
+    cfg = model.cfg
+    if cfg.llama.dtype != "float32" or model.params["llama"][
+            "embed_tokens"].dtype != torch.float32:
+        fail("orbax: the tiny checkpoint did not load in float32")
+    ids = np.asarray(rec["input_ids"], np.int32)
+    px = np.random.default_rng(rec["pixel_seed"]).standard_normal(
+        rec["pixel_shape"]).astype(np.float32)
+    for fn in counters.values():
+        fn.launches = 0
+    got = generate(model.params, cfg, ids, px,
+                   matryoshka_vis_token_scale=rec[
+                       "matryoshka_vis_token_scale"],
+                   gen_cfg=GenerationConfig(**rec["gen"]))
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    L, n = cfg.llama.num_hidden_layers, rec["gen"]["max_new_tokens"]
+    expect = dict.fromkeys(counters, 0)
+    expect.update(flash_attention=L, decode_attention=(n - 1) * L)
+    print(f"[orbax] JAX-written tiny checkpoint (float32, {L} layers, Dh "
+          f"{cfg.llama.head_dim}): tokens {got.tolist()}, JAX's "
+          f"{rec['tokens']}; launches {launches} expected {expect}")
+    if got.tolist() != rec["tokens"] or launches != expect:
+        fail("orbax: the JAX-written tiny checkpoint does not give the JAX "
+             "tokens through the kernels")
+    return launches
+
+
+def orbax_load(label, path, dev, **kw):
+    """load_pretrained_model on an orbax directory, timed as timed_load
+    times phase 12's: seconds, GB/s of the files, device memory at the
+    peak, the host's peak RSS."""
+    from matryoshka_mm_torch.models.builder import load_pretrained_model
+
+    files = sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+    drop_page_cache(*{f.parent for f in path.rglob("*") if f.is_file()})
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rss_before = PeakRss.now()
+    t0 = time.perf_counter()
+    with PeakRss() as rss:
+        out = load_pretrained_model(str(path), device=str(dev), **kw)
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    print(f"[orbax] {card_line()}: {label}: read {files / 1e9:.2f} GB in "
+          f"{secs:.2f} s ({files / 1e9 / secs:.2f} GB/s; phase 12's "
+          f"safetensors bf16 load in this call: "
+          + (f"{LOAD_GB_S['bf16']:.2f} GB/s" if "bf16" in LOAD_GB_S
+             else "not run") +
+          f"); device memory +{(torch.cuda.max_memory_allocated() - before) / 2**30:.2f}"
+          f" GiB at its peak, +{(torch.cuda.memory_allocated() - before) / 2**30:.2f}"
+          f" GiB held; host RSS {rss_before / 2**30:.2f} GiB before, "
+          f"{rss.peak / 2**30:.2f} GiB at its peak (page cache dropped "
+          f"first)")
+    return out
+
+
+def phase_orbax(dev) -> dict:
+    """The JAX package's orbax checkpoint format on the card host: the
+    decoder, the JAX-written tiny checkpoint, debug://7b written by
+    save_checkpoint and read back in bf16 and under load_4bit.  Returns
+    the launch counts of the counted requests."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from matryoshka_mm_torch.models.builder import (_quantize,
+                                                    load_pretrained_model)
+    from matryoshka_mm_torch.ops import fused_mlp, int4_matmul
+    from matryoshka_mm_torch.ops.decode_attention import flash_decode_attention
+    from matryoshka_mm_torch.ops.flash_attention import flash_attention_lse
+    from matryoshka_mm_torch.train.optimizer import named_leaves
+    from matryoshka_mm_torch.utils.checkpoint import save_checkpoint
+
+    counters = {"int4_matmul": int4_matmul.int4_matmul,
+                "quant_mlp": fused_mlp.quant_mlp,
+                "decode_attention": flash_decode_attention,
+                "flash_attention": flash_attention_lse}
+    orbax_decoder()
+    total = orbax_tiny(dev, counters)
+
+    torch.cuda.empty_cache()
+    _, ref, _, _ = load_7b(dev)
+    cfg = ref.cfg
+    L = cfg.llama.num_hidden_layers
+    inputs = make_inputs(cfg)
+    nbytes = sum(t.numel() * t.element_size()
+                 for _, t in named_leaves(ref.params))
+    path = Path(tempfile.mkdtemp(prefix="m3_orbax_"))
+    try:
+        free = shutil.disk_usage(path).free
+        if free < 1.05 * nbytes:
+            fail(f"orbax: {free / 1e9:.1f} GB free beside {path}, the "
+                 f"checkpoint takes {nbytes / 1e9:.1f} GB")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        with PeakRss() as rss:
+            save_checkpoint(str(path), ref.params, cfg)
+            os.sync()
+        secs = time.perf_counter() - t0
+        files = sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+        print(f"[orbax] {card_line()}: save_checkpoint of debug://7b ({L} "
+              f"layers, bf16, {nbytes / 1e9:.2f} GB of leaves): wrote "
+              f"{files / 1e9:.2f} GB in {secs:.2f} s ({files / 1e9 / secs:.2f}"
+              f" GB/s, synced) to {path}, of {free / 1e9:.1f} GB free; "
+              f"device memory +{(torch.cuda.max_memory_allocated() - before) / 2**30:.2f}"
+              f" GiB at its peak; host RSS {rss.peak / 2**30:.2f} GiB at "
+              f"its peak")
+
+        # ---- bf16: every leaf and 32 tokens ----
+        _, model, _, _ = orbax_load("bf16", path, dev)
+        bad = _same_leaves(model.params, ref.params)
+        want = run(ref, inputs[1], BATCH_SCALE, NEW_TOKENS)
+        got, launches = counted_request(model, inputs[1], BATCH_SCALE,
+                                        counters)
+        expect = dict.fromkeys(counters, 0)
+        expect.update(flash_attention=L,
+                      decode_attention=(NEW_TOKENS - 1) * L)
+        print(f"[orbax] bf16: {len(list(named_leaves(model.params)))} "
+              f"leaves, {len(bad)} differ; config equal {model.cfg == cfg};"
+              f" {NEW_TOKENS} tokens at {BATCH_SCALE} equal "
+              f"{np.array_equal(got, want)}; launches {launches} expected "
+              f"{expect}")
+        if bad or model.cfg != cfg or not np.array_equal(got, want) \
+                or launches != expect:
+            fail(f"orbax: the bf16 read is not debug://7b: {bad[:4]}")
+        for k in total:
+            total[k] += launches[k]
+        del model
+
+        # ---- load_4bit: the model in memory quantized in place ----
+        _, model, _, _ = orbax_load("load_4bit", path, dev, load_4bit=True)
+        _quantize(ref.params, False, True, True)
+        bad = _same_leaves(model.params, ref.params)
+        want = run(ref, inputs[1], BATCH_SCALE, NEW_TOKENS)
+        got, launches = counted_request(model, inputs[1], BATCH_SCALE,
+                                        counters)
+        steps = NEW_TOKENS - 1
+        expect = {"int4_matmul": (4 * L + 1) + steps * (2 * L + 1),
+                  "quant_mlp": steps * L, "decode_attention": steps * L,
+                  "flash_attention": L}
+        print(f"[orbax] load_4bit: {len(bad)} leaves differ from the model "
+              f"in memory under load_4bit; tokens equal "
+              f"{np.array_equal(got, want)}; launches {launches} expected "
+              f"{expect}")
+        if bad or not np.array_equal(got, want) or launches != expect:
+            fail(f"orbax: the load_4bit read differs: {bad[:4]}")
+        for k in total:
+            total[k] += launches[k]
+        del model, ref
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    return total
+
+
 def timed(phase, dev):
     """Run one phase; print its wall seconds."""
     t0 = time.perf_counter()
@@ -8593,10 +8869,10 @@ def main(argv=()) -> int:
         # a subset for work on one phase: `chip_smoke.py kernels quant slice
         # qslice paged hbm serve smallinfer bwd train small ckpt anyres
         # genmodes families famkernels lora frontend eval harness tp shard
-        # pipe` runs phases 3 (attention kernels), 3 (quantized products),
-        # 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, phase 3's cases at the
-        # families' shapes, 16, 17, 18, 19, 20, 21 and 22 alone and prints
-        # no result line
+        # pipe orbax` runs phases 3 (attention kernels), 3 (quantized
+        # products), 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, phase 3's
+        # cases at the families' shapes, 16, 17, 18, 19, 20, 21, 22 and 23
+        # alone and prints no result line
         for name in argv:
             phases = {"kernels": phase_kernels, "quant": phase_quant_kernels,
              "slice": phase_slice, "smallinfer": phase_small,
@@ -8608,7 +8884,8 @@ def main(argv=()) -> int:
              "families": phase_families, "famkernels": phase_family_kernels,
              "lora": phase_lora, "frontend": phase_frontend,
              "eval": phase_eval, "harness": phase_harness, "tp": phase_tp,
-             "shard": phase_shard, "pipe": phase_pipe}
+             "shard": phase_shard, "pipe": phase_pipe,
+             "orbax": phase_orbax}
             timed(phases[name], dev)
         print(f"partial run {argv}: no result")
         return 1
@@ -8657,6 +8934,8 @@ def main(argv=()) -> int:
         launches[k] = launches.get(k, 0) + n
     for k, e in pipe_errs.items():
         rec[k]["err"] = max(rec[k]["err"], e)
+    for k, n in timed(phase_orbax, dev).items():
+        launches[k] = launches.get(k, 0) + n
     if [m for m in sys.modules
             if m.split(".")[0] in ("jax", "matryoshka_mm_tpu")]:
         fail("jax or the JAX package was imported")

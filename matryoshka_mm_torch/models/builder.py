@@ -44,7 +44,7 @@ from matryoshka_mm_torch.image_processing import ClipImageProcessor
 
 from ..config import (ClipVisionConfig, LlamaConfig, LlavaConfig, M3Preset,
                       router_features)
-from ..ops.quant import quantize_llama_params
+from ..ops.quant import is_quantized, quantize_llama_params
 from .convert import (convert_llava_state, init_params, lora_pairs,
                       merge_lora, random_vision_tower)
 
@@ -345,6 +345,10 @@ def load_pretrained_model(
         from ..utils.checkpoint import load_checkpoint
 
         params, cfg = load_checkpoint(model_path, device=device)
+        if "llama" in params and not _holds_quantized(params["llama"]):
+            # the JAX builder ignores load_4bit / load_8bit here (ROADMAP.md
+            # Queue 3); a checkpoint saved quantized stays as it is
+            _quantize(params, load_8bit, load_4bit, quant_fuse)
         return _load_tokenizer(model_path, model_base,
                                cfg.llama.vocab_size), \
             finish(params, cfg), image_processor, \
@@ -365,6 +369,16 @@ def load_pretrained_model(
                              cfg.tokenizer_model_max_length)
     return _load_tokenizer(model_path, model_base, cfg.llama.vocab_size), \
         finish(params, cfg), image_processor, context_len
+
+
+def _holds_quantized(tree) -> bool:
+    if is_quantized(tree):
+        return True
+    if isinstance(tree, dict):
+        return any(_holds_quantized(v) for v in tree.values())
+    if isinstance(tree, list):
+        return any(_holds_quantized(v) for v in tree)
+    return False
 
 
 def _quantize(params: dict, load_8bit: bool, load_4bit: bool,

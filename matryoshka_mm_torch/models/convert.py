@@ -44,25 +44,47 @@ from .projector import projector_depth
 from .router import init_dense_gating_params
 
 
-def _tensor(a, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
+class _Staging:
+    """Pinned host buffers that a checkpoint reader's lazy arrays are read
+    into on their way to the card, one per slot (a leaf and its scale or
+    bias), reused leaf after leaf: no fresh pages to fault in, and the
+    copies to the card are DMA transfers."""
+
+    def __init__(self):
+        self.bufs: Dict[int, torch.Tensor] = {}
+
+    def take(self, slot: int, shape, dtype: torch.dtype) -> torch.Tensor:
+        n = int(np.prod(shape)) * torch.empty((), dtype=dtype).element_size()
+        buf = self.bufs.get(slot)
+        if buf is None or buf.numel() < n:
+            self.bufs[slot] = buf = None
+            buf = self.bufs[slot] = torch.empty(n, dtype=torch.uint8,
+                                                pin_memory=True)
+        return buf[:n].view(dtype).view(shape)
+
+
+def _host(a, staging: Optional[_Staging] = None, slot: int = 0):
+    """A JAX leaf as a CPU tensor: a numpy array (ml_dtypes bfloat16
+    included), a CPU tensor, or a checkpoint reader's lazy array, which is
+    read here (into ``staging``'s buffer ``slot`` when given: valid until
+    that slot is taken again)."""
+    if hasattr(a, "load"):              # utils/orbax_io.LazyArray
+        a = a.load(staging.take(slot, a.shape, a.dtype)
+                   if staging is not None else None)
+    if isinstance(a, torch.Tensor):
+        return a
     a = np.asarray(a)
-    if a.dtype.name == "bfloat16":   # ml_dtypes bfloat16 from JAX
-        t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
-    else:
-        t = torch.from_numpy(np.array(a, order="C"))   # a writable copy
-    return t.to(device=device, dtype=dtype or t.dtype)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a, order="C"))   # a writable copy
 
 
-def _unstack(tree: dict, n: int) -> list:
-    """Stacked ``{name: (n, ...)}`` tree -> list of n per-layer trees."""
-    def pick(node, i):
-        if is_quantized(node):
-            return {k: v if k == "orig_shape" else v[i]
-                    for k, v in node.items()}
-        if isinstance(node, dict):
-            return {k: pick(v, i) for k, v in node.items()}
-        return node[i]
-    return [pick(tree, i) for i in range(n)]
+def _tensor(a, device, dtype: Optional[torch.dtype]):
+    """A contiguous copy of ``a`` (a tensor or a JAX leaf, as
+    :func:`_host` takes it) on ``device`` that shares no storage with it."""
+    t = a if isinstance(a, torch.Tensor) else _host(a)
+    return t.to(device=device, dtype=dtype or t.dtype,
+                memory_format=torch.contiguous_format, copy=True)
 
 
 def strip_padding(leaf: dict) -> dict:
@@ -77,37 +99,89 @@ def strip_padding(leaf: dict) -> dict:
     return {key: q, "scale": scale}
 
 
-def _map(tree, fn):
+def _split(h: torch.Tensor, fn, n: Optional[int], keep_dtype=False):
+    """One host leaf converted whole, or as its ``n`` stacked slices."""
+    if n is None:
+        return fn(h, keep_dtype=keep_dtype)
+    if h.shape[0] != n:
+        raise ValueError(f"stacked leaf has {h.shape[0]} entries, expected "
+                         f"{n}")
+    return [fn(h[i], keep_dtype=keep_dtype) for i in range(n)]
+
+
+def _zip(tree: dict, n: Optional[int]):
+    """``{k: [n per-layer values]}`` -> n per-layer dicts."""
+    if n is None:
+        return tree
+    return [{k: v[i] for k, v in tree.items()} for i in range(n)]
+
+
+def _map(tree, fn, n: Optional[int] = None,
+         staging: Optional[_Staging] = None):
+    """A JAX subtree -> the port's, each leaf read once and converted by
+    ``fn``.  With ``n`` the subtree is stacked ``(n, ...)`` and a list of
+    n per-layer subtrees comes back."""
     if is_quantized(tree):
-        return {k: fn(v, keep_dtype=True)
-                for k, v in strip_padding(tree).items()}
+        key = Q4KEY if Q4KEY in tree else QKEY
+        q = _host(tree[key], staging, 0)
+        scale = _host(tree["scale"], staging, 1)
+        shape = tree.get("orig_shape")
+        if shape is not None:
+            k = shape.k // 2 if key == Q4KEY else shape.k
+            q, scale = q[..., :shape.n, :k], scale[..., :shape.n, :]
+        return _zip({key: _split(q, fn, n, keep_dtype=True),
+                     "scale": _split(scale, fn, n, keep_dtype=True)}, n)
     if isinstance(tree, dict):
         if set(tree) == {"kernel", "bias"}:
-            return {"weight": fn(np.asarray(tree["kernel"]).T),
-                    "bias": fn(tree["bias"])}
-        return {k: _map(v, fn) for k, v in tree.items()}
+            kernel = _host(tree["kernel"], staging, 0).mT
+            bias = _host(tree["bias"], staging, 1)
+            return _zip({"weight": _split(kernel, fn, n),
+                         "bias": _split(bias, fn, n)}, n)
+        return _zip({k: _map(v, fn, n, staging) for k, v in tree.items()}, n)
     if isinstance(tree, list):
-        return [_map(v, fn) for v in tree]
-    return fn(tree)
+        items = [_map(v, fn, n, staging) for v in tree]
+        return items if n is None else [[v[i] for v in items]
+                                        for i in range(n)]
+    return _split(_host(tree, staging, 0), fn, n)
+
+
+def _lora_from_jax(tree: dict, cfg: LlavaConfig, fn, staging) -> dict:
+    """A JAX ``extract_lora`` tree: adapters of stacked layers unstacked."""
+    out = {}
+    for key, sub in tree.items():
+        n = {"llama": cfg.llama.num_hidden_layers,
+             "vision_tower": cfg.vision.num_hidden_layers}.get(key)
+        if n is not None and "layers" in sub:
+            out[key] = {k: _map(v, fn, n if k == "layers" else None, staging)
+                        for k, v in sub.items()}
+        else:
+            out[key] = _map(sub, fn, staging=staging)
+    return out
 
 
 def params_from_jax(np_tree: dict, cfg: LlavaConfig, device="cuda",
                     dtype: Optional[torch.dtype] = None) -> dict:
-    """JAX LLaVA parameters (every leaf as a numpy array) -> port params.
-    ``dtype`` casts every float leaf; None keeps each leaf's dtype.
-    Quantized leaves keep theirs."""
+    """JAX LLaVA parameters -> port params.  Leaves are numpy arrays, CPU
+    tensors or a checkpoint reader's lazy arrays (each read once, as it is
+    converted, so the host holds one leaf at a time).  The tree may be a
+    subset a checkpoint saves: the projector-only one, or the LoRA one
+    (``lora`` + the non-LoRA trainables).  ``dtype`` casts every float
+    leaf; None keeps each leaf's dtype.  Quantized leaves keep theirs."""
     def fn(a, keep_dtype=False):
         return _tensor(a, device, None if keep_dtype else dtype)
 
-    llama = dict(np_tree["llama"])
-    vis = dict(np_tree["vision_tower"])
-    llama["layers"] = _unstack(llama["layers"], cfg.llama.num_hidden_layers)
-    vis["layers"] = _unstack(vis["layers"], cfg.vision.num_hidden_layers)
-    out = {"llama": _map(llama, fn), "vision_tower": _map(vis, fn),
-           "mm_projector": _map(np_tree["mm_projector"], fn)}
-    for key in ("router", "image_newline"):
-        if key in np_tree:
-            out[key] = _map(np_tree[key], fn)
+    staging = _Staging() if torch.device(device).type == "cuda" else None
+    out = {}
+    for key, sub in np_tree.items():
+        if key in ("llama", "vision_tower"):
+            n = (cfg.llama if key == "llama" else cfg.vision
+                 ).num_hidden_layers
+            out[key] = {k: _map(v, fn, n if k == "layers" else None, staging)
+                        for k, v in sub.items()}
+        elif key == "lora":
+            out[key] = _lora_from_jax(sub, cfg, fn, staging)
+        else:
+            out[key] = _map(sub, fn, staging=staging)
     return out
 
 
@@ -116,10 +190,104 @@ def bert_params_from_jax(np_tree: dict, cfg, device="cuda") -> dict:
     ``layers`` stacked) -> the port's ``models/text_embedder.py`` layout,
     float32: layers unstacked, dense kernels ``(in, out)`` transposed to
     ``(out, in)``."""
-    tree = dict(np_tree)
-    tree["layers"] = _unstack(tree["layers"], cfg.num_hidden_layers)
-    return _map(tree, lambda a, keep_dtype=False: _tensor(a, device,
-                                                          torch.float32))
+    def fn(a, keep_dtype=False):
+        return _tensor(a, device, torch.float32)
+
+    return {k: _map(v, fn, cfg.num_hidden_layers if k == "layers" else None)
+            for k, v in np_tree.items()}
+
+
+def _stack(items: list, lazy: bool, staging: Optional[_Staging] = None):
+    """Per-layer tensors -> one stacked leaf, built on the host layer by
+    layer (no second copy on the card), in ``staging``'s buffer when
+    given; with ``lazy`` a callable that builds it."""
+    def build():
+        first = items[0]
+        shape = (len(items), *first.shape)
+        out = staging.take(0, shape, first.dtype) if staging is not None \
+            else torch.empty(shape, dtype=first.dtype)
+        for i, t in enumerate(items):
+            out[i].copy_(t.detach())
+        return out
+    return build if lazy else build()
+
+
+def _to_jax(tree, stacked: bool, lazy: bool,
+            staging: Optional[_Staging] = None):
+    """A port subtree -> the JAX one: dense ``{"weight" (out, in), "bias"}``
+    -> ``{"kernel" (in, out), "bias"}``.  With ``stacked``, ``tree`` is a
+    list of per-layer subtrees of one structure, stacked leaf by leaf."""
+    first = tree[0] if stacked else tree
+    if isinstance(first, dict):
+        dense = set(first) == {"weight", "bias"} and first["weight"].dim() == 2
+        out = {}
+        for k in first:
+            sub = [t[k] for t in tree] if stacked else tree[k]
+            if dense and k == "weight":
+                sub = [t.mT for t in sub] if stacked else sub.mT
+                k = "kernel"
+            out[k] = _to_jax(sub, stacked, lazy, staging)
+        return out
+    if isinstance(first, list) and not stacked:
+        return [_to_jax(v, False, lazy, staging) for v in tree]
+    if isinstance(first, list):
+        return [_to_jax([t[i] for t in tree], True, lazy, staging)
+                for i in range(len(first))]
+    if stacked:
+        return _stack(tree, lazy, staging)
+    if not isinstance(tree, torch.Tensor):
+        return tree
+    t = tree.detach()
+    return (lambda: t.cpu().contiguous()) if lazy else t.contiguous()
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+
+
+def params_to_jax(params: dict, cfg: LlavaConfig, lazy: bool = False) -> dict:
+    """The inverse of :func:`params_from_jax`: the port's parameters (the
+    full tree, or the projector-only or LoRA subset) -> the JAX package's
+    tree, as torch tensors.  Per-layer lists are stacked ``(L, ...)``
+    (``cfg`` gives L) and dense weights transposed to ``(in, out)``
+    kernels; quantized leaves keep their unpadded ``q`` / ``q4`` and
+    ``scale``.  With ``lazy`` every leaf is a callable that builds it on
+    the host, so a writer holds one leaf at a time; parameters on the card
+    stack into one pinned buffer, so a built leaf is valid until the next
+    is built."""
+    on_card = any(t.is_cuda for t in _leaves(params))
+    staging = _Staging() if lazy and on_card else None
+
+    def subtree(sub: dict, n: int) -> dict:
+        out = {}
+        for k, v in sub.items():
+            if k == "layers":
+                if len(v) != n:
+                    raise ValueError(f"{len(v)} layers, expected {n}")
+                out[k] = _to_jax(v, True, lazy, staging)
+            else:
+                out[k] = _to_jax(v, False, lazy)
+        return out
+
+    layers = {"llama": cfg.llama.num_hidden_layers,
+              "vision_tower": cfg.vision.num_hidden_layers}
+    out = {}
+    for key, sub in params.items():
+        if key in layers:
+            out[key] = subtree(sub, layers[key])
+        elif key == "lora":
+            out[key] = {k: subtree(v, layers[k]) if k in layers
+                        and "layers" in v else _to_jax(v, False, lazy)
+                        for k, v in sub.items()}
+        else:
+            out[key] = _to_jax(sub, False, lazy)
+    return out
 
 
 def _llama_tree(lc, make) -> dict:

@@ -7,6 +7,10 @@ that carries a hash of the source and the flags, and bound with
 ``ctypes``.  Where no compiler is found or the build fails, ``get_lib``
 returns None and ``image_processing.py`` takes its PIL path, which gives
 the same bits.  This is host code, not a device kernel.
+
+:func:`build_library` is the build both libraries of this directory go
+through; ``zstd.py`` binds the other one (``zstd.cpp``), which has no
+fallback.
 """
 
 from __future__ import annotations
@@ -29,34 +33,43 @@ _lib = None
 _load_failed = False
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
-    h.update(SRC.read_bytes())
-    return BUILD_DIR / f"libimage_ops_{h.hexdigest()[:16]}.so"
+def library_path(src: Path = SRC, flags=GXX_FLAGS) -> Path:
+    h = hashlib.sha256(" ".join(flags).encode())
+    h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
 
 
-def _build(out: Path) -> bool:
-    """Compile into a temporary file beside ``out`` and move it into
-    place, so processes that build at once never load a partial file."""
+def build_library(src: Path, flags=GXX_FLAGS) -> Path:
+    """Compile ``src`` with ``g++`` unless its library is built already.
+    The build goes to a temporary file beside the library and is moved
+    into place, so processes that build at once never load a partial
+    file.  Raises ``RuntimeError`` with the compiler's message."""
+    out = library_path(src, flags)
+    if out.exists():
+        return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         lib = os.path.join(tmp, out.name)
         try:
-            subprocess.run(["g++", *GXX_FLAGS, str(SRC), "-o", lib],
-                           check=True, capture_output=True)
-        except (OSError, subprocess.CalledProcessError) as e:
-            print(f"[native] build failed: {e}")
-            return False
+            subprocess.run(["g++", *flags, str(src), "-o", lib],
+                           check=True, capture_output=True, text=True)
+        except OSError as e:
+            raise RuntimeError(f"cannot run g++ to build {src.name}: {e}")
+        except subprocess.CalledProcessError as e:
+            raise RuntimeError(f"g++ failed to build {src.name}:\n"
+                               f"{e.stderr}")
         os.replace(lib, out)
-    return True
+    return out
 
 
 def get_lib() -> Optional[ctypes.CDLL]:
     global _lib, _load_failed
     if _lib is not None or _load_failed:
         return _lib
-    path = library_path()
-    if not path.exists() and not _build(path):
+    try:
+        path = build_library(SRC)
+    except RuntimeError as e:
+        print(f"[native] build failed: {e}")
         _load_failed = True
         return None
     try:

@@ -1,11 +1,17 @@
-"""Checkpointing over ``torch.save`` / ``torch.load`` (port of
-``matryoshka_mm_tpu/utils/checkpoint.py``, which uses orbax).
+"""Checkpointing in the JAX package's layout (port of
+``matryoshka_mm_tpu/utils/checkpoint.py``, which saves with orbax): each
+package reads what the other writes.
 
 Layout of a checkpoint directory:
-  llava_config.json   model / arch config (JSON)
-  params.pt           the parameter tree (nested dicts and lists of tensors)
-  opt_state.pt        (train checkpoints only) optimizer state
+  llava_config.json   model / arch config (JSON, the JAX ``_cfg_to_json``)
+  params/             orbax ``StandardCheckpointer`` tree of the JAX
+                      package's parameters (layers stacked, dense kernels
+                      ``(in, out)``), written and read by ``orbax_io.py``
+  opt_state/          (when given) the optimizer state, the same format
   meta.json           step, EMA buffers
+
+:func:`load_checkpoint` also reads an older directory of the port, which
+held ``params.pt`` (``torch.save``) in place of ``params/``.
 """
 
 from __future__ import annotations
@@ -16,6 +22,8 @@ import os
 from typing import Optional, Tuple
 
 import torch
+
+from .orbax_io import read_tree, write_tree
 
 
 def _cfg_to_json(cfg) -> dict:
@@ -53,29 +61,46 @@ def _cfg_from_json(d: dict):
 def _detached(tree):
     if isinstance(tree, dict):
         return {k: _detached(v) for k, v in tree.items()}
-    if isinstance(tree, list):
+    if isinstance(tree, (list, tuple)):
         return [_detached(v) for v in tree]
     return tree.detach() if isinstance(tree, torch.Tensor) else tree
 
 
 def save_checkpoint(path: str, params, cfg, step: int = 0,
                     opt_state=None, extra: Optional[dict] = None) -> None:
+    """Write ``params`` (the port's tree, or a subset of it) as the JAX
+    package's ``save_checkpoint`` writes its own: the tree as JAX holds
+    it (``models/convert.py`` ``params_to_jax``), one leaf at a time."""
+    from ..models.convert import params_to_jax
+
     path = os.path.abspath(path)
     os.makedirs(path, exist_ok=True)
     with open(os.path.join(path, "llava_config.json"), "w") as f:
         json.dump(_cfg_to_json(cfg), f, indent=2)
-    torch.save(_detached(params), os.path.join(path, "params.pt"))
+    write_tree(os.path.join(path, "params"),
+               params_to_jax(params, cfg, lazy=True))
     if opt_state is not None:
-        torch.save(_detached(opt_state), os.path.join(path, "opt_state.pt"))
+        write_tree(os.path.join(path, "opt_state"), _detached(opt_state))
+    for old in ("params.pt", "opt_state.pt"):
+        if os.path.exists(os.path.join(path, old)):
+            os.remove(os.path.join(path, old))
     with open(os.path.join(path, "meta.json"), "w") as f:
         json.dump({"step": int(step), **(extra or {})}, f)
 
 
 def load_checkpoint(path: str, device="cuda") -> Tuple[dict, object]:
-    """Returns ``(params, cfg)`` with the tensors on ``device``."""
+    """Returns ``(params, cfg)`` with the tensors on ``device``, from a
+    directory either package wrote (each leaf read, converted to the
+    port's layout and moved to ``device`` before the next is read), or
+    from an older port directory's ``params.pt``."""
+    from ..models.convert import params_from_jax
+
     path = os.path.abspath(path)
     with open(os.path.join(path, "llava_config.json")) as f:
         cfg = _cfg_from_json(json.load(f))
+    if os.path.isdir(os.path.join(path, "params")):
+        tree = read_tree(os.path.join(path, "params"), lazy=True)
+        return params_from_jax(tree, cfg, device=device), cfg
     params = torch.load(os.path.join(path, "params.pt"),
                         map_location=device, weights_only=True)
     return params, cfg

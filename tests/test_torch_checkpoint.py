@@ -1,6 +1,7 @@
 """PyTorch port: ``utils/checkpoint.py``: the three save shapes (full,
-projector-only, LoRA) round-trip bit for bit, with the configuration, the
-meta data and the auto-resume discovery."""
+projector-only, LoRA) round-trip bit for bit through the JAX package's
+orbax layout, with the configuration, the optimizer state, the meta data
+and the auto-resume discovery."""
 
 import dataclasses
 import os
@@ -15,6 +16,7 @@ from matryoshka_mm_torch.ops.lora import add_lora, load_lora, strip_lora
 from matryoshka_mm_torch.ops.quant import quantize_llama_params
 from matryoshka_mm_torch.train.optimizer import named_leaves
 from matryoshka_mm_torch.utils import checkpoint as ck
+from matryoshka_mm_torch.utils.orbax_io import read_tree
 
 MOE = "t=dense_ft=cls_obj=weightedlm"
 
@@ -58,7 +60,9 @@ def test_full_checkpoint_round_trip(tmp_path, moe, bits):
     _assert_same_tree(restored, params)
     assert not any(t.requires_grad for _, t in named_leaves(restored))
     assert ck.load_meta(out) == {"step": 7, "argmaxcost_ema": 0.25}
-    assert os.path.exists(os.path.join(out, "opt_state.pt"))
+    assert os.path.isdir(os.path.join(out, "params"))
+    opt = read_tree(os.path.join(out, "opt_state"))
+    assert opt["count"] == 3 and torch.equal(opt["mu"]["a"], torch.ones(2))
     assert ck.load_meta(str(tmp_path)) == {}
 
 

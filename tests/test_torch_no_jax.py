@@ -333,6 +333,26 @@ def test_sources_import_no_jax():
     assert not bad, bad
 
 
+def test_sources_import_no_orbax_stack():
+    """The card host has neither ``orbax``, ``tensorstore`` nor
+    ``zstandard``: the port reads and writes the JAX package's orbax
+    checkpoints with ``utils/orbax_io.py`` and its own zstd decoder."""
+    bad = []
+    for p in _port_files():
+        if p.suffix != ".py":
+            continue
+        for node in ast.walk(ast.parse(p.read_text())):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names = [node.module]
+            bad += [f"{p.relative_to(REPO)}: {n}" for n in names
+                    if n.split(".")[0] in ("orbax", "tensorstore",
+                                           "zstandard")]
+    assert not bad, bad
+
+
 def test_sources_import_no_checkpoint_package_at_module_level():
     """The card host has neither ``safetensors`` nor ``transformers``: the
     port reads safetensors itself and imports ``transformers`` only inside

@@ -81,13 +81,16 @@ def test_two_train_steps_match_the_jax_trainer(name):
     start = {p: t.detach().clone() for p, t in topt.named_leaves(tparams)}
     assert float(tstate.argmaxcost_ema) == -1.0 and tstate.step == 0
 
-    for step in range(2):
-        def jloss(p, ema=jstate.argmaxcost_ema):
-            return jts.m3_loss(p, jcfg, jax_batch(batch), argmaxcost_ema=ema,
-                               frozen_vision=True)[0]
+    # the gradients of the JAX loss, for the norm over the trainable leaves;
+    # compiled once (eager, each step took ~10-50 s of the CPU)
+    def jloss(p, ema):
+        return jts.m3_loss(p, jcfg, jax_batch(batch), argmaxcost_ema=ema,
+                           frozen_vision=True)[0]
 
+    jgrad = jax.jit(jax.grad(jloss, allow_int=True))
+    for step in range(2):
         with jdisable():
-            jgrads = jax.grad(jloss, allow_int=True)(jstate.params)
+            jgrads = jgrad(jstate.params, jstate.argmaxcost_ema)
         jstate, jm = jstep(jstate, jax_batch(batch))
         tstate, tm = tstep(tstate, torch_batch(batch))
         jm = dict(jm)
